@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an H100 and the CUDA
+toolkit. It imports the port (``src/repro_torch``) and nothing of the JAX
+package, and runs four phases, each printing one JSON line:
+
+1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
+   csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
+2. ``kernels`` — hold each kernel against its plain PyTorch version on the
+   card at the serving path's full-width shapes plus ragged edges and the
+   router's limits, and time kernel, plain version and one library call
+   with CUDA events next to the card's bound for the same work.
+3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
+   engine on the card (kernels) and on the CPU (plain versions), same
+   seeded weights and placement, must give equal greedy tokens.
+4. ``serve``   — full granite-moe-3b-a800m (32 layers, bf16, seeded random
+   weights, paged KV, max_batch 8) serves 8 requests under a seeded
+   non-identity placement; tokens must equal an identity-placement run bit
+   for bit, and every MoE layer call must have launched the FFN and router
+   kernels (launch counts = 32 × (prefills + decode steps)).
+
+Then it prints the ``kernels`` summary line, the card's name and power
+limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
+raises and the script exits non-zero. TF32 is off for matmuls and cuDNN:
+fp32 products are full fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+ARCH = "granite-moe-3b-a800m"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS_PER_S = {  # dense, H100 SXM data sheet
+    torch.bfloat16: 989e12,  # tensor cores
+    torch.float32: 67e12,  # CUDA cores (TF32 is off)
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+# --------------------------------------------------------------------- build
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.load(name)
+    emit({"phase": "build", "sources": list(_build.SOURCES),
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+# ------------------------------------------------------------------- kernels
+def _ffn_case(S, C, D, F, dtype, gen, dev):
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    x = randn(S, C, D)
+    return (x, randn(S, D, F, scale=D ** -0.5), randn(S, D, F, scale=D ** -0.5),
+            randn(S, F, D, scale=(2 * F) ** -0.5))
+
+
+def _rel_err(got, want) -> tuple[float, float]:
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff, diff / max(want.float().abs().max().item(), 1e-30)
+
+
+def _router_logits(T, E, gen, dev):
+    logits = torch.randn((T, E), generator=gen, device=dev) * 2
+    logits[0] = 0.0  # a fully tied row: ids 0..k-1 must win
+    if T > 1:
+        logits[1, : E // 2] = logits[1, 0]
+    return logits.contiguous()
+
+
+def phase_kernels():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_ffn_ref, topk_router_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    cfg = get_config(ARCH)
+    S, D = cfg.num_virtual_experts, cfg.d_model
+    F = cfg.expert_d_ff // cfg.expert_tp
+    k, E = cfg.experts_per_token, cfg.num_experts
+    # decode: C = ceil(8·8/40·2.0) = 4 at max_batch 8; prefill: C = 32 at P=128
+    rows = []
+    tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+    summary = {}
+    ffn_cases = [
+        ("decode", S, 4, D, F, torch.bfloat16),
+        ("prefill", S, 32, D, F, torch.bfloat16),
+        ("decode_fp32", S, 4, D, F, torch.float32),
+        ("ragged_c1", S, 1, D, F, torch.bfloat16),
+        ("ragged_c3", S, 3, D, F, torch.float32),
+        ("ragged_c33", S, 33, D, F, torch.bfloat16),
+        ("ragged_f96", 8, 4, D, 96, torch.float32),
+    ]
+    for tag, s, c, d, f, dtype in ffn_cases:
+        args = _ffn_case(s, c, d, f, dtype, gen, dev)
+        got = ops.moe_ffn(*args)
+        want = moe_ffn_ref(*args)
+        torch.cuda.synchronize()
+        abs_err, rel = _rel_err(got, want)
+        check(bool(torch.isfinite(got.float()).all()), f"moe_ffn {tag}: non-finite")
+        check(rel <= tol[dtype],
+              f"moe_ffn {tag}: relative error {rel} > {tol[dtype]}")
+        row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
+               "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel}
+        if tag in ("decode", "prefill"):
+            x, wg, wu, wd = args
+
+            def library():
+                h = torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
+                return torch.bmm(h, wd)
+
+            el = x.element_size()
+            nbytes = (2 * x.numel() + wg.numel() + wu.numel() + wd.numel()) * el
+            b_ms, b_by = bound(nbytes, 2.0 * s * c * d * f * 3, dtype)
+            row.update(
+                ms=time_ms(lambda: ops.moe_ffn(*args), 50),
+                plain_ms=time_ms(lambda: moe_ffn_ref(*args), 20),
+                library_ms=time_ms(library, 50),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+            if tag == "decode":
+                summary["moe_ffn"] = row
+        rows.append(row)
+
+    router_cases = [("decode", 8, E, k), ("prefill", 128, E, k),
+                    ("ragged_t5", 5, E, k), ("limits", 64, 128, 8)]
+    for with_stats, name in ((True, "topk_router_stats"), (False, "topk_router")):
+        for tag, T, e, kk in router_cases:
+            logits = _router_logits(T, e, gen, dev)
+            got = ops.topk_router(logits, kk, with_stats=with_stats)
+            want = topk_router_ref(logits, kk, with_stats=with_stats)
+            torch.cuda.synchronize()
+            check(torch.equal(got[1], want[1]), f"{name} {tag}: ids differ")
+            check(torch.equal(got[1][0].cpu(), torch.arange(kk, dtype=torch.int32)),
+                  f"{name} {tag}: tied row did not pick the lowest ids")
+            abs_err, rel = _rel_err(got[0], want[0])
+            check(rel <= 1e-5, f"{name} {tag}: gates rel error {rel}")
+            if with_stats:
+                check(torch.equal(got[3], want[3]), f"{name} {tag}: counts differ")
+                ps_abs, ps_rel = _rel_err(got[2], want[2])
+                check(ps_rel <= 1e-5, f"{name} {tag}: probs_sum rel error {ps_rel}")
+                abs_err = max(abs_err, ps_abs)
+            row = {"kernel": name, "case": tag, "shape": [T, e, kk],
+                   "max_abs_err": abs_err}
+            if tag in ("decode", "prefill"):
+                def kernel():
+                    return ops.topk_router(logits, kk, with_stats=with_stats)
+
+                def plain():
+                    return topk_router_ref(logits, kk, with_stats=with_stats)
+
+                def library():
+                    return torch.topk(torch.softmax(logits, dim=-1), kk, dim=-1)
+
+                nbytes = 4 * (T * e + 2 * T * kk + (2 * e if with_stats else 0))
+                b_ms, b_by = bound(nbytes, T * e * (5 + 2 * kk), torch.float32)
+                row.update(
+                    ms=time_ms(kernel, 200),
+                    plain_ms=time_ms(plain, 100),
+                    library_ms=time_ms(library, 200),
+                    bound_ms=b_ms, bound_by=b_by,
+                )
+                if tag == "decode":
+                    summary[name] = row
+            rows.append(row)
+    emit({"phase": "kernels", "cases": rows})
+    return summary
+
+
+# -------------------------------------------------------------------- parity
+def _placement(num_layers, num_slots, seed):
+    rng = np.random.default_rng(seed)
+    s2e = np.stack([rng.permutation(num_slots) for _ in range(num_layers)])
+    return s2e, np.argsort(s2e, axis=1)
+
+
+def _with_placement(params, s2e):
+    from repro_torch.models import apply_placement
+
+    blocks = dict(params["blocks"])
+    blocks["moe"] = apply_placement(blocks["moe"], torch.as_tensor(s2e))
+    return {**params, "blocks": blocks}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _serve(params, cfg, ecfg, device, e2s, requests):
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, ecfg, device=device)
+    if e2s is not None:
+        eng.placements = torch.as_tensor(e2s, dtype=torch.int32, device=device)
+    for prompt, new in requests:
+        eng.submit(prompt, max_new_tokens=new)
+    return eng
+
+
+def phase_parity():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2)
+    params = init_params(cfg, seed=1, device="cuda", dtype=torch.float32)
+    s2e, e2s = _placement(cfg.num_layers, cfg.num_virtual_experts, seed=2)
+    params = _with_placement(params, s2e)
+    rng = np.random.default_rng(3)
+    requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), 8)
+                for n in rng.integers(16, 41, size=4)]
+    ecfg = EngineConfig(max_batch=4, max_len=64)
+    torch.set_num_threads(8)
+    tokens = {}
+    for device, p in (("cuda", params), ("cpu", _to(params, "cpu"))):
+        eng = _serve(p, cfg, ecfg, device, e2s, requests)
+        t0 = time.perf_counter()
+        done = eng.run()
+        tokens[device] = {r.uid: r.generated for r in done}
+        check(len(done) == len(requests), f"parity {device}: not all finished")
+        emit({"phase": "parity", "device": device,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    check(tokens["cuda"] == tokens["cpu"],
+          f"parity: GPU tokens {tokens['cuda']} != CPU tokens {tokens['cpu']}")
+    emit({"phase": "parity", "ok": True, "layers": cfg.num_layers,
+          "dtype": "float32", "requests": len(requests), "tokens": tokens["cuda"]})
+
+
+# --------------------------------------------------------------------- serve
+def phase_serve():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    s2e, e2s = _placement(L, cfg.num_virtual_experts, seed=4)
+    check(not (s2e == np.arange(cfg.num_virtual_experts)).all(), "identity placement")
+    placed = _with_placement(params, s2e)
+    rng = np.random.default_rng(5)
+    new_tokens = 32
+    requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), new_tokens)
+                for n in rng.integers(32, 129, size=8)]
+    ecfg = EngineConfig(max_batch=8, max_len=256)
+    results = {}
+    main_counts = None
+    for tag, p, table in (("placed", placed, e2s), ("identity", params, None)):
+        eng = _serve(p, cfg, ecfg, "cuda", table, requests)
+        events = []
+        inner = eng._decode
+
+        def timed(*a, _inner=inner, _events=events, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = _inner(*a, **kw)
+            e.record()
+            _events.append((s, e))
+            return out
+
+        eng._decode = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(len(done) == len(requests), f"serve {tag}: not all finished")
+        check(all(len(r.generated) == new_tokens for r in done),
+              f"serve {tag}: wrong token counts")
+        calls = L * (eng.prefill_count + eng.decode_count)
+        check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+              f"serve {tag}: launches {counts} != {calls}")
+        per_layer = eng.expert_counts.sum(axis=1)
+        check(bool((per_layer == ecfg.max_batch * cfg.experts_per_token).all()),
+              f"serve {tag}: expert counts {per_layer}")
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        results[tag] = {r.uid: r.generated for r in done}
+        emit({
+            "phase": "serve", "placement": tag, "layers": L, "dtype": "bfloat16",
+            "requests": len(done), "new_tokens": new_tokens,
+            "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
+            "launches": counts,
+            "decode_step_ms_median": statistics.median(step_ms),
+            "decode_step_ms_min": min(step_ms),
+            "tokens_per_s": len(done) * new_tokens / wall, "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        })
+        if tag == "placed":
+            main_counts = counts
+    check(results["placed"] == results["identity"],
+          "serve: tokens under the placement differ from identity")
+    emit({"phase": "serve", "ok": True, "placement_invariant": True})
+    phase_profile(eng, requests)
+    return main_counts
+
+
+def phase_profile(eng, requests, steps: int = 3):
+    """Where a decode step's time goes: torch.profiler over ``steps``
+    decode-only engine steps at max_batch 8 (after the prefill step and
+    one warm step). Device busy time is the sum of the kernels' own time
+    (one stream, so they do not overlap); the rest of the host-clock
+    window is the card's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for prompt, new in requests:
+        eng.submit(prompt, max_new_tokens=new)
+    eng.step()  # admits and prefills all requests, decodes once
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    cpu = [e for e in avgs if e.device_type == DeviceType.CPU]
+    busy_us = sum(e.self_device_time_total for e in dev)
+
+    def top(rows, key, n=12):
+        rows = sorted(rows, key=key, reverse=True)[:n]
+        return [{"name": e.key[:80], "calls_per_step": e.count / steps,
+                 "us_per_step": key(e) / steps} for e in rows]
+
+    emit({
+        "phase": "profile", "decode_steps": steps,
+        "step_ms_host": wall / steps * 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_ops_per_step": sum(e.count for e in dev) / steps,
+        "port_kernels_us_per_call": {
+            e.key[:80]: e.self_device_time_total / e.count for e in dev
+            if "grouped_gemm_kernel" in e.key or "router_kernel" in e.key
+        },
+        "top_device": top(dev, lambda e: e.self_device_time_total),
+        "top_host_self": top(cpu, lambda e: e.self_cpu_time_total),
+    })
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a GPU",
+              file=sys.stderr)
+        return 1
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "setup", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "allow_tf32": False,
+          "cudnn_allow_tf32": False})
+
+    phase_build()
+    summary = phase_kernels()
+    phase_parity()
+    launches = phase_serve()
+
+    sources = {
+        "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
+                    "src/repro/kernels/moe_gemm.py:50"),
+        "topk_router_stats": ("src/repro_torch/kernels/csrc/topk_router.cu",
+                              "src/repro/kernels/topk_router.py:63"),
+        "topk_router": ("src/repro_torch/kernels/csrc/topk_router.cu",
+                        "src/repro/kernels/topk_router.py:56"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        row = summary[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"],
+        })
+    emit({"kernels": kernels})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    print(smi.stdout.strip(), flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

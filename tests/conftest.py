@@ -2,6 +2,13 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the port's CUDA kernels on an NVIDIA GPU; skips without one",
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
