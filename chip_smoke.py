@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--src DIR]
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
-toolkit. It imports the port (``src/repro_torch``) and nothing of the JAX
-package, and runs four phases, each printing one JSON line:
+toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
+with ``--src``, e.g. an unpacked parent commit, so that one call can
+compare two versions on one card) and nothing of the JAX package, and
+runs four phases, each printing one JSON line:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card at the serving path's full-width shapes plus ragged edges and the
-   router's limits, and time kernel, plain version and one library call
-   with CUDA events next to the card's bound for the same work.
+   card at the serving path's full-width shapes, at every row-tile
+   boundary of K1 (C = 1 … 64), at ragged edges and the router's limits
+   and at many-block router shapes (T = 1000, 4096); check that K1 gives
+   the same bytes twice and under a permutation of its slots, and that
+   K2's statistics are bit-equal from call to call; time kernel, plain
+   version and one library call with CUDA events, and the kernels alone
+   with torch.profiler, next to the card's bound for the same work.
 3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
    engine on the card (kernels) and on the CPU (plain versions), same
    seeded weights and placement, must give equal greedy tokens.
@@ -20,7 +26,10 @@ package, and runs four phases, each printing one JSON line:
    weights, paged KV, max_batch 8) serves 8 requests under a seeded
    non-identity placement; tokens must equal an identity-placement run bit
    for bit, and every MoE layer call must have launched the FFN and router
-   kernels (launch counts = 32 × (prefills + decode steps)).
+   kernels (launch counts = 32 × (prefills + decode steps)). Then
+   ``profile`` traces three decode steps: device busy and idle time, host
+   time, launches and the port kernels' device time per step; it fails if
+   the trace holds none of the port's kernels.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -29,6 +38,7 @@ fp32 products are full fp32.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -49,6 +59,13 @@ PEAK_OPS_PER_S = {  # dense, H100 SXM data sheet
 }
 
 
+# CUDA kernel names of the port: K1 bf16 (tensor cores), K1 fp32 (and K1
+# bf16 before the tensor-core redesign), K2/K3
+PORT_KERNELS = ("ffn_mma_kernel", "grouped_gemm_kernel", "router_kernel")
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+         torch.int32: torch.int32}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -59,17 +76,51 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, CUDA events."""
+    """Time per call of ``fn`` on the card's clock (CUDA events): the
+    median over 5 loops of ``iters`` calls each, so that one loop slowed
+    by the shared host does not set the number."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    loops = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        loops.append(start.elapsed_time(end) / iters)
+    return statistics.median(loops)
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.view(_BITS[a.dtype]), b.view(_BITS[b.dtype]))
+
+
+def _is_port_kernel(name: str) -> bool:
+    return any(k in name for k in PORT_KERNELS)
+
+
+def device_us(fn, iters: int = 20) -> tuple[float, float]:
+    """Device time of one call of ``fn`` (µs): of the port kernels it
+    launches, summed over them, and of all its device work (the plain
+    reductions around a kernel included). torch.profiler over ``iters``
+    calls; fails when the trace holds no port kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    port = sum(e.self_device_time_total for e in dev if _is_port_kernel(e.key))
+    check(port > 0, "profile: no port kernel in the trace")
+    every = sum(e.self_device_time_total for e in dev)
+    return port / iters, every / iters
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -131,6 +182,8 @@ def phase_kernels():
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     summary = {}
+    # bf16 at every row-tile boundary of the tensor-core kernel (8/16/32
+    # token rows) plus the fp32 path and a ragged F
     ffn_cases = [
         ("decode", S, 4, D, F, torch.bfloat16),
         ("prefill", S, 32, D, F, torch.bfloat16),
@@ -139,18 +192,26 @@ def phase_kernels():
         ("ragged_c3", S, 3, D, F, torch.float32),
         ("ragged_c33", S, 33, D, F, torch.bfloat16),
         ("ragged_f96", 8, 4, D, 96, torch.float32),
+        *((f"c{c}", S, c, D, F, torch.bfloat16) for c in (2, 5, 8, 9, 16, 17, 64)),
     ]
     for tag, s, c, d, f, dtype in ffn_cases:
         args = _ffn_case(s, c, d, f, dtype, gen, dev)
         got = ops.moe_ffn(*args)
         want = moe_ffn_ref(*args)
+        again = ops.moe_ffn(*args)
+        perm = torch.randperm(s, generator=gen, device=dev)
+        permuted = ops.moe_ffn(*(t[perm].contiguous() for t in args))
         torch.cuda.synchronize()
         abs_err, rel = _rel_err(got, want)
         check(bool(torch.isfinite(got.float()).all()), f"moe_ffn {tag}: non-finite")
         check(rel <= tol[dtype],
               f"moe_ffn {tag}: relative error {rel} > {tol[dtype]}")
+        check(same_bits(got, again), f"moe_ffn {tag}: two calls differ")
+        check(same_bits(permuted, got[perm]),
+              f"moe_ffn {tag}: permuting the slots does not permute y bit for bit")
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
-               "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel}
+               "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
+               "bit_equal_twice": True, "slot_permutation_exact": True}
         if tag in ("decode", "prefill"):
             x, wg, wu, wd = args
 
@@ -167,30 +228,39 @@ def phase_kernels():
                 library_ms=time_ms(library, 50),
                 bound_ms=b_ms, bound_by=b_by,
             )
-            if tag == "decode":
-                summary["moe_ffn"] = row
+            row["device_us"], row["call_device_us"] = device_us(
+                lambda: ops.moe_ffn(*args))
+            row["bound_share"] = b_ms / (row["device_us"] / 1e3)
+            summary[f"moe_ffn/{tag}"] = row
         rows.append(row)
 
     router_cases = [("decode", 8, E, k), ("prefill", 128, E, k),
-                    ("ragged_t5", 5, E, k), ("limits", 64, 128, 8)]
+                    ("ragged_t5", 5, E, k), ("limits", 64, 128, 8),
+                    ("many_blocks_t1000", 1000, E, k),
+                    ("many_blocks_t4096", 4096, E, k)]
     for with_stats, name in ((True, "topk_router_stats"), (False, "topk_router")):
         for tag, T, e, kk in router_cases:
             logits = _router_logits(T, e, gen, dev)
-            got = ops.topk_router(logits, kk, with_stats=with_stats)
+            runs = [ops.topk_router(logits, kk, with_stats=with_stats)
+                    for _ in range(3)]
             want = topk_router_ref(logits, kk, with_stats=with_stats)
             torch.cuda.synchronize()
+            got = runs[0]
             check(torch.equal(got[1], want[1]), f"{name} {tag}: ids differ")
             check(torch.equal(got[1][0].cpu(), torch.arange(kk, dtype=torch.int32)),
                   f"{name} {tag}: tied row did not pick the lowest ids")
             abs_err, rel = _rel_err(got[0], want[0])
             check(rel <= 1e-5, f"{name} {tag}: gates rel error {rel}")
+            check(all(same_bits(a, b) for run in runs[1:]
+                      for a, b in zip(run, got)),
+                  f"{name} {tag}: repeated calls differ")
             if with_stats:
                 check(torch.equal(got[3], want[3]), f"{name} {tag}: counts differ")
                 ps_abs, ps_rel = _rel_err(got[2], want[2])
                 check(ps_rel <= 1e-5, f"{name} {tag}: probs_sum rel error {ps_rel}")
                 abs_err = max(abs_err, ps_abs)
             row = {"kernel": name, "case": tag, "shape": [T, e, kk],
-                   "max_abs_err": abs_err}
+                   "max_abs_err": abs_err, "bit_equal_repeated": True}
             if tag in ("decode", "prefill"):
                 def kernel():
                     return ops.topk_router(logits, kk, with_stats=with_stats)
@@ -209,8 +279,9 @@ def phase_kernels():
                     library_ms=time_ms(library, 200),
                     bound_ms=b_ms, bound_by=b_by,
                 )
-                if tag == "decode":
-                    summary[name] = row
+                row["device_us"], row["call_device_us"] = device_us(kernel)
+                row["bound_share"] = b_ms / (row["device_us"] / 1e3)
+                summary[f"{name}/{tag}"] = row
             rows.append(row)
     emit({"phase": "kernels", "cases": rows})
     return summary
@@ -278,7 +349,7 @@ def phase_parity():
 
 
 # --------------------------------------------------------------------- serve
-def phase_serve():
+def phase_serve(summary):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
@@ -345,16 +416,18 @@ def phase_serve():
     check(results["placed"] == results["identity"],
           "serve: tokens under the placement differ from identity")
     emit({"phase": "serve", "ok": True, "placement_invariant": True})
-    phase_profile(eng, requests)
+    phase_profile(eng, requests, summary)
     return main_counts
 
 
-def phase_profile(eng, requests, steps: int = 3):
+def phase_profile(eng, requests, summary, steps: int = 3):
     """Where a decode step's time goes: torch.profiler over ``steps``
     decode-only engine steps at max_batch 8 (after the prefill step and
     one warm step). Device busy time is the sum of the kernels' own time
     (one stream, so they do not overlap); the rest of the host-clock
-    window is the card's idle share."""
+    window is the card's idle share. Beside the port kernels' device time
+    per call in the step, it repeats the two that the decode step does not
+    run, from the ``kernels`` phase: K1 at the prefill shape and K3."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -373,6 +446,9 @@ def phase_profile(eng, requests, steps: int = 3):
     dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
     cpu = [e for e in avgs if e.device_type == DeviceType.CPU]
     busy_us = sum(e.self_device_time_total for e in dev)
+    port = {e.key[:80]: e.self_device_time_total / e.count for e in dev
+            if _is_port_kernel(e.key)}
+    check(bool(port), "profile: the decode steps ran none of the port's kernels")
 
     def top(rows, key, n=12):
         rows = sorted(rows, key=key, reverse=True)[:n]
@@ -385,21 +461,28 @@ def phase_profile(eng, requests, steps: int = 3):
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_ops_per_step": sum(e.count for e in dev) / steps,
-        "port_kernels_us_per_call": {
-            e.key[:80]: e.self_device_time_total / e.count for e in dev
-            if "grouped_gemm_kernel" in e.key or "router_kernel" in e.key
-        },
+        "cuda_launches_per_step": sum(
+            e.count for e in cpu if e.key.startswith("cudaLaunch")) / steps,
+        "port_kernels_us_per_call": port,
+        "moe_ffn_prefill_device_us": summary["moe_ffn/prefill"]["device_us"],
+        "topk_router_device_us": summary["topk_router/decode"]["device_us"],
         "top_device": top(dev, lambda e: e.self_device_time_total),
         "top_host_self": top(cpu, lambda e: e.self_cpu_time_total),
     })
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--src", type=Path, default=ROOT / "src",
+        help="directory holding the repro_torch package to run (default: "
+             "this checkout's src/)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 1
-    src = ROOT / "src"
+    src = args.src.resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               "checkout of the repository", file=sys.stderr)
@@ -407,14 +490,14 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit({"phase": "setup", "torch": torch.__version__,
+    emit({"phase": "setup", "src": str(src), "torch": torch.__version__,
           "cuda": torch.version.cuda, "allow_tf32": False,
           "cudnn_allow_tf32": False})
 
     phase_build()
     summary = phase_kernels()
     phase_parity()
-    launches = phase_serve()
+    launches = phase_serve(summary)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -426,13 +509,14 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        row = summary[name]
+        row = summary[f"{name}/decode"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_us": row["device_us"], "bound_share": row["bound_share"],
             "shape": row["shape"],
         })
     emit({"kernels": kernels})

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "current_stream_handle"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,3 +23,14 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def current_stream_handle(device: torch.device) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on a CUDA device, as
+    an int for a kernel launch. The raw binding skips building a
+    ``torch.cuda.Stream`` object, which costs more host time than a small
+    kernel's whole launch."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled on first use by ``nvcc`` into its
 own shared library with a plain C interface, loaded with ``ctypes``: no
 PyTorch headers, so a build takes seconds. Libraries go into ``build/``
-next to this file (ignored by git), named by a hash of their source, so an
-edited source is rebuilt and a stale library is never loaded.
+next to this file (ignored by git), named by a hash of their source and
+of the headers under ``csrc/``, so an edited source or header is rebuilt
+and a stale library is never loaded.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -45,9 +46,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    of every header under ``csrc/`` (any of them may be included) and of
+    the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:

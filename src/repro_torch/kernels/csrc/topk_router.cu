@@ -8,8 +8,9 @@
 //
 // What bounds it on an H100: a few KB of traffic per call (T·E fp32 logits
 // in, T·k gates and ids out) and a few thousand operations, so the call
-// costs its launch latency. The design keeps it to one launch with no
-// second pass over the probabilities:
+// costs its launch latency and the wrapper's host time. The design keeps
+// it to one launch and one allocation, with no second pass over the
+// probabilities:
 //
 //  * one warp per row; with E ≤ 128 each lane holds at most 4 logits in
 //    registers. Max and sum reduce by warp shuffles; expf (not __expf) and
@@ -20,10 +21,18 @@
 //    ascending): among equal probabilities the lowest id wins, as in
 //    topk_router.py:44-51.
 //  * rows past T are masked in the kernel; there are no pad rows.
-//  * STATS: each block reduces its 8 rows in shared memory in a fixed row
-//    order and writes one (E,) partial of probability sums and one of
-//    top-k counts; the wrapper sums the partials. No float atomics, so the
-//    sums are the same from run to run.
+//  * STATS, in the same launch: each block reduces its 8 rows in shared
+//    memory in a fixed row order and writes one (E,) partial of
+//    probability sums and one of top-k counts. The last block to finish
+//    (a __threadfence, then an integer atomic on an arrival counter) sums
+//    the partials in block order 0 .. nb-1 into the final probs_sum and
+//    counts and sets the counter back to 0, so no host memset is needed
+//    and a CUDA graph can capture the call. No float atomics, so the sums
+//    are the same from run to run. A single block (T ≤ 8, decode at
+//    max_batch 8) writes its sums as the final ones, with no fence and no
+//    atomic: the same bits, 0 + p0.
+//  * the wrapper makes one allocation a call: gates, ids, probs_sum,
+//    counts and the partials are slices of it.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -41,8 +50,10 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 template <bool STATS>
 __global__ void __launch_bounds__(kWarps * 32)
 router_kernel(const float* __restrict__ logits, float* __restrict__ gates,
-              int* __restrict__ ids, float* __restrict__ psum_part,
-              int* __restrict__ cnt_part, int T, int E, int k) {
+              int* __restrict__ ids, float* __restrict__ probs_sum,
+              int* __restrict__ counts, float* __restrict__ psum_part,
+              int* __restrict__ cnt_part, unsigned* __restrict__ arrivals,
+              int T, int E, int k) {
   __shared__ float sp[STATS ? kWarps : 1][kMaxE];
   __shared__ int sc[STATS ? kWarps : 1][kMaxE];
   const int warp = threadIdx.x / 32;
@@ -123,38 +134,71 @@ router_kernel(const float* __restrict__ logits, float* __restrict__ gates,
       sc[warp][lane + 32 * j] = sel[j];
     }
     __syncthreads();
+    const bool single = gridDim.x == 1;  // T ≤ 8: its sums are the final ones
     for (int e = threadIdx.x; e < E; e += blockDim.x) {
       float ps = 0.f;
       int cs = 0;
       for (int w = 0; w < kWarps; ++w) { ps += sp[w][e]; cs += sc[w][e]; }
-      psum_part[(size_t)blockIdx.x * E + e] = ps;
-      cnt_part[(size_t)blockIdx.x * E + e] = cs;
+      if (single) {
+        probs_sum[e] = ps;
+        counts[e] = cs;
+      } else {
+        psum_part[(size_t)blockIdx.x * E + e] = ps;
+        cnt_part[(size_t)blockIdx.x * E + e] = cs;
+      }
     }
+    if (single) return;
+    // the last block to arrive sums every block's partial, in block order
+    __shared__ bool last;
+    __threadfence();  // this block's partials are visible before it arrives
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(arrivals, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int e = threadIdx.x; e < E; e += blockDim.x) {
+      float ps = 0.f;
+      int cs = 0;
+#pragma unroll 8  // loads issued ahead; the adds stay in block order
+      for (unsigned b = 0; b < gridDim.x; ++b) {
+        ps += __ldcg(psum_part + (size_t)b * E + e);  // from L2, not L1
+        cs += __ldcg(cnt_part + (size_t)b * E + e);
+      }
+      probs_sum[e] = ps;
+      counts[e] = cs;
+    }
+    if (threadIdx.x == 0) *arrivals = 0u;  // ready for the next launch
   }
 }
 
 }  // namespace
 
-// logits (T, E) fp32 → gates (T, k) fp32, ids (T, k) int32; with
-// with_stats, psum_part (nblocks, E) fp32 and cnt_part (nblocks, E) int32,
-// nblocks = ceil(T / 8). E ≤ 128, 1 ≤ k ≤ min(E, 8) (the wrapper checks).
+// logits (T, E) fp32 → out, one buffer of 4-byte words: gates (T, k) fp32
+// | ids (T, k) int32 and, with with_stats, | probs_sum (E,) fp32 | counts
+// (E,) int32 | psum_part (nb, E) fp32 | cnt_part (nb, E) int32, nb =
+// ceil(T / 8). `arrivals` is one unsigned that is 0 before a stats launch
+// and 0 again after it; launches on one counter must not overlap (one
+// stream). 1 ≤ T, E ≤ 128, 1 ≤ k ≤ min(E, 8) (the wrapper checks).
 // Returns the launch error (cudaSuccess = 0).
-extern "C" int topk_router_launch(const void* logits, void* gates, void* ids,
-                                  void* psum_part, void* cnt_part, int T,
-                                  int E, int k, int with_stats, void* stream) {
+extern "C" int topk_router_launch(const void* logits, void* out,
+                                  void* arrivals, int T, int E, int k,
+                                  int with_stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
+  const int nb = (T + kWarps - 1) / kWarps;
   const float* lg = static_cast<const float*>(logits);
-  float* g = static_cast<float*>(gates);
-  int* id = static_cast<int*>(ids);
+  float* gates = static_cast<float*>(out);
+  int* ids = reinterpret_cast<int*>(gates + (size_t)T * k);
   if (with_stats) {
-    router_kernel<true><<<grid, block, 0, st>>>(
-        lg, g, id, static_cast<float*>(psum_part), static_cast<int*>(cnt_part),
-        T, E, k);
+    float* probs_sum = reinterpret_cast<float*>(ids + (size_t)T * k);
+    int* counts = reinterpret_cast<int*>(probs_sum + E);
+    float* psum_part = reinterpret_cast<float*>(counts + E);
+    int* cnt_part = reinterpret_cast<int*>(psum_part + (size_t)nb * E);
+    router_kernel<true><<<nb, kWarps * 32, 0, st>>>(
+        lg, gates, ids, probs_sum, counts, psum_part, cnt_part,
+        static_cast<unsigned*>(arrivals), T, E, k);
   } else {
-    router_kernel<false><<<grid, block, 0, st>>>(lg, g, id, nullptr, nullptr,
-                                                 T, E, k);
+    router_kernel<false><<<nb, kWarps * 32, 0, st>>>(
+        lg, gates, ids, nullptr, nullptr, nullptr, nullptr, nullptr, T, E, k);
   }
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ..device import current_stream_handle
 from . import _build
 
 __all__ = ["moe_ffn_cuda", "LAUNCHES"]
@@ -40,7 +41,8 @@ def moe_ffn_cuda(x_e, w_gate, w_up, w_down):
     """x_e (S, C, D), w_gate/w_up (S, D, F), w_down (S, F, D) → (S, C, D).
 
     All four on one CUDA device, contiguous, float32 or bfloat16 and of
-    one dtype; anything else raises.
+    one dtype; in bfloat16, D and F multiples of 8 and the data 16-byte
+    aligned. Anything else raises.
     """
     ts = (x_e, w_gate, w_up, w_down)
     if not all(t.is_cuda and t.device == x_e.device for t in ts):
@@ -66,11 +68,19 @@ def moe_ffn_cuda(x_e, w_gate, w_up, w_down):
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("moe_ffn_cuda: operands must be contiguous")
+    if x_e.dtype == torch.bfloat16 and (
+        D % 8 or F % 8 or any(t.data_ptr() % 16 for t in ts)
+    ):
+        # the tensor-core path copies 16-byte chunks of 8 values
+        raise ValueError(
+            f"moe_ffn_cuda: bfloat16 needs D and F multiples of 8 and "
+            f"16-byte aligned operands; got D={D}, F={F}"
+        )
     y = torch.empty_like(x_e)
     if y.numel() == 0 or F == 0:
         return y.zero_()
     h = torch.empty((S, C, F), dtype=x_e.dtype, device=x_e.device)
-    stream = torch.cuda.current_stream(x_e.device).cuda_stream
+    stream = current_stream_handle(x_e.device)
     err = _launcher()(
         x_e.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
         h.data_ptr(), y.data_ptr(), S, C, D, F, _DTYPE_CODE[x_e.dtype], stream,

@@ -50,8 +50,17 @@ def cuda():
     return torch.device("cuda")
 
 
+# every row-tile boundary of the bf16 tensor-core kernel (8, 16, 32 rows)
+_C_BOUNDARIES = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64]
+
+
+def _bits(t):
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.int32: torch.int32}[t.dtype])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 3, 4, 33])
+@pytest.mark.parametrize("C", _C_BOUNDARIES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_ffn_kernel_matches_plain(cuda, C, dtype):
     ts = _ffn_inputs(5, C, 64, 96, getattr(torch, dtype), cuda, seed=C)
@@ -65,10 +74,70 @@ def test_moe_ffn_kernel_matches_plain(cuda, C, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 9, 32, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_kernel_is_exact_under_slot_permutation(cuda, C, dtype):
+    """A slot's result depends neither on its position nor on the run: the
+    same call twice gives the same bytes, and permuting the slots of x and
+    of the three weight stacks permutes y bit for bit."""
+    ts = _ffn_inputs(7, C, 128, 96, getattr(torch, dtype), cuda, seed=10 + C)
+    perm = torch.as_tensor(np.random.default_rng(C).permutation(7), device=cuda)
+    got = ops.moe_ffn(*ts)
+    again = ops.moe_ffn(*ts)
+    permuted = ops.moe_ffn(*(t[perm].contiguous() for t in ts))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(permuted), _bits(got[perm]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,F", [(64, 92), (60, 96)])
+def test_moe_ffn_bf16_refuses_what_the_tensor_cores_cannot_take(cuda, D, F):
+    """The 16-byte copies need D and F multiples of 8: the wrapper raises
+    and never routes to the plain version."""
+    ts = _ffn_inputs(2, 4, D, F, torch.bfloat16, cuda)
+    before = ops.launch_counts()["moe_ffn"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.moe_ffn(*ts)
+    assert ops.launch_counts()["moe_ffn"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1000, 4096])
+def test_topk_router_stats_over_many_blocks_are_bit_equal(cuda, T):
+    """The last block sums every block's partial in block order: the
+    statistics are final on return, the same bits from call to call, and
+    equal (counts) or within 1e-5 (probability sums) of the plain version."""
+    logits = _router_logits(T, 40, cuda, seed=T)
+    runs = [ops.topk_router(logits, 8, with_stats=True) for _ in range(4)]
+    want = topk_router_ref(logits, 8, with_stats=True)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(_bits(a), _bits(b))
+    gates, ids, probs_sum, counts = runs[0]
+    assert torch.equal(ids, want[1]) and torch.equal(counts, want[3])
+    assert int(counts.sum()) == T * 8
+    torch.testing.assert_close(probs_sum, want[2], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gates, want[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_topk_router_without_rows_gives_zero_stats(cuda):
+    gates, ids, probs_sum, counts = ops.topk_router(
+        torch.empty((0, 40), device=cuda), 8, with_stats=True)
+    assert gates.shape == (0, 8) and ids.shape == (0, 8)
+    assert gates.dtype == torch.float32 and ids.dtype == torch.int32
+    assert not probs_sum.any() and not counts.any()
+    assert probs_sum.shape == counts.shape == (40,)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("E,k", [(8, 2), (40, 8), (128, 8)])
 @pytest.mark.parametrize("with_stats", [True, False])
-def test_topk_router_kernel_matches_plain(cuda, E, k, with_stats):
-    logits = _router_logits(37, E, cuda, seed=E)
+@pytest.mark.parametrize("T", [8, 37])  # one block; five, the last sums
+def test_topk_router_kernel_matches_plain(cuda, E, k, with_stats, T):
+    logits = _router_logits(T, E, cuda, seed=E)
     got = ops.topk_router(logits, k, with_stats=with_stats)
     want = topk_router_ref(logits, k, with_stats=with_stats)
     torch.cuda.synchronize()
