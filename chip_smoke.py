@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs four phases, each printing one JSON line:
+runs five phases, each printing one JSON line:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -30,6 +30,21 @@ runs four phases, each printing one JSON line:
    ``profile`` traces three decode steps: device busy and idle time, host
    time, launches and the port kernels' device time per step; it fails if
    the trace holds none of the port's kernels.
+5. ``replan``  — GEM's one-shot control plane at full granite (32 layers,
+   bf16), built by the port's launcher (``repro_torch.launch.serve``:
+   seed-0 weights, 8 requests of 32 new tokens, a 4-device emulated
+   fleet at high variability): the replan fires at step 16, the planner's
+   placement is applied by permuting the expert pool on the card in place
+   and swapping the router tables, and decoding goes on through K1/K2. It
+   checks that the placement moved every layer, that each slot's rows
+   after the swap are the bytes of the expert the plan put there, that the
+   tables are the plan's inverse, that the greedy tokens equal a
+   ``linear``-policy run, that K1/K2 launched on every MoE layer call
+   before and after the swap, and that the swap took at most one layer's
+   rows of memory beyond the pool. It prints the planner's host seconds,
+   the migration's CUDA-event time beside its HBM bound and the cost
+   model's charge, peak memory, and the decode-step medians before and
+   after the replan.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -192,7 +208,8 @@ def phase_kernels():
         ("ragged_c3", S, 3, D, F, torch.float32),
         ("ragged_c33", S, 33, D, F, torch.bfloat16),
         ("ragged_f96", 8, 4, D, 96, torch.float32),
-        *((f"c{c}", S, c, D, F, torch.bfloat16) for c in (2, 5, 8, 9, 16, 17, 64)),
+        *((f"c{c}", S, c, D, F, torch.bfloat16)
+          for c in (2, 5, 7, 8, 9, 16, 17, 64)),
     ]
     for tag, s, c, d, f, dtype in ffn_cases:
         args = _ffn_case(s, c, d, f, dtype, gen, dev)
@@ -349,6 +366,21 @@ def phase_parity():
 
 
 # --------------------------------------------------------------------- serve
+def _timed_decode(eng, events):
+    """Wrap the engine's decode step in CUDA events, tagged by step."""
+    inner = eng._decode
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = inner(*a, **kw)
+        e.record()
+        events.append((eng.step_count, s, e))
+        return out
+
+    eng._decode = timed
+
+
 def phase_serve(summary):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -371,17 +403,7 @@ def phase_serve(summary):
     for tag, p, table in (("placed", placed, e2s), ("identity", params, None)):
         eng = _serve(p, cfg, ecfg, "cuda", table, requests)
         events = []
-        inner = eng._decode
-
-        def timed(*a, _inner=inner, _events=events, **kw):
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            out = _inner(*a, **kw)
-            e.record()
-            _events.append((s, e))
-            return out
-
-        eng._decode = timed
+        _timed_decode(eng, events)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -399,7 +421,7 @@ def phase_serve(summary):
         per_layer = eng.expert_counts.sum(axis=1)
         check(bool((per_layer == ecfg.max_batch * cfg.experts_per_token).all()),
               f"serve {tag}: expert counts {per_layer}")
-        step_ms = [s.elapsed_time(e) for s, e in events]
+        step_ms = [s.elapsed_time(e) for _, s, e in events]
         results[tag] = {r.uid: r.generated for r in done}
         emit({
             "phase": "serve", "placement": tag, "layers": L, "dtype": "bfloat16",
@@ -413,11 +435,12 @@ def phase_serve(summary):
         })
         if tag == "placed":
             main_counts = counts
+            serve_peak = torch.cuda.max_memory_allocated()
     check(results["placed"] == results["identity"],
           "serve: tokens under the placement differ from identity")
     emit({"phase": "serve", "ok": True, "placement_invariant": True})
     phase_profile(eng, requests, summary)
-    return main_counts
+    return main_counts, serve_peak
 
 
 def phase_profile(eng, requests, summary, steps: int = 3):
@@ -471,6 +494,158 @@ def phase_profile(eng, requests, summary, steps: int = 3):
     })
 
 
+# -------------------------------------------------------------------- replan
+def _run_launcher(policy, hooks=None):
+    """One run of the port's launcher at full granite on the card; returns
+    the engine, its launch counts and the host seconds of the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+
+    eng = launcher.build(launcher.parse_args(
+        ["--policy", policy, "--requests", "8", "--max-new-tokens", "32"]))
+    if hooks is not None:
+        hooks(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(len(done) == 8 and all(len(r.generated) == 32 for r in done),
+          f"replan {policy}: not all requests finished with 32 tokens")
+    return eng, counts, wall
+
+
+def phase_replan(serve_peak):
+    from repro_torch.kernels import ops
+
+    # the serve phase's decode timers close over their engines, so those
+    # engines and their pools are freed only by the cycle collector
+    gc.collect()
+    events, at_swap = [], {}
+
+    def hooks(eng):
+        _timed_decode(eng, events)
+        plan, migrate = eng.planner.plan, eng._migrate
+
+        def timed_plan():
+            t0 = time.perf_counter()
+            out = plan()
+            at_swap["planner_s"] = time.perf_counter() - t0
+            return out
+
+        def timed_migrate(src, tables, *ws):
+            torch.cuda.synchronize()
+            at_swap["launches"] = ops.launch_counts()
+            at_swap["calls"] = eng.config.num_layers * (
+                eng.prefill_count + eng.decode_count)
+            at_swap["run_peak"] = torch.cuda.max_memory_allocated()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = migrate(src, tables, *ws)
+            e.record()
+            torch.cuda.synchronize()
+            at_swap["ms"] = s.elapsed_time(e)
+            at_swap["extra_bytes"] = torch.cuda.max_memory_allocated() - base
+            at_swap["src"] = np.asarray(src)
+            return out
+
+        eng.planner.plan, eng._migrate = timed_plan, timed_migrate
+
+    eng, counts, wall = _run_launcher("gem", hooks)
+    cfg = eng.config
+    L, Ev = cfg.num_layers, cfg.num_virtual_experts
+    run_peak = max(at_swap["run_peak"], torch.cuda.max_memory_allocated())
+    check(eng.placement_applied, "replan: the placement was not applied")
+    (rec,) = eng.migration_records
+    check(rec["step"] == 16, f"replan: fired at step {rec['step']}, not 16")
+    s2e = np.stack([p.slot_to_expert() for p in eng.current_placements])
+    check(np.array_equal(at_swap["src"], s2e),
+          "replan: the migration's row sources are not the plan")
+    check(bool((s2e != np.arange(Ev)).any(axis=1).all()),
+          "replan: the GEM placement is identity in some layer")
+    check(np.array_equal(eng.placements.cpu().numpy(), np.argsort(s2e, axis=1)),
+          "replan: the router tables are not the plan's inverse")
+    calls = L * (eng.prefill_count + eng.decode_count)
+    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+          f"replan: launches {counts} != {calls}")
+    before = at_swap["launches"]
+    check(before["moe_ffn"] == before["topk_router_stats"] == at_swap["calls"]
+          and at_swap["calls"] < calls,
+          f"replan: launches before the swap {before} != {at_swap['calls']}")
+    moe = eng.params["blocks"]["moe"]
+    layer_rows = sum(moe[n][0].numel() * moe[n].element_size()
+                     for n in ("w_gate", "w_up", "w_down"))
+    check(at_swap["extra_bytes"] <= layer_rows,
+          f"replan: the swap took {at_swap['extra_bytes']} B beyond the "
+          f"pool, more than one layer's rows ({layer_rows} B)")
+    check(run_peak <= serve_peak + layer_rows,
+          f"replan: peak {run_peak} B over the serve phase's {serve_peak} B")
+    step_ms = {True: [], False: []}
+    for step, s, e in events:
+        step_ms[step >= rec["step"]].append(s.elapsed_time(e))
+
+    # the linear run keeps the pre-swap pool (same seed-0 weights, never
+    # moved): the tokens must match, and its rows, gathered by the plan,
+    # must be the gem engine's rows bit for bit
+    lin, lin_counts, lin_wall = _run_launcher("linear")
+    check(not lin.migration_records, "replan: the linear run migrated")
+    tokens = {r.uid: r.generated for r in eng.finished}
+    check(tokens == {r.uid: r.generated for r in lin.finished},
+          "replan: tokens under the GEM placement differ from linear")
+    lin_moe = lin.params["blocks"]["moe"]
+    rows = torch.as_tensor(s2e, device=lin_moe["w_gate"].device).long()
+    for name in ("w_gate", "w_up", "w_down"):
+        for layer in range(L):
+            check(same_bits(moe[name][layer], lin_moe[name][layer][rows[layer]]),
+                  f"replan: {name}[{layer}] rows differ from the plan's experts")
+    # the same migration again, warm, on the linear engine's pool: it must
+    # land on the same bytes
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    lin._migrate(s2e, None, lin_moe["w_gate"], lin_moe["w_up"], lin_moe["w_down"])
+    e.record()
+    torch.cuda.synchronize()
+    warm_ms = s.elapsed_time(e)
+    check(all(same_bits(moe[n], lin_moe[n]) for n in ("w_gate", "w_up", "w_down")),
+          "replan: the warm migration gave other bytes")
+
+    moved = int((s2e != np.arange(Ev)).sum())
+    row_bytes = layer_rows / Ev
+    emit({
+        "phase": "replan", "policy": "gem", "layers": L,
+        "dtype": str(moe["w_gate"].dtype),
+        "requests": len(eng.finished), "new_tokens": 32,
+        "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
+        "replan_step": rec["step"], "placement_applied": True,
+        "moved_slots": moved, "moves": rec["moves"],
+        "planner_host_s": at_swap["planner_s"],
+        "migration_ms": at_swap["ms"], "migration_warm_ms": warm_ms,
+        # each moved row read once and written once; every row of the pool
+        "migration_bound_ms": 2 * moved * row_bytes / HBM_BYTES_PER_S * 1e3,
+        "migration_bound_all_rows_ms":
+            2 * L * layer_rows / HBM_BYTES_PER_S * 1e3,
+        "migration_modeled_ms": rec["modeled_s"] * 1e3,
+        "migration_extra_mib": at_swap["extra_bytes"] / 2 ** 20,
+        "layer_rows_mib": layer_rows / 2 ** 20,
+        "peak_mem_gib": run_peak / 2 ** 30,
+        "serve_peak_mem_gib": serve_peak / 2 ** 30,
+        "decode_step_ms_median_before": statistics.median(step_ms[False]),
+        "decode_step_ms_median_after": statistics.median(step_ms[True]),
+        "launches": counts, "launches_before_swap": before,
+        "wall_s": wall, "linear_wall_s": lin_wall,
+        "tokens_per_s": 8 * 32 / wall, "linear_tokens_per_s": 8 * 32 / lin_wall,
+        "latency_report": eng.latency_report(),
+    })
+    emit({"phase": "replan", "ok": True, "tokens_equal_linear": True,
+          "rows_equal_plan": True, "linear_launches": lin_counts})
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -497,7 +672,8 @@ def main(argv=None) -> int:
     phase_build()
     summary = phase_kernels()
     phase_parity()
-    launches = phase_serve(summary)
+    launches, serve_peak = phase_serve(summary)
+    replan_launches = phase_replan(serve_peak)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -513,6 +689,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "replan_launches": replan_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine on the paged KV cache.
+"""Continuous-batching serving engine on the paged KV cache, with GEM's
+one-shot control plane.
 
 Port of the serving core of ``repro/serving/engine.py``: a fixed pool of
 ``max_batch`` decode slots, FCFS admission against the paged KV pool,
@@ -9,16 +10,32 @@ step runs the model's decode step over all ``max_batch`` rows, idle ones
 included, exactly as the JAX engine does, so the MoE layers see the same
 batches on both.
 
-The engine serves under the placement installed in its public ``params``
-and ``placements`` attributes (:func:`repro_torch.models.moe.
-apply_placement` on the weights, the (L, E_v) ``expert_to_slot`` tables),
-the same way as the JAX engine built with ``profile=None``; it does not
-replan. After each decode step ``expert_counts`` holds that step's
-per-layer (L, E) router counts, GEM's Step-1 trace.
+The GEM control plane (:mod:`repro_torch.core`), as the JAX engine runs it
+without the online plane:
 
-Not here yet: the GEM planner and replans, the online plane, replication
-and shedding, migration, telemetry, and the dense KV mode (it comes with
-the sliding-window families).
+* **Step-1** — after each decode step the router's per-layer (L, E)
+  ``expert_counts`` (the K2 kernel's statistics), repeated ``expert_tp``
+  times into virtual experts, feed the planner's trace collectors.
+* **Step-2** — a fleet :class:`~repro_torch.core.types.VariabilityProfile`
+  is attached at construction; every decode step is also charged its
+  simulated MoE latency under the current placement on that fleet.
+* **Step-3/4** — once ``replan_after`` steps have run and the collectors
+  hold ``trace_length`` steps, the ``placement_policy`` (``gem``, ``eplb``
+  or ``linear``) picks a placement, and between two decode steps the
+  stacked expert pool on the device is permuted in place and the router
+  tables are swapped (:class:`~repro_torch.kernels.collective.
+  MigrationExecutable`). The swap's modelled cost is charged to the step
+  that performs it.
+
+The engine starts from the linear layout (identity tables, weights in
+virtual-expert order). A caller may still install a placement of its own by
+replacing ``params["blocks"]["moe"]`` and ``placements`` together when no
+profile is attached, in which case the engine never replans.
+
+Not here yet: the online plane, replication (``replica_slots > 0`` raises
+``NotImplementedError``) and shedding, the collective migration path,
+telemetry with its attribution and regret, and the dense KV mode (it comes
+with the sliding-window families).
 """
 from __future__ import annotations
 
@@ -30,9 +47,16 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.eplb import eplb_placement
+from ..core.gem import GEMPlanner
+from ..core.score import step_cost_matrix
+from ..core.types import GEMConfig, Placement, VariabilityProfile
 from ..device import resolve_device
+from ..kernels.collective import MigrationExecutable
 from ..models.model import decode_step, init_paged_decode_cache, prefill
 from ..models.moe import identity_placement
+from ..online.migration import MigrationConfig
+from ..replication.types import ReplicationConfig
 from .arrivals import RequestSpec
 from .kv_cache import PagedKVConfig, PagedKVPool
 from .sampling import sample
@@ -47,6 +71,14 @@ class EngineConfig:
     max_batch: int = 8
     max_len: int = 512
     temperature: float = 0.0
+    gem: GEMConfig = GEMConfig()
+    placement_policy: str = "gem"  # gem | eplb | linear
+    replan_after: int | None = None  # engine steps before replan (default:
+    # gem.trace_length; 0 means "as soon as the trace collectors fill")
+    # replica_slots > 0 raises NotImplementedError until replication lands
+    replication: ReplicationConfig = ReplicationConfig()
+    # prices the one-shot swap (MigrationCostModel for the expert dims)
+    migration: MigrationConfig = MigrationConfig()
     other_time_per_step: float = 0.0  # simulated non-MoE per-step latency
     kv: PagedKVConfig = PagedKVConfig()
     # chunked prefill: >0 spreads a prompt's *simulated* prefill time over
@@ -61,12 +93,26 @@ class EngineConfig:
 class ServingEngine:
     def __init__(self, params, config: ModelConfig,
                  engine_config: EngineConfig = EngineConfig(), *,
+                 profile: VariabilityProfile | None = None,
+                 num_devices: int | None = None,
                  device=None):
         self.device = resolve_device(device)
         embed = params["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(
                 f"params live on {embed.device}, engine runs on {self.device}"
+            )
+        if engine_config.placement_policy not in ("gem", "eplb", "linear"):
+            raise ValueError(
+                f"placement_policy={engine_config.placement_policy!r} not in "
+                "('gem', 'eplb', 'linear')"
+            )
+        rep = engine_config.replication
+        if rep.replica_slots > 0 or rep.auto_slots:
+            raise NotImplementedError(
+                "expert replication is not ported yet: the replicated pool, "
+                "the replica split and the replication-aware planner come "
+                "with the replication plane"
             )
         self.params = params
         self.config = config
@@ -85,13 +131,40 @@ class ServingEngine:
         self.preemption_count = 0
         self.prefill_count = 0  # prefills run (one per installed request)
         self.decode_count = 0  # decode steps run
-        # (L, E_v) expert→slot tables; a caller installs a placement by
-        # replacing these together with params["blocks"]["moe"]
+        # (L, E_v) expert→slot tables, identity while the pool is in
+        # virtual-expert order; the one-shot replan swaps them
         self.placements = identity_placement(
             config, config.num_layers, device=self.device
         )
         self.expert_counts: np.ndarray | None = None  # (L, E), last step
         self.sim_step_latencies: list[float] = []
+
+        # GEM control plane (the port serves MoE configs only)
+        self.profile = profile
+        # ground truth, when a caller injects one that departs the profile
+        self.true_profile: VariabilityProfile | None = None
+        self.placement_applied = False
+        self.migration_records: list[dict[str, Any]] = []
+        if profile is not None:
+            # admission tracks the profiled fleet's slowest device
+            self.scheduler.set_slow_device_factor(
+                float(profile.relative_speed().min())
+            )
+        nd = num_devices or (profile.num_devices if profile else 4)
+        Ev = config.num_virtual_experts
+        self.planner = GEMPlanner(
+            Ev, nd, config.num_layers, engine_config.gem
+        )
+        if profile is not None:
+            self.planner.set_profile(profile)
+        self.current_placements: list[Placement] = [
+            Placement.linear(Ev, nd) for _ in range(config.num_layers)
+        ]
+        self._migrate = MigrationExecutable()
+        self._cost_model = engine_config.migration.cost_model_for_dims(
+            config.d_model, config.expert_d_ff // config.expert_tp,
+            bytes_per_param=embed.dtype.itemsize,
+        )
 
         block_size = engine_config.kv.block_size
         self._n_max = -(-engine_config.max_len // block_size)
@@ -262,6 +335,80 @@ class ServingEngine:
                 self.block_tables[slot, : len(table)] = table
 
     # ------------------------------------------------------------------
+    def set_true_profile(self, profile: VariabilityProfile | None) -> None:
+        """Inject the *actual* fleet behaviour when it departs the believed
+        profile (a mid-run power cap): simulated latencies come from this
+        ground truth while the planner keeps planning on its belief."""
+        self.true_profile = profile
+
+    @property
+    def _sim_profile(self) -> VariabilityProfile | None:
+        return self.true_profile if self.true_profile is not None else self.profile
+
+    def _step_cost_matrix(self, counts_virt: np.ndarray) -> np.ndarray | None:
+        """(L, G) per-layer per-device latencies of this step on the
+        ground-truth fleet, under the current placements."""
+        if self._sim_profile is None:
+            return None
+        return step_cost_matrix(
+            counts_virt, self._sim_profile, self.current_placements
+        )
+
+    def _maybe_replan(self) -> None:
+        """The one-shot replan: once the threshold step is reached and every
+        layer's collector holds ``trace_length`` steps, plan with the
+        configured policy and apply it between two decode steps."""
+        if self.placement_applied or self.profile is None:
+            return
+        gem = self.ecfg.gem
+        threshold = (
+            self.ecfg.replan_after
+            if self.ecfg.replan_after is not None
+            else gem.trace_length
+        )
+        if self.step_count < threshold:
+            return
+        if not all(c.num_steps >= gem.trace_length
+                   for c in self.planner.collectors):
+            return
+        if self.ecfg.placement_policy == "linear":
+            self.placement_applied = True
+            return
+        if self.ecfg.placement_policy == "eplb":
+            placements = [
+                eplb_placement(c.trace(gem.trace_length),
+                               self.profile.num_devices)
+                for c in self.planner.collectors
+            ]
+        else:
+            placements = self.planner.plan().placements
+        # Step-4: the pool is still in virtual order, so each layer's
+        # row-source map is its slot_to_expert table, and the table swap
+        # inverts it into expert_to_slot; the pool is rewritten in place
+        slot_to_expert = np.stack([p.slot_to_expert() for p in placements])
+        moe = self.params["blocks"]["moe"]
+        _, self.placements = self._migrate(
+            slot_to_expert.astype(np.int32), self.placements,
+            moe["w_gate"], moe["w_up"], moe["w_down"],
+        )
+        # the swap moves weights: charge its modelled cost (the host path
+        # measures nothing) to the step that performs it
+        moves = sum(
+            len(cur.moved_slots(new))
+            for cur, new in zip(self.current_placements, placements)
+        )
+        swap_cost = float(self._cost_model.cost(moves))
+        self.migration_records.append({
+            "step": self.step_count, "via": "host", "moves": int(moves),
+            "modeled_s": swap_cost, "sim_time": float(self.sim_time),
+        })
+        if self.sim_step_latencies:
+            self.sim_step_latencies[-1] += swap_cost
+        self.sim_time += swap_cost
+        self.current_placements = placements
+        self.placement_applied = True
+
+    # ------------------------------------------------------------------
     def step(self) -> dict[str, Any]:
         """One engine iteration: ingest arrivals → admit → prefill →
         decode → sample → bookkeeping (continuous batching)."""
@@ -284,6 +431,7 @@ class ServingEngine:
                 "active": self.scheduler.num_active,
                 "finished": len(self.finished),
                 "sim_latency": prefill_charge,
+                "placement_applied": self.placement_applied,
             }
 
         dev = self.device
@@ -304,7 +452,15 @@ class ServingEngine:
         ).cpu().numpy()
         self.expert_counts = moe_aux.expert_counts.cpu().numpy()
 
+        # GEM Step-1: the router's per-layer counts, in virtual experts
         sim_latency = prefill_charge + self.ecfg.other_time_per_step
+        counts_virt = np.repeat(self.expert_counts, self.config.expert_tp,
+                                axis=1)
+        cost_mx = self._step_cost_matrix(counts_virt)
+        if cost_mx is not None:
+            sim_latency += float(cost_mx.max(axis=1).sum())
+        for layer in range(self.config.num_layers):
+            self.planner.observe_step(layer, counts_virt[layer])
         self.sim_step_latencies.append(sim_latency)
         # _prefill_phase already advanced the clock by its charge
         self.sim_time += sim_latency - prefill_charge
@@ -330,10 +486,12 @@ class ServingEngine:
             self.block_tables[slot, :] = 0
 
         self.step_count += 1
+        self._maybe_replan()
         return {
             "active": self.scheduler.num_active,
             "finished": len(self.finished),
             "sim_latency": sim_latency,
+            "placement_applied": self.placement_applied,
         }
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
@@ -352,4 +510,28 @@ class ServingEngine:
         """Paged-pool occupancy/pressure counters."""
         out = self.kv_pool.stats()
         out["kv_preemptions"] = float(self.preemption_count)
+        return out
+
+    def latency_report(self) -> dict[str, float]:
+        """Step-level latency stats (``mean_tpot`` etc. are *step*
+        latencies) merged with the per-request SLO percentiles and the
+        paged-pool counters: the JAX engine's report without the keys of
+        the planes not ported yet (online, shed, collective, attribution,
+        regret)."""
+        lat = np.asarray(self.sim_step_latencies)
+        lat = lat[lat > 0]
+        e2e = np.asarray(
+            [r.finish_time - r.arrival_time for r in self.finished]
+        )
+        out = {"steps": float(self.step_count)}
+        if len(lat):
+            out.update(
+                mean_tpot=float(lat.mean()),
+                p90_tpot=float(np.quantile(lat, 0.9)),
+                p99_tpot=float(np.quantile(lat, 0.99)),
+            )
+        if len(e2e):
+            out["mean_e2e"] = float(e2e.mean())
+        out.update(self.slo_report())
+        out.update(self.kv_stats())
         return out

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.collective import MigrationExecutable  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_ffn_cuda  # noqa: E402
 from repro_torch.kernels.ref import moe_ffn_ref, topk_router_ref  # noqa: E402
 from repro_torch.kernels.topk_router import topk_router_cuda  # noqa: E402
@@ -192,6 +193,36 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
             counts = ops.launch_counts()
             assert counts["moe_ffn"] == counts["topk_router_stats"] == calls
     assert out["cpu"] == out[str(cuda)]
+
+
+@pytest.mark.cuda
+def test_migration_on_the_card_is_exact_and_one_layer_at_a_time(cuda):
+    """The pool is rewritten in place: each slot's rows afterwards are the
+    bytes of its source slot, the tables are the inverse permutation, and
+    the memory it takes beyond the pool is at most one layer's rows."""
+    L, S, D, F = 6, 16, 256, 128
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ws = [torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+          for shape in ((L, S, D, F), (L, S, D, F), (L, S, F, D))]
+    before = [w.clone() for w in ws]
+    rng = np.random.default_rng(1)
+    src = np.stack([rng.permutation(S) for _ in range(L)]).astype(np.int32)
+    tables = torch.arange(S, dtype=torch.int32, device=cuda).repeat(L, 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, new_tables = MigrationExecutable()(src, tables, *ws)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    layer_rows = sum(w[0].numel() * w.element_size() for w in ws)
+    assert extra <= layer_rows, (extra, layer_rows)
+    assert all(a is b for a, b in zip(out, ws))
+    rows = torch.as_tensor(src, device=cuda).long()
+    for new, old in zip(out, before):
+        for layer in range(L):
+            assert torch.equal(_bits(new[layer]), _bits(old[layer][rows[layer]]))
+    assert new_tables.dtype == torch.int32
+    assert np.array_equal(new_tables.cpu().numpy(), np.argsort(src, axis=1))
 
 
 def _to(tree, device):

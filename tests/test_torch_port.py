@@ -30,7 +30,9 @@ def test_import_leaves_jax_and_repro_out():
         "import sys\n"
         "import repro_torch, repro_torch.bridge, repro_torch.configs\n"
         "import repro_torch.kernels.ops, repro_torch.models\n"
-        "import repro_torch.serving\n"
+        "import repro_torch.serving, repro_torch.core, repro_torch.online\n"
+        "import repro_torch.replication, repro_torch.kernels.collective\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -95,6 +97,20 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert len(done) == 1 and len(done[0].generated) == 3
     assert eng.prefill_count == 1 and eng.decode_count == 3
     assert eng.expert_counts.shape == (cfg.num_layers, cfg.num_experts)
+
+
+def test_launcher_replans_on_the_cpu_and_needs_cuda_otherwise(
+        monkeypatch, capsys):
+    from repro_torch.launch import serve
+
+    argv = ["--smoke", "--requests", "3", "--max-new-tokens", "20"]
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "served 3 requests, 20 steps, replan=True"
+    assert "  mean_tpot = " in "\n".join(out)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv)
 
 
 def test_sampling_greedy_ties_and_temperature():
