@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs five phases, each printing one JSON line:
+runs six phases, each printing one JSON line:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -24,13 +24,22 @@ runs five phases, each printing one JSON line:
    seeded weights and placement, must give equal greedy tokens.
 4. ``serve``   — full granite-moe-3b-a800m (32 layers, bf16, seeded random
    weights, paged KV, max_batch 8) serves 8 requests under a seeded
-   non-identity placement; tokens must equal an identity-placement run bit
-   for bit, and every MoE layer call must have launched the FFN and router
-   kernels (launch counts = 32 × (prefills + decode steps)). Then
-   ``profile`` traces three decode steps: device busy and idle time, host
-   time, launches and the port kernels' device time per step; it fails if
-   the trace holds none of the port's kernels.
-5. ``replan``  — GEM's one-shot control plane at full granite (32 layers,
+   non-identity placement in the engine's default ``decode_mode="scan"``
+   (the decode step captured once as a CUDA graph when the engine is
+   built, replayed every step); tokens must equal an identity-placement
+   run bit for bit, every MoE layer call must have launched the FFN and
+   router kernels (launch counts = 32 × (prefills + decode steps), replays
+   counted), each engine must have captured once, and K2's arrival
+   counters must be back at 0.
+5. ``graph``   — the same placed run in ``decode_mode="python"`` (the eager
+   per-layer loop): tokens must equal the ``"scan"`` run's; it reports
+   whether every step's logits are bit-equal, both modes' decode-step
+   medians (CUDA events), decode-only tokens/s, the capture counts and the
+   graph pool's bytes. Then ``profile`` traces three decode steps in each
+   mode: device busy and idle time, host time, launches (``cudaLaunch*``
+   and ``cudaGraphLaunch``) and the port kernels' device time per step; it
+   fails if the trace holds none of the port's kernels.
+6. ``replan``  — GEM's one-shot control plane at full granite (32 layers,
    bf16), built by the port's launcher (``repro_torch.launch.serve``:
    seed-0 weights, 8 requests of 32 new tokens, a 4-device emulated
    fleet at high variability): the replan fires at step 16, the planner's
@@ -40,7 +49,8 @@ runs five phases, each printing one JSON line:
    after the swap are the bytes of the expert the plan put there, that the
    tables are the plan's inverse, that the greedy tokens equal a
    ``linear``-policy run, that K1/K2 launched on every MoE layer call
-   before and after the swap, and that the swap took at most one layer's
+   before and after the swap, that the swap added no capture of the decode
+   step (``"scan"`` mode), and that the swap took at most one layer's
    rows of memory beyond the pool. It prints the planner's host seconds,
    the migration's CUDA-event time beside its HBM bound and the cost
    model's charge, peak memory, and the decode-step medians before and
@@ -366,8 +376,9 @@ def phase_parity():
 
 
 # --------------------------------------------------------------------- serve
-def _timed_decode(eng, events):
-    """Wrap the engine's decode step in CUDA events, tagged by step."""
+def _timed_decode(eng, events, logits=None):
+    """Wrap the engine's decode step in CUDA events, tagged by step; with
+    ``logits``, keep a copy of each step's logits (outside the events)."""
     inner = eng._decode
 
     def timed(*a, **kw):
@@ -376,14 +387,74 @@ def _timed_decode(eng, events):
         out = inner(*a, **kw)
         e.record()
         events.append((eng.step_count, s, e))
+        if logits is not None:
+            logits.append(out[0].clone())
         return out
 
     eng._decode = timed
 
 
+def _counters_at_zero() -> bool:
+    """K2's arrival counters, one per stream it ran on, are all 0."""
+    from repro_torch.kernels.topk_router import arrival_counters
+
+    torch.cuda.synchronize()
+    return all(int(c.item()) == 0 for c in arrival_counters())
+
+
+def _run_serve(tag, params, cfg, ecfg, e2s, requests, new_tokens,
+               logits=None):
+    """One full-granite run of ``requests``; checks what every run must
+    hold and returns (engine, tokens, launch counts, its JSON row)."""
+    from repro_torch.kernels import ops
+
+    L = cfg.num_layers
+    eng = _serve(params, cfg, ecfg, "cuda", e2s, requests)
+    events = []
+    _timed_decode(eng, events, logits)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(len(done) == len(requests), f"serve {tag}: not all finished")
+    check(all(len(r.generated) == new_tokens for r in done),
+          f"serve {tag}: wrong token counts")
+    calls = L * (eng.prefill_count + eng.decode_count)
+    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+          f"serve {tag}: launches {counts} != {calls}")
+    per_layer = eng.expert_counts.sum(axis=1)
+    check(bool((per_layer == ecfg.max_batch * cfg.experts_per_token).all()),
+          f"serve {tag}: expert counts {per_layer}")
+    scan = ecfg.decode_mode == "scan"
+    check(eng.graph_capture_counts == {"decode": int(scan), "prefill": 0,
+                                       "migrate": 0},
+          f"serve {tag}: capture counts {eng.graph_capture_counts}")
+    check(_counters_at_zero(), f"serve {tag}: a K2 arrival counter is not 0")
+    step_ms = [s.elapsed_time(e) for _, s, e in events]
+    median = statistics.median(step_ms)
+    row = {
+        "phase": "serve", "placement": tag, "decode_mode": ecfg.decode_mode,
+        "layers": L, "dtype": "bfloat16",
+        "requests": len(done), "new_tokens": new_tokens,
+        "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
+        "launches": counts, "graph_capture_counts": eng.graph_capture_counts,
+        "graph_pool_mib": (eng.decode_graph.pool_bytes / 2 ** 20
+                           if scan else None),
+        "decode_step_ms_median": median,
+        "decode_step_ms_min": min(step_ms),
+        "decode_only_tokens_per_s": ecfg.max_batch / (median / 1e3),
+        "tokens_per_s": len(done) * new_tokens / wall, "wall_s": wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    return eng, {r.uid: r.generated for r in done}, counts, row
+
+
 def phase_serve(summary):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serving import EngineConfig
 
@@ -398,58 +469,83 @@ def phase_serve(summary):
     requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), new_tokens)
                 for n in rng.integers(32, 129, size=8)]
     ecfg = EngineConfig(max_batch=8, max_len=256)
-    results = {}
-    main_counts = None
-    for tag, p, table in (("placed", placed, e2s), ("identity", params, None)):
-        eng = _serve(p, cfg, ecfg, "cuda", table, requests)
-        events = []
-        _timed_decode(eng, events)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        check(len(done) == len(requests), f"serve {tag}: not all finished")
-        check(all(len(r.generated) == new_tokens for r in done),
-              f"serve {tag}: wrong token counts")
-        calls = L * (eng.prefill_count + eng.decode_count)
-        check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
-              f"serve {tag}: launches {counts} != {calls}")
-        per_layer = eng.expert_counts.sum(axis=1)
-        check(bool((per_layer == ecfg.max_batch * cfg.experts_per_token).all()),
-              f"serve {tag}: expert counts {per_layer}")
-        step_ms = [s.elapsed_time(e) for _, s, e in events]
-        results[tag] = {r.uid: r.generated for r in done}
-        emit({
-            "phase": "serve", "placement": tag, "layers": L, "dtype": "bfloat16",
-            "requests": len(done), "new_tokens": new_tokens,
-            "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
-            "launches": counts,
-            "decode_step_ms_median": statistics.median(step_ms),
-            "decode_step_ms_min": min(step_ms),
-            "tokens_per_s": len(done) * new_tokens / wall, "wall_s": wall,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        })
-        if tag == "placed":
-            main_counts = counts
-            serve_peak = torch.cuda.max_memory_allocated()
-    check(results["placed"] == results["identity"],
+    scan = {"logits": []}
+    scan["eng"], scan["tokens"], main_counts, scan["row"] = _run_serve(
+        "placed", placed, cfg, ecfg, e2s, requests, new_tokens, scan["logits"])
+    serve_peak = torch.cuda.max_memory_allocated()
+    emit(scan["row"])
+    _, tokens, _, row = _run_serve(
+        "identity", params, cfg, ecfg, None, requests, new_tokens)
+    emit(row)
+    check(scan["tokens"] == tokens,
           "serve: tokens under the placement differ from identity")
     emit({"phase": "serve", "ok": True, "placement_invariant": True})
-    phase_profile(eng, requests, summary)
+    phase_graph(placed, cfg, ecfg, e2s, requests, new_tokens, scan, summary)
     return main_counts, serve_peak
 
 
-def phase_profile(eng, requests, summary, steps: int = 3):
+def phase_graph(placed, cfg, ecfg, e2s, requests, new_tokens, scan, summary):
+    """The serve phase's placed run again, in ``decode_mode="python"``:
+    tokens equal, logits compared bit for bit, both modes' numbers side
+    by side; then three profiled decode steps of each mode."""
+    py_ecfg = dataclasses.replace(ecfg, decode_mode="python")
+    py_logits = []
+    py_eng, py_tokens, _, py_row = _run_serve(
+        "placed", placed, cfg, py_ecfg, e2s, requests, new_tokens, py_logits)
+    emit(py_row)
+    scan_logits, scan_row = scan["logits"], scan["row"]
+    check(py_tokens == scan["tokens"],
+          "graph: the captured step's tokens differ from the eager step's")
+    check(len(py_logits) == len(scan_logits) == py_row["decode_steps"],
+          "graph: the two runs decoded different numbers of steps")
+    bit_equal = [same_bits(a, b) for a, b in zip(scan_logits, py_logits)]
+    max_diff = max((a - b).abs().max().item()
+                   for a, b in zip(scan_logits, py_logits))
+    scan_ms = scan_row["decode_step_ms_median"]
+    py_ms = py_row["decode_step_ms_median"]
+    emit({"phase": "graph", "ok": True, "tokens_equal_python": True,
+          "logits_bit_equal_steps": sum(bit_equal), "steps": len(bit_equal),
+          "logits_max_abs_diff": max_diff,
+          "decode_step_ms_median": {"scan": scan_ms, "python": py_ms},
+          "decode_only_tokens_per_s": {
+              "scan": scan_row["decode_only_tokens_per_s"],
+              "python": py_row["decode_only_tokens_per_s"]},
+          "tokens_per_s": {"scan": scan_row["tokens_per_s"],
+                           "python": py_row["tokens_per_s"]},
+          "speedup_step_median": py_ms / scan_ms,
+          "graph_capture_counts": scan_row["graph_capture_counts"],
+          "graph_pool_mib": scan_row["graph_pool_mib"]})
+    scan_logits.clear()
+    py_logits.clear()
+    # the captured step alone, all rows idle (only the null KV block is
+    # written): host time until the call returns, and until the card is done
+    eng, B = scan["eng"], ecfg.max_batch
+    idle = (np.zeros(B, np.int32), np.zeros((B, 1), np.int32),
+            np.zeros((B, eng.decode_graph.n_max), np.int32))
+    call_ms, done_ms = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._decode(eng.params, eng.caches, idle[0], idle[1], cfg,
+                    eng.placements, block_tables=idle[2])
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        done_ms.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "graph", "replay_call_host_ms": statistics.median(call_ms),
+          "replay_done_host_ms": statistics.median(done_ms)})
+    for mode, eng in (("scan", scan["eng"]), ("python", py_eng)):
+        phase_profile(eng, mode, requests, summary)
+    check(_counters_at_zero(), "graph: a K2 arrival counter is not 0")
+
+
+def phase_profile(eng, mode, requests, summary, steps: int = 3):
     """Where a decode step's time goes: torch.profiler over ``steps``
     decode-only engine steps at max_batch 8 (after the prefill step and
     one warm step). Device busy time is the sum of the kernels' own time
     (one stream, so they do not overlap); the rest of the host-clock
-    window is the card's idle share. Beside the port kernels' device time
-    per call in the step, it repeats the two that the decode step does not
+    window is the card's idle share. Launches count ``cudaLaunch*`` and
+    ``cudaGraphLaunch`` calls. Beside the port kernels' device time per
+    call in the step, it repeats the two that the decode step does not
     run, from the ``kernels`` phase: K1 at the prefill shape and K3."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -458,7 +554,13 @@ def phase_profile(eng, requests, summary, steps: int = 3):
         eng.submit(prompt, max_new_tokens=new)
     eng.step()  # admits and prefills all requests, decodes once
     eng.step()
-    torch.cuda.synchronize()
+    plain_ms = []  # the same decode-only steps without the profiler
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -471,21 +573,30 @@ def phase_profile(eng, requests, summary, steps: int = 3):
     busy_us = sum(e.self_device_time_total for e in dev)
     port = {e.key[:80]: e.self_device_time_total / e.count for e in dev
             if _is_port_kernel(e.key)}
-    check(bool(port), "profile: the decode steps ran none of the port's kernels")
+    check(bool(port),
+          f"profile {mode}: the decode steps ran none of the port's kernels")
 
     def top(rows, key, n=12):
         rows = sorted(rows, key=key, reverse=True)[:n]
         return [{"name": e.key[:80], "calls_per_step": e.count / steps,
                  "us_per_step": key(e) / steps} for e in rows]
 
+    def calls(prefix):
+        return sum(e.count for e in cpu if e.key.startswith(prefix)) / steps
+
     emit({
-        "phase": "profile", "decode_steps": steps,
+        "phase": "profile", "decode_mode": mode, "decode_steps": steps,
         "step_ms_host": wall / steps * 1e3,
+        "step_ms_host_unprofiled": statistics.median(plain_ms),
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        # the profiled busy time over the unprofiled step: an estimate
+        # from two windows of the same steps' work
+        "device_idle_share_unprofiled_est":
+            1.0 - busy_us / steps / 1e3 / statistics.median(plain_ms),
         "device_ops_per_step": sum(e.count for e in dev) / steps,
-        "cuda_launches_per_step": sum(
-            e.count for e in cpu if e.key.startswith("cudaLaunch")) / steps,
+        "cuda_launches_per_step": calls("cudaLaunch"),
+        "cuda_graph_launches_per_step": calls("cudaGraphLaunch"),
         "port_kernels_us_per_call": port,
         "moe_ffn_prefill_device_us": summary["moe_ffn/prefill"]["device_us"],
         "topk_router_device_us": summary["topk_router/decode"]["device_us"],
@@ -539,6 +650,7 @@ def phase_replan(serve_peak):
         def timed_migrate(src, tables, *ws):
             torch.cuda.synchronize()
             at_swap["launches"] = ops.launch_counts()
+            at_swap["captures"] = dict(eng.graph_capture_counts)
             at_swap["calls"] = eng.config.num_layers * (
                 eng.prefill_count + eng.decode_count)
             at_swap["run_peak"] = torch.cuda.max_memory_allocated()
@@ -577,6 +689,13 @@ def phase_replan(serve_peak):
     check(before["moe_ffn"] == before["topk_router_stats"] == at_swap["calls"]
           and at_swap["calls"] < calls,
           f"replan: launches before the swap {before} != {at_swap['calls']}")
+    # "scan" mode: one capture when the engine was built, none for the swap
+    one = {"decode": 1, "prefill": 0, "migrate": 0}
+    check(eng.ecfg.decode_mode == "scan"
+          and at_swap["captures"] == eng.graph_capture_counts == one,
+          f"replan: captures {at_swap['captures']} before the swap, "
+          f"{eng.graph_capture_counts} after it; want {one}")
+    check(_counters_at_zero(), "replan: a K2 arrival counter is not 0")
     moe = eng.params["blocks"]["moe"]
     layer_rows = sum(moe[n][0].numel() * moe[n].element_size()
                      for n in ("w_gate", "w_up", "w_down"))
@@ -637,6 +756,9 @@ def phase_replan(serve_peak):
         "decode_step_ms_median_before": statistics.median(step_ms[False]),
         "decode_step_ms_median_after": statistics.median(step_ms[True]),
         "launches": counts, "launches_before_swap": before,
+        "decode_mode": eng.ecfg.decode_mode,
+        "graph_capture_counts": eng.graph_capture_counts,
+        "graph_pool_mib": eng.decode_graph.pool_bytes / 2 ** 20,
         "wall_s": wall, "linear_wall_s": lin_wall,
         "tokens_per_s": 8 * 32 / wall, "linear_tokens_per_s": 8 * 32 / lin_wall,
         "latency_report": eng.latency_report(),

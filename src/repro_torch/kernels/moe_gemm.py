@@ -14,12 +14,9 @@ import ctypes
 import torch
 
 from ..device import current_stream_handle
-from . import _build
+from . import _build, launches
 
-__all__ = ["moe_ffn_cuda", "LAUNCHES"]
-
-# kernel launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"moe_ffn": 0}
+__all__ = ["moe_ffn_cuda"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -87,5 +84,5 @@ def moe_ffn_cuda(x_e, w_gate, w_up, w_down):
     )
     if err != 0:
         raise RuntimeError(f"moe_ffn kernel launch failed: CUDA error {err}")
-    LAUNCHES["moe_ffn"] += 1
+    launches.count("moe_ffn")
     return y

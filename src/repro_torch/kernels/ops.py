@@ -10,7 +10,7 @@ ragged shapes themselves).
 """
 from __future__ import annotations
 
-from . import moe_gemm, topk_router as _router
+from . import launches
 from .moe_gemm import moe_ffn_cuda
 from .ref import moe_ffn_ref, topk_router_ref
 from .topk_router import topk_router_cuda
@@ -48,11 +48,10 @@ def topk_router(logits, k: int, *, with_stats: bool = False):
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per kernel since the last reset."""
-    return {**moe_gemm.LAUNCHES, **_router.LAUNCHES}
+    """Kernel launches per kernel since the last reset, each replay of a
+    captured CUDA graph counted as the launches it runs."""
+    return dict(launches.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for table in (moe_gemm.LAUNCHES, _router.LAUNCHES):
-        for name in table:
-            table[name] = 0
+    launches.reset()

@@ -47,5 +47,7 @@ def topk_router_ref(logits, k: int, *, with_stats: bool = False):
         return gates, ids
     E = logits.shape[-1]
     probs_sum = probs.sum(dim=0)
-    counts = torch.bincount(ids.reshape(-1).long(), minlength=E).to(torch.int32)
+    flat = ids.reshape(-1).long()
+    counts = torch.zeros(E, dtype=torch.long, device=logits.device)
+    counts = counts.scatter_add_(0, flat, torch.ones_like(flat)).to(torch.int32)
     return gates, ids, probs_sum, counts

@@ -12,19 +12,25 @@ import ctypes
 import torch
 
 from ..device import current_stream_handle
-from . import _build
+from . import _build, launches
 
-__all__ = ["topk_router_cuda", "LAUNCHES", "MAX_EXPERTS", "MAX_K"]
-
-# kernel launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"topk_router_stats": 0, "topk_router": 0}
+__all__ = ["topk_router_cuda", "arrival_counters", "MAX_EXPERTS", "MAX_K"]
 
 MAX_EXPERTS = 128  # a warp holds a row: 4 logits per lane
 MAX_K = 8
 _ROWS_PER_BLOCK = 8  # warps per block (csrc/topk_router.cu kWarps)
 _fn = None
-# per (device, stream): the kernel's arrival counter, 0 between launches
+# per (device, stream): the kernel's arrival counter, 0 between launches.
+# A CUDA graph bakes in the counter of the stream that captured it, so
+# that counter must exist before the capture (a first call on that stream
+# outside it makes it); it is never allocated while a stream captures.
 _arrivals: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters() -> list[torch.Tensor]:
+    """Every stream's arrival counter: each is 0 whenever no launch on its
+    stream is in flight."""
+    return list(_arrivals.values())
 
 
 def _launcher():
@@ -72,6 +78,12 @@ def topk_router_cuda(logits, k: int, *, with_stats: bool = False):
         if with_stats:
             counter = _arrivals.get((dev.index, stream))
             if counter is None:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        "topk_router_cuda: no arrival counter for the "
+                        "capturing stream; run the captured body once on "
+                        "that stream before the capture"
+                    )
                 counter = _arrivals[dev.index, stream] = torch.zeros(
                     1, dtype=torch.int32, device=dev
                 )
@@ -84,7 +96,7 @@ def topk_router_cuda(logits, k: int, *, with_stats: bool = False):
             raise RuntimeError(
                 f"topk_router kernel launch failed: CUDA error {err}"
             )
-        LAUNCHES["topk_router_stats" if with_stats else "topk_router"] += 1
+        launches.count("topk_router_stats" if with_stats else "topk_router")
     ibuf = buf.view(torch.int32)
     gates = buf.as_strided((T, k), (k, 1))
     ids = ibuf.as_strided((T, k), (k, 1), tk)

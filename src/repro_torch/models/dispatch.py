@@ -158,7 +158,10 @@ def _rank_in_group(slots, num_slots: int):
     slots = slots.long()
     order = torch.argsort(slots, stable=True)
     sorted_slots = slots[order]
-    group_sizes = torch.bincount(slots, minlength=num_slots)
+    # bincount on CUDA reads the maximum back to the host; a fixed-size
+    # scatter of ones gives the same counts without a sync
+    group_sizes = torch.zeros(num_slots, dtype=torch.long, device=slots.device)
+    group_sizes.scatter_add_(0, slots, torch.ones_like(slots))
     starts = torch.cumsum(group_sizes, dim=0) - group_sizes
     pos_sorted = torch.arange(A, device=slots.device) - starts[sorted_slots]
     inv = torch.argsort(order, stable=True)
@@ -192,13 +195,14 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
     Ag = Ng * k * tp
     vids_flat = vids.reshape(Gd, Ag)
     slots = table.long()[vids_flat]  # (Gd, Ag)
-    group_of = torch.arange(Gd, device=dev).repeat_interleave(Ag)
+    group_of = torch.arange(Gd, device=dev)[:, None].expand(Gd, Ag).reshape(-1)
     keyed = group_of * S + slots.reshape(-1)
     pos, _ = _rank_in_group(keyed, Gd * S)
     pos = pos.reshape(Gd, Ag)
-    tok_idx = torch.arange(Ng, device=dev).repeat_interleave(k * tp)
-    tok_idx = tok_idx.expand(Gd, Ag)
-    a_gates = router.gates.reshape(Gd, Ng * k).repeat_interleave(tp, dim=1)
+    tok_idx = torch.arange(Ng, device=dev)[:, None].expand(Ng, k * tp)
+    tok_idx = tok_idx.reshape(1, Ag).expand(Gd, Ag)
+    a_gates = router.gates.reshape(Gd, Ng * k, 1).expand(Gd, Ng * k, tp)
+    a_gates = a_gates.reshape(Gd, Ag)
 
     C = slot_capacity(Ng, config, capacity_factor=capacity_factor,
                       num_slots=S, replicated=False)
@@ -214,7 +218,7 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
     assign_row = torch.where(keep, slots * C + pos, torch.full_like(pos, S * C))
 
     kept = keep.sum().to(torch.int32)
-    total = torch.tensor(Gd * Ag, dtype=torch.int32, device=dev)
+    total = torch.full((), Gd * Ag, dtype=torch.int32, device=dev)
     dropped_tokens = total - kept
     return DispatchPlan(
         dispatch_idx=dispatch_idx[:, :S].contiguous(),

@@ -5,6 +5,8 @@ layers.py``), so that both packages run the same weights.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -21,12 +23,20 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
-def rope(positions, head_dim: int, theta: float):
-    """Rotary tables: positions (…,) → cos/sin (…, head_dim/2), fp32."""
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, device: torch.device):
+    """RoPE's frequencies on ``device``, made once: the decode step reads
+    them without a host copy (a copy in a captured step would be baked
+    into the graph). numpy computes them, as the JAX package does."""
     freqs = 1.0 / (
         theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim)
     )
-    freqs_t = torch.from_numpy(np.asarray(freqs, np.float32)).to(positions.device)
+    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
+def rope(positions, head_dim: int, theta: float):
+    """Rotary tables: positions (…,) → cos/sin (…, head_dim/2), fp32."""
+    freqs_t = _inv_freq(head_dim, theta, positions.device)
     angles = positions.float()[..., None] * freqs_t
     return torch.cos(angles), torch.sin(angles)
 

@@ -10,16 +10,20 @@ dim::
                 "moe": {"router", "w_gate", "w_up", "w_down"}}}
 
 (plus ``"lm_head"`` (D, V_pad) for untied configs). The layer stack is a
-Python loop over layers, the JAX package's ``"python"`` mode.
+Python loop over layers, the JAX package's ``"python"`` mode;
+:class:`DecodeGraph` is its ``"scan"`` mode: the same decode step over
+static buffers, captured once as a CUDA graph and replayed every step.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..kernels import launches
 from .attention import attention_decode_paged, attention_train, init_attention
 from .layers import embed_tokens, lm_logits, rms_norm
 from .moe import MoEAux, identity_placement, init_moe, moe_layer
@@ -29,6 +33,7 @@ __all__ = [
     "prefill",
     "init_paged_decode_cache",
     "decode_step",
+    "DecodeGraph",
 ]
 
 
@@ -157,3 +162,138 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = lm_logits(x, params, config)
     return logits[:, 0], caches, _stack_aux(auxes)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class DecodeGraph:
+    """The port's counterpart of ``decode_mode="scan"``: the whole
+    :func:`decode_step` over static buffers, captured once as a CUDA graph
+    and replayed every step.
+
+    The JAX package lowers the decode step to one executable whose
+    placements, block tables and lengths are operands. Here everything the
+    step reads stays at one address for the life of the graph: the step's
+    host inputs are copied into :attr:`tokens` (B, 1), :attr:`cur_len`
+    (B,) and :attr:`block_tables` (B, n_max), views of one int32 device
+    buffer filled by one copy a step; the weights, the paged KV pools and
+    the (L, E_v) expert→slot tables are the caller's tensors, which the
+    caller updates in place (``copy_``) and never rebinds.
+
+    Binding happens at construction, with the static inputs at zero (every
+    row idle: it reads and writes only the null KV block). On a CUDA device
+    it runs the body once on a side stream, which loads the kernels'
+    libraries, sets up cuBLAS there and makes K2's arrival counter for that
+    stream, runs it again under ``torch.cuda.set_sync_debug_mode("error")``
+    so that a host sync fails before the capture, then captures one body
+    with ``torch.cuda.CUDAGraph`` on the same stream. Each call replays the
+    graph and adds the kernel launches the capture recorded to
+    :mod:`repro_torch.kernels.launches`. A capture or replay error raises:
+    there is no eager fallback on the card. On the CPU there is nothing to
+    capture, and each call runs the same body eagerly.
+
+    :attr:`builds` counts bindings (captures on the card). A call whose
+    weights, pools or tables are other tensors than the bound ones binds
+    again and counts it, so a graph never reads stale pointers.
+    :attr:`pool_bytes` is the device memory the capture reserved for its
+    private pool (the step's intermediates and outputs).
+    """
+
+    def __init__(self, params, caches, placements, config: ModelConfig, *,
+                 batch: int, n_max: int, device):
+        _check_family(config)
+        self.config = config
+        self.device = torch.device(device)
+        self.batch, self.n_max = batch, n_max
+        cuda = self.device.type == "cuda"
+        words = batch * (2 + n_max)
+        self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
+        self._host_np = self._host.numpy()
+        self._inputs = torch.zeros(words, dtype=torch.int32, device=self.device)
+        self.tokens = self._inputs[:batch].view(batch, 1)
+        self.cur_len = self._inputs[batch:2 * batch]
+        self.block_tables = self._inputs[2 * batch:].view(batch, n_max)
+        self._staged = torch.cuda.Event() if cuda else None
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self.builds = 0
+        self.pool_bytes = 0
+        self._graph = self._out = self._tally = self._key = None
+        self._bind(params, caches, placements)
+
+    @staticmethod
+    def _pointers(params, caches, placements) -> tuple[int, ...]:
+        return tuple(t.data_ptr()
+                     for t in _leaves({"p": params, "c": caches,
+                                       "t": placements}))
+
+    def _body(self):
+        return decode_step(
+            self._params, self._caches, self.cur_len, self.tokens,
+            self.config, self._placements, block_tables=self.block_tables,
+        )
+
+    def _bind(self, params, caches, placements) -> None:
+        self._params, self._caches, self._placements = params, caches, placements
+        self._key = self._pointers(params, caches, placements)
+        self.builds += 1
+        if self._stream is not None:
+            self._capture()
+
+    def _capture(self) -> None:
+        dev, stream = self.device, self._stream
+        self._graph = self._out = None  # an earlier capture's pool goes first
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._body()  # set-up: libraries, cuBLAS, K2's counter, RoPE
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._body()  # what the graph holds may not sync
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        with launches.recording() as tally:
+            with torch.cuda.graph(graph, stream=stream):
+                out = self._body()
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self._graph, self._out, self._tally = graph, out, tally
+
+    def _stage(self, cur_len, tokens, block_tables) -> None:
+        """Host inputs → the static device buffer, one copy."""
+        if self._staged is not None:
+            self._staged.synchronize()  # the last step's copy has left it
+        B, h = self.batch, self._host_np
+        h[:B] = np.asarray(tokens).reshape(B)
+        h[B:2 * B] = np.asarray(cur_len).reshape(B)
+        h[2 * B:] = np.asarray(block_tables).reshape(-1)
+        self._inputs.copy_(self._host, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def __call__(self, params, caches, cur_len, tokens, config: ModelConfig,
+                 placements, *, block_tables):
+        """:func:`decode_step`'s signature and results, with ``cur_len``,
+        ``tokens`` and ``block_tables`` as host arrays. The logits and aux
+        are the graph's static outputs: the next call overwrites them."""
+        if config is not self.config and config != self.config:
+            raise ValueError("DecodeGraph: called with another model config")
+        self._stage(cur_len, tokens, block_tables)
+        if self._pointers(params, caches, placements) != self._key:
+            self._bind(params, caches, placements)
+        if self._graph is None:
+            out = self._body()
+        else:
+            self._graph.replay()
+            launches.replayed(self._tally)
+            out = self._out
+        logits, _, aux = out
+        return logits, caches, aux

@@ -32,6 +32,18 @@ virtual-expert order). A caller may still install a placement of its own by
 replacing ``params["blocks"]["moe"]`` and ``placements`` together when no
 profile is attached, in which case the engine never replans.
 
+``decode_mode`` picks how the decode step runs, as in the JAX engine.
+``"scan"`` (the default) runs it through
+:class:`~repro_torch.models.model.DecodeGraph`: captured once as a CUDA
+graph when the engine is built, replayed every step, with the step's
+inputs, the router tables, the expert pool and the KV pools at fixed
+addresses, so a migration never recaptures it
+(:attr:`ServingEngine.graph_capture_counts`). ``"python"`` is the eager
+per-layer loop, the parity baseline. Whatever the decode step reads is
+updated in place: assigning ``placements`` copies into the engine's one
+table tensor, and the swap rewrites the pool in place. Replacing a weight
+tensor after the capture recaptures, and is counted.
+
 Not here yet: the online plane, replication (``replica_slots > 0`` raises
 ``NotImplementedError``) and shedding, the collective migration path,
 telemetry with its attribution and regret, and the dense KV mode (it comes
@@ -53,7 +65,12 @@ from ..core.score import step_cost_matrix
 from ..core.types import GEMConfig, Placement, VariabilityProfile
 from ..device import resolve_device
 from ..kernels.collective import MigrationExecutable
-from ..models.model import decode_step, init_paged_decode_cache, prefill
+from ..models.model import (
+    DecodeGraph,
+    decode_step,
+    init_paged_decode_cache,
+    prefill,
+)
 from ..models.moe import identity_placement
 from ..online.migration import MigrationConfig
 from ..replication.types import ReplicationConfig
@@ -88,6 +105,11 @@ class EngineConfig:
     prefill_time_per_token: float = 0.0  # simulated prefill s/token
     admit_lookahead: int = 8  # scheduler head-of-line lookahead window
     ttft_slo_s: float | None = None  # TTFT target the scheduler records
+    # "scan" captures the decode step once as a CUDA graph (models/model.py
+    # DecodeGraph) whose tables, inputs and pools are static buffers: no
+    # migration recaptures it. "python" runs the per-layer loop eagerly:
+    # the parity baseline.
+    decode_mode: str = "scan"
 
 
 class ServingEngine:
@@ -101,6 +123,11 @@ class ServingEngine:
         if embed.device.type != self.device.type:
             raise ValueError(
                 f"params live on {embed.device}, engine runs on {self.device}"
+            )
+        if engine_config.decode_mode not in ("scan", "python"):
+            raise ValueError(
+                f"decode_mode={engine_config.decode_mode!r} not in "
+                "('scan', 'python')"
             )
         if engine_config.placement_policy not in ("gem", "eplb", "linear"):
             raise ValueError(
@@ -132,8 +159,9 @@ class ServingEngine:
         self.prefill_count = 0  # prefills run (one per installed request)
         self.decode_count = 0  # decode steps run
         # (L, E_v) expert→slot tables, identity while the pool is in
-        # virtual-expert order; the one-shot replan swaps them
-        self.placements = identity_placement(
+        # virtual-expert order; the one-shot replan swaps them. One tensor
+        # for the engine's life: `placements = …` copies into it
+        self._placements = identity_placement(
             config, config.num_layers, device=self.device
         )
         self.expert_counts: np.ndarray | None = None  # (L, E), last step
@@ -186,7 +214,32 @@ class ServingEngine:
         self.block_tables = np.zeros(
             (engine_config.max_batch, self._n_max), dtype=np.int32
         )
+        self.decode_graph: DecodeGraph | None = None
         self._decode = decode_step
+        if engine_config.decode_mode == "scan":
+            self.decode_graph = DecodeGraph(
+                params, self.caches, self._placements, config,
+                batch=engine_config.max_batch, n_max=self._n_max,
+                device=self.device,
+            )
+            self._decode = self.decode_graph
+
+    @property
+    def placements(self) -> torch.Tensor:
+        """The (L, E_v) int32 expert→slot tables the model routes through."""
+        return self._placements
+
+    @placements.setter
+    def placements(self, tables) -> None:
+        """Copy new tables into the engine's one table tensor; the captured
+        decode step reads that tensor, so it is never rebound."""
+        tables = torch.as_tensor(tables, device=self.device)
+        if tuple(tables.shape) != tuple(self._placements.shape):
+            raise ValueError(
+                f"placements {tuple(tables.shape)} != "
+                f"{tuple(self._placements.shape)} (L, E_v)"
+            )
+        self._placements.copy_(tables)
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
@@ -387,7 +440,7 @@ class ServingEngine:
         # inverts it into expert_to_slot; the pool is rewritten in place
         slot_to_expert = np.stack([p.slot_to_expert() for p in placements])
         moe = self.params["blocks"]["moe"]
-        _, self.placements = self._migrate(
+        _, self.placements = self._migrate(  # copied in place (setter)
             slot_to_expert.astype(np.int32), self.placements,
             moe["w_gate"], moe["w_up"], moe["w_down"],
         )
@@ -435,12 +488,13 @@ class ServingEngine:
             }
 
         dev = self.device
+        inputs = (self.cur_len, self.last_token[:, None], self.block_tables)
+        if self.decode_graph is None:  # "python": new device tensors a step
+            inputs = tuple(torch.as_tensor(a, device=dev) for a in inputs)
+        cur_len, tokens, block_tables = inputs
         logits, self.caches, moe_aux = self._decode(
-            self.params, self.caches,
-            torch.as_tensor(self.cur_len, device=dev),
-            torch.as_tensor(self.last_token[:, None], device=dev),
-            self.config, self.placements,
-            block_tables=torch.as_tensor(self.block_tables, device=dev),
+            self.params, self.caches, cur_len, tokens, self.config,
+            self.placements, block_tables=block_tables,
         )
         self.decode_count += 1
         generator = None
@@ -502,6 +556,18 @@ class ServingEngine:
         return self.finished
 
     # ------------------------------------------------------------------
+    @property
+    def graph_capture_counts(self) -> dict[str, int]:
+        """Captures per entry point, the counterpart of the JAX engine's
+        ``jit_trace_counts``. ``decode`` is the decode graph's builds: 1
+        for a whole run under ``"scan"`` (on the CPU, bindings of the
+        static buffers), 0 under ``"python"``. Prefill runs eagerly and the
+        swap is the host path, so ``prefill`` and ``migrate`` stay 0. A
+        migration adds no capture."""
+        graph = self.decode_graph
+        return {"decode": graph.builds if graph is not None else 0,
+                "prefill": 0, "migrate": 0}
+
     def slo_report(self) -> dict[str, float]:
         """Per-request percentile TTFT/TPOT/E2E (serving/slo.py)."""
         return slo_report(self.finished)

@@ -225,6 +225,95 @@ def test_migration_on_the_card_is_exact_and_one_layer_at_a_time(cuda):
     assert np.array_equal(new_tables.cpu().numpy(), np.argsort(src, axis=1))
 
 
+def _replan_engine(params, cfg, mode, device, logits):
+    """Smoke granite with GEM's one-shot replan mid-run; keeps a copy of
+    every decode step's logits."""
+    from repro_torch.core import GEMConfig
+    from repro_torch.launch.serve import emulated_profile
+
+    eng = ServingEngine(
+        params, cfg,
+        EngineConfig(max_batch=3, max_len=40, decode_mode=mode,
+                     gem=GEMConfig(trace_length=4, num_restarts=3)),
+        profile=emulated_profile("high", 4), num_devices=4, device=device,
+    )
+    inner = eng._decode
+
+    def decode(*a, **kw):
+        out = inner(*a, **kw)
+        logits.append(out[0].clone())
+        return out
+
+    eng._decode = decode
+    rng = np.random.default_rng(4)
+    for n, new in zip((7, 11, 7, 11), (9, 6, 8, 7)):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=n), max_new_tokens=new)
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_matches_python_through_a_replan(cuda, dtype):
+    """Two layers on the card, GEM's replan mid-run: the captured decode
+    step gives the eager step's tokens and logits bit for bit, is captured
+    once (the swap adds no capture), launches K1 and K2 on every MoE layer
+    call through its replays, and leaves K2's arrival counters at 0."""
+    from repro_torch.kernels.topk_router import arrival_counters
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    params = init_params(cfg, seed=3, device=cuda, dtype=getattr(torch, dtype))
+    runs = {}
+    for mode in ("scan", "python"):
+        logits = []
+        eng = _replan_engine(_clone(params), cfg, mode, cuda, logits)
+        ops.reset_launch_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        calls = cfg.num_layers * (eng.prefill_count + eng.decode_count)
+        counts = ops.launch_counts()
+        assert counts["moe_ffn"] == counts["topk_router_stats"] == calls
+        assert eng.migration_records and eng.placement_applied
+        runs[mode] = (eng, logits)
+    (scan, scan_logits), (python, py_logits) = runs["scan"], runs["python"]
+    assert scan.graph_capture_counts == {"decode": 1, "prefill": 0,
+                                         "migrate": 0}
+    assert {r.uid: r.generated for r in scan.finished} == \
+        {r.uid: r.generated for r in python.finished}
+    assert len(scan_logits) == len(py_logits) == scan.decode_count
+    for a, b in zip(scan_logits, py_logits):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(scan.placements, python.placements)
+    assert all(int(c.item()) == 0 for c in arrival_counters())
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_the_decode_step_fails_the_capture(cuda, monkeypatch):
+    """The warm-up before the capture runs under the sync debug mode
+    "error": a step that reads a device value on the host raises at once
+    instead of being captured."""
+    from repro_torch.models import model
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    params = init_params(cfg, seed=3, device=cuda, dtype=torch.float32)
+    norm = model.rms_norm
+
+    def syncing_norm(x, scale, eps=1e-6):
+        float(x.float().abs().max())  # a host read of a device value
+        return norm(x, scale, eps)
+
+    monkeypatch.setattr(model, "rms_norm", syncing_norm)
+    with pytest.raises(RuntimeError):
+        ServingEngine(params, cfg, EngineConfig(max_batch=2, max_len=40),
+                      device=cuda)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
