@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs six phases, each printing one JSON line:
+runs seven phases, each printing one JSON line:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -55,6 +55,26 @@ runs six phases, each printing one JSON line:
    the migration's CUDA-event time beside its HBM bound and the cost
    model's charge, peak memory, and the decode-step medians before and
    after the replan.
+7. ``online`` — GEM's online plane at full granite (32 layers, bf16,
+   seed-0 weights, paged KV, max_batch 8, ``"scan"``), driven by the
+   port's ``serve_scenario``: 48 requests of fig23's chat/summarize mix
+   (shifting from 0.8/0.2 to 0.2/0.8 halfway) from ``generate_arrivals``,
+   a 4-device emulated fleet at high variability whose fastest device
+   slows to 2/3 of its speed at step 34, and batches of at most 256 row
+   moves. It checks that a ``warmup`` and a ``variability-drift`` replan
+   were applied, that at least two batches landed at distinct steps
+   within the budget and all of them drained, that each slot's rows are
+   the bytes of the expert the live placement puts there (per-row
+   checksums taken in virtual order before the run) and the tables its
+   inverse, that the greedy tokens equal a ``linear`` non-online run of
+   the same stream, that K1/K2 launched 32 × (prefills + decode steps),
+   that the decode step was captured once for the whole run, that K2's
+   counters are at 0, and that no batch took more than one layer's rows
+   of one weight beyond the pool. It prints each replan's reason, step
+   and host seconds, each batch's moves and swap time (CUDA events)
+   beside its HBM bound, the decode-step medians before, during and
+   after the batches, the host ms a step of the controller, attribution
+   and regret, and tokens/s.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -768,6 +788,266 @@ def phase_replan(serve_peak):
     return counts
 
 
+# -------------------------------------------------------------------- online
+# 48 requests of ~10 new tokens at max_batch 8 run ~65 steps: the warm-up
+# plan (~4,700 row moves at full granite) and the plan after the slowdown
+# each drain in ~19 batches of 256, and some steps follow the last batch
+ONLINE_REQUESTS = 48
+ONLINE_RATE = 2000.0  # req/s of simulated time: the stream is in by step ~12
+ONLINE_SLOWDOWN_STEP = 34  # after the warm-up plan has drained
+# the fastest device's curve × 1.5 (2/3 of its speed): the variability
+# detector (EWMA 0.2, threshold 0.25) fires on its 4th step and repairs
+# the belief to ×1.3, inside the threshold, so it fires once
+ONLINE_SLOWDOWN = 1.5
+ONLINE_MOVES_PER_STEP = 256  # row moves a batch may make (a swap is two)
+
+
+def _online_stream(vocab_size):
+    """fig23's chat/summarize task profiles at full vocab, the mix shifting
+    from 0.8/0.2 to 0.2/0.8 halfway through a Poisson stream."""
+    from repro_torch.serving import ArrivalConfig, TaskProfile, generate_arrivals
+
+    chat = TaskProfile("chat", prompt_buckets=(8, 16), output_mean=12.0,
+                       output_bounds=(4, 24), vocab_band=(0.0, 0.5))
+    summ = TaskProfile("summarize", prompt_buckets=(16, 32), output_mean=8.0,
+                       output_bounds=(4, 16), vocab_band=(0.5, 1.0))
+    return generate_arrivals(
+        ArrivalConfig(rate=ONLINE_RATE, num_requests=ONLINE_REQUESTS,
+                      process="poisson"),
+        vocab_size, seed=6, mix=[(chat, 0.8), (summ, 0.2)],
+        mix_shift=(0.5 * ONLINE_REQUESTS / ONLINE_RATE,
+                   [(chat, 0.2), (summ, 0.8)]),
+    )
+
+
+def _online_engine(params, cfg, profile, *, online):
+    from repro_torch.core import GEMConfig
+    from repro_torch.online import DriftConfig, MigrationConfig
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    ecfg = EngineConfig(
+        max_batch=8, max_len=128,
+        gem=GEMConfig(trace_length=16, num_restarts=10),
+        placement_policy="gem" if online else "linear",
+        other_time_per_step=2e-4, online=online,
+        drift=DriftConfig(min_steps=4), replan_cooldown=8,
+        payback_horizon=1_000_000,  # the gate never skips a plan here
+        migration=MigrationConfig(max_moves_per_step=ONLINE_MOVES_PER_STEP),
+        decode_mode="scan",
+    )
+    return ServingEngine(params, cfg, ecfg, profile=profile, num_devices=4,
+                         device="cuda")
+
+
+def _row_checksums(w):
+    """(L, S, 2) int64 per-row checksums of a weight's bits: the sum, and a
+    sum weighted by position, computed one layer at a time."""
+    bits = _BITS[w.dtype]
+    n = w[0, 0].numel()
+    weight = (torch.arange(n, device=w.device) % 251 + 1).to(torch.int64)
+    out = []
+    for layer in range(w.shape[0]):
+        x = w[layer].reshape(w.shape[1], n).view(bits).to(torch.int64)
+        out.append(torch.stack([x.sum(1), (x * weight).sum(1)], dim=1))
+        del x
+    return torch.stack(out).cpu()
+
+
+def phase_online(serve_peak, cfg=None):
+    """GEM's online plane at full granite: drift-triggered replans whose
+    budgeted batches land in place inside the captured decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import VariabilityProfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import emulated_profile
+    from repro_torch.models import init_params
+    from repro_torch.online import ServeScenario, serve_scenario
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg or dataclasses.replace(get_config(ARCH), decode_capacity_factor=4.0)
+    L, Ev = cfg.num_layers, cfg.num_virtual_experts
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    moe = params["blocks"]["moe"]
+    names = ("w_gate", "w_up", "w_down")
+    sums = {n: _row_checksums(moe[n]) for n in names}  # virtual order
+    believed = emulated_profile("high", 4)
+    fast = int(np.argmax(believed.relative_speed()))
+    lat = believed.latencies.copy()
+    lat[fast] *= ONLINE_SLOWDOWN
+    slowed = VariabilityProfile(believed.token_counts, lat, believed.tile_size)
+    specs = list(_online_stream(cfg.vocab_size))
+
+    def scenario(tag):
+        return ServeScenario(tag, list(specs),
+                             profile_schedule={ONLINE_SLOWDOWN_STEP: slowed})
+
+    # the linear, non-online run first: it never moves the pool
+    lin = _online_engine(params, cfg, believed, online=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_scenario(lin, scenario("linear"))
+    torch.cuda.synchronize()
+    lin_wall = time.perf_counter() - t0
+    check(not lin.migration_records, "online: the linear run migrated")
+    lin_tokens = {r.uid: r.generated for r in lin.finished}
+    lin_steps = lin.step_count
+    del lin
+    gc.collect()
+
+    eng = _online_engine(params, cfg, believed, online=True)
+    events, batches, host = [], [], {"observe": [], "attr": [], "regret": []}
+    _timed_decode(eng, events)
+    state = {"run_peak": 0}
+
+    def timed_host(fn, key):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key].append((eng.step_count, time.perf_counter() - t, out))
+            return out
+        return wrapped
+
+    ctrl = eng.controller
+    ctrl.observe_step = timed_host(ctrl.observe_step, "observe")
+    eng._observe_attribution = timed_host(eng._observe_attribution, "attr")
+    eng._observe_regret = timed_host(eng._observe_regret, "regret")
+    migrate = eng._migrate
+
+    def timed_migrate(src, tables, *ws):
+        torch.cuda.synchronize()
+        state["run_peak"] = max(state["run_peak"], torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = migrate(src, tables, *ws)
+        e.record()
+        torch.cuda.synchronize()
+        src = np.asarray(src)
+        batches.append({
+            "step": eng.step_count, "ms": s.elapsed_time(e),
+            "moved_slots": int((src != np.arange(src.shape[1])).sum()),
+            "layers": int((src != np.arange(src.shape[1])).any(axis=1).sum()),
+            "extra_bytes": torch.cuda.max_memory_allocated() - base,
+        })
+        return out
+
+    eng._migrate = timed_migrate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = serve_scenario(eng, scenario("gem-online"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    run_peak = max(state["run_peak"], torch.cuda.max_memory_allocated())
+
+    check(len(done) == ONLINE_REQUESTS, "online: not every request finished")
+    calls = L * (eng.prefill_count + eng.decode_count)
+    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+          f"online: launches {counts} != {calls}")
+    replans = ctrl.replans
+    applied = {r["reason"] for r in replans if r["applied"]}
+    check({"warmup", "variability-drift"} <= applied,
+          f"online: replans applied {[(r['step'], r['reason']) for r in replans]}")
+    # each replan happened inside one observe_step call: its host time is
+    # the planner's (the search, the diff, the gate)
+    plan_s = [t for _, t, decision in host["observe"] if decision.replanned]
+    recs = eng.migration_records
+    steps = [r["step"] for r in recs]
+    check(len(recs) >= 2 and len(set(steps)) == len(steps),
+          f"online: batches at steps {steps}")
+    check(len(batches) == len(recs), "online: a batch bypassed the executable")
+    check(len(plan_s) == len(replans), "online: replans outside observe_step")
+    check(all(0 < r["moves"] <= ONLINE_MOVES_PER_STEP for r in recs)
+          and all(b["moved_slots"] <= ONLINE_MOVES_PER_STEP for b in batches),
+          f"online: a batch over the budget {ONLINE_MOVES_PER_STEP}")
+    one = {"decode": 1, "prefill": 0, "migrate": 0}
+    check(eng.graph_capture_counts == one,
+          f"online: captures {eng.graph_capture_counts}, want {one}")
+    check(_counters_at_zero(), "online: a K2 arrival counter is not 0")
+    # every batch has landed, and every slot holds the bytes of the expert
+    # the live placement puts there
+    s2e = np.stack([p.slot_to_expert() for p in eng.current_placements])
+    check(not ctrl.migrating and np.array_equal(np.stack(ctrl.slot_layouts), s2e),
+          "online: the stream ended before the last plan had drained")
+    check(np.array_equal(eng.placements.cpu().numpy(), np.argsort(s2e, axis=1)),
+          "online: the router tables are not the inverse of slot_to_expert")
+    check(bool((s2e != np.arange(Ev)).any()), "online: the layout never moved")
+    rows = torch.as_tensor(s2e).long()
+    for n in names:
+        got = _row_checksums(moe[n])
+        want = torch.stack([sums[n][layer][rows[layer]] for layer in range(L)])
+        check(torch.equal(got, want),
+              f"online: {n} rows are not the experts the placement names")
+    tokens = {r.uid: r.generated for r in done}
+    check(tokens == lin_tokens, "online: tokens differ from the linear run")
+    layer_rows = {n: moe[n][0].numel() * moe[n].element_size() for n in names}
+    one_weight = max(layer_rows.values())
+    # beside the scratch, a batch holds its (slot, source) pairs on the
+    # card: 16 B a moved slot, in 512 B allocator blocks
+    over = [b for b in batches if b["extra_bytes"] > one_weight
+            + -(-16 * b["moved_slots"] // 512) * 512]
+    extra = max(b["extra_bytes"] for b in batches)
+    check(not over,
+          f"online: batches {over} took more than one layer's rows of one "
+          f"weight ({one_weight} B) and their index pairs beyond the pool")
+    check(run_peak <= serve_peak + one_weight,
+          f"online: peak {run_peak} B over the serve phase's {serve_peak} B")
+
+    first, last = batches[0]["step"], batches[-1]["step"]
+    step_ms = {"before": [], "draining": [], "after": []}
+    for step, s, e in events:
+        key = ("before" if step < first else "after" if step > last
+               else "draining")
+        step_ms[key].append(s.elapsed_time(e))
+    slot_bytes = sum(layer_rows.values()) / Ev
+    swap_ms = [b["ms"] for b in batches]
+    bound_ms = [2 * b["moved_slots"] * slot_bytes / HBM_BYTES_PER_S * 1e3
+                for b in batches]
+    emit({
+        "phase": "online", "layers": L, "dtype": str(moe["w_gate"].dtype),
+        "decode_mode": eng.ecfg.decode_mode, "requests": len(done),
+        "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
+        "engine_steps": eng.step_count, "linear_engine_steps": lin_steps,
+        "max_moves_per_step": ONLINE_MOVES_PER_STEP,
+        "slowdown_step": ONLINE_SLOWDOWN_STEP, "slowed_device": fast,
+        "replans": [
+            {"step": r["step"], "reason": r["reason"], "applied": r["applied"],
+             "moves": r["moves"], "planner_host_s": t}
+            for r, t in zip(replans, plan_s)],
+        "batches": [{"step": b["step"], "moved_slots": b["moved_slots"],
+                     "layers": b["layers"], "ms": b["ms"]} for b in batches],
+        "swap_ms_median": statistics.median(swap_ms),
+        "swap_bound_ms_median": statistics.median(bound_ms),
+        "swap_ms_max": max(swap_ms), "swap_bound_ms_max": max(bound_ms),
+        "swap_extra_mib_max": extra / 2 ** 20,
+        "one_layer_one_weight_mib": one_weight / 2 ** 20,
+        "decode_step_ms_median": {k: statistics.median(v) if v else None
+                                  for k, v in step_ms.items()},
+        "decode_steps_by_window": {k: len(v) for k, v in step_ms.items()},
+        "host_ms_per_step_median": {
+            k: statistics.median(t for _, t, _ in v) * 1e3
+            for k, v in host.items()},
+        "host_ms_per_step_mean": {
+            k: statistics.fmean(t for _, t, _ in v) * 1e3
+            for k, v in host.items()},
+        "tokens_per_s": sum(len(t) for t in tokens.values()) / wall,
+        "wall_s": wall, "linear_wall_s": lin_wall,
+        "linear_tokens_per_s": sum(len(t) for t in lin_tokens.values()) / lin_wall,
+        "peak_mem_gib": run_peak / 2 ** 30,
+        "serve_peak_mem_gib": serve_peak / 2 ** 30,
+        "launches": counts, "graph_capture_counts": eng.graph_capture_counts,
+        "latency_report": eng.latency_report(),
+    })
+    emit({"phase": "online", "ok": True, "tokens_equal_linear": True,
+          "rows_equal_placement": True, "tables_inverse": True,
+          "batches": len(batches), "replans_applied": sorted(applied)})
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -796,6 +1076,7 @@ def main(argv=None) -> int:
     phase_parity()
     launches, serve_peak = phase_serve(summary)
     replan_launches = phase_replan(serve_peak)
+    online_launches = phase_online(serve_peak)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -812,6 +1093,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "replan_launches": replan_launches[name],
+            "online_launches": online_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,7 +1,14 @@
 """Request scheduling: FCFS slot assignment with token + KV-block budgets.
 
-The port's own copy of ``repro/serving/scheduler.py`` (numpy only); the
-telemetry hook stays ``None`` until telemetry is ported.
+The port's own copy of ``repro/serving/scheduler.py`` (numpy only). The
+engine binds its telemetry hub to :attr:`Scheduler.telemetry`, which
+counts admissions, budget skips and KV blocks, and records queue age and
+TTFT slack as the JAX scheduler does; the online plane re-wires the slow
+device factor when it repairs the profile. On the CPU,
+``PYTHONPATH=src python -m pytest -q tests/test_torch_online.py`` holds
+these instruments against the JAX engine's registry; on the card,
+``chip_smoke.py``'s ``online`` phase admits a 48-request stream through
+this scheduler and checks its tokens against a ``linear`` run.
 
 The engine runs a fixed pool of ``max_batch`` decode slots (continuous
 batching: a finished request's slot is immediately refillable). The

@@ -1,11 +1,15 @@
 """The port's GEM core against the JAX package's, on the same seeded inputs.
 
-``repro_torch.core`` is a verbatim copy of ``repro.core`` (numpy only), so
-the planner's outputs must be equal, not close: placements, scores, swap
+``repro_torch.core``, ``repro_torch.telemetry``, ``repro_torch.replication``
+and ``repro_torch.online`` are verbatim copies of their ``repro`` packages
+(numpy and the standard library only), pinned byte for byte here, so the
+planner's outputs must be equal, not close: placements, scores, swap
 counts, the EPLB baseline, the per-step cost and token matrices, the
 profile and the migration cost. The port's host migration executable is
-held bit for bit against the JAX ``MigrationExecutable(mesh=None)``.
+held bit for bit against the JAX ``MigrationExecutable(mesh=None)``, and
+it copies only the rows that move.
 """
+from collections import Counter
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -13,6 +17,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 import repro.core as jcore  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
@@ -29,14 +35,34 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["types", "trace", "latency_model", "variability", "profiling",
            "score", "search", "eplb", "gem", "classify", "workload",
            "simulate"]
+# the other control-plane packages the port copies whole (``__init__`` too)
+COPIED = {
+    "telemetry": ["registry", "spans", "audit", "export", "attribution",
+                  "regret", "__init__"],
+    "replication": ["types", "score", "planner", "__init__"],
+    "online": ["drift", "migration", "controller", "replay", "__init__"],
+}
+PINNED = [pytest.param("core", name, id=name) for name in MODULES] + [
+    pytest.param(pkg, name, id=f"{pkg}/{name}")
+    for pkg, names in COPIED.items() for name in names
+]
 NUM_DEVICES = 4
 
 
-@pytest.mark.parametrize("name", MODULES)
-def test_core_module_is_a_verbatim_copy(name):
-    ours = (ROOT / "src" / "repro_torch" / "core" / f"{name}.py").read_bytes()
-    ref = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_bytes()
+@pytest.mark.parametrize("package, name", PINNED)
+def test_core_module_is_a_verbatim_copy(package, name):
+    ours = (ROOT / "src" / "repro_torch" / package / f"{name}.py").read_bytes()
+    ref = (ROOT / "src" / "repro" / package / f"{name}.py").read_bytes()
     assert ours == ref
+
+
+@pytest.mark.parametrize("package", sorted(COPIED))
+def test_copied_package_holds_every_module(package):
+    def names(root):
+        return sorted(p.stem for p in (root / package).glob("*.py"))
+
+    assert names(ROOT / "src" / "repro_torch") == names(ROOT / "src" / "repro")
+    assert names(ROOT / "src" / "repro") == sorted(COPIED[package])
 
 
 def test_core_exports_what_the_jax_core_exports():
@@ -119,17 +145,48 @@ def test_migration_config_prices_like_jax():
 
 
 def _source_map(kind, L, S, rng):
+    src = np.tile(np.arange(S, dtype=np.int32), (L, 1))
     if kind == "permutation":
         src = np.stack([rng.permutation(S) for _ in range(L)])
         src[1] = np.arange(S)  # an untouched layer passes through
         return src.astype(np.int32)
-    # a replica broadcast: one row copied onto two other slots
-    src = np.tile(np.arange(S, dtype=np.int32), (L, 1))
-    src[0, [1, 5]] = 3
-    return src
+    if kind == "swaps":
+        # an online batch: k = 3 disjoint two-slot swaps over two of the
+        # three layers
+        for layer, a, b in ((0, 1, 6), (0, 2, 4), (2, 0, 7)):
+            src[layer, [a, b]] = src[layer, [b, a]]
+        return src
+    if kind == "broadcast":
+        # a replica broadcast: one row copied onto two other slots
+        src[0, [1, 5]] = 3
+    return src  # identity: no slot moves
 
 
-@pytest.mark.parametrize("kind", ["permutation", "broadcast"])
+class _RowCopies(TorchDispatchMode):
+    """Counts the aten ops a call dispatches, the ops that read or write
+    the weights' storage, and the rows that each ``index_copy_`` writes."""
+
+    def __init__(self, weights):
+        super().__init__()
+        self.storages = {w.untyped_storage().data_ptr() for w in weights}
+        self.ops = Counter()
+        self.weight_ops = Counter()
+        self.rows = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        self.ops[name] += 1
+        if any(isinstance(a, torch.Tensor)
+               and a.untyped_storage().data_ptr() in self.storages
+               for a in args):
+            self.weight_ops[name] += 1
+        if name == "index_copy_":
+            self.rows += int(args[2].numel())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kind",
+                         ["permutation", "broadcast", "identity", "swaps"])
 def test_migration_executable_matches_jax(kind):
     L, S, D, F = 3, 8, 4, 6
     rng = np.random.default_rng(11)
@@ -137,16 +194,32 @@ def test_migration_executable_matches_jax(kind):
           for shape in ((L, S, D, F), (L, S, D, F), (L, S, F, D))]
     tables = np.stack([rng.permutation(S) for _ in range(L)]).astype(np.int32)
     src = _source_map(kind, L, S, rng)
-    with_tables = kind == "permutation"  # the table swap needs a permutation
+    with_tables = kind != "broadcast"  # the table swap needs a permutation
 
     (jws, jtables) = JaxMigrationExecutable(mesh=None, donate=False)(
         src, jnp.asarray(tables) if with_tables else None,
         *(jnp.asarray(w) for w in ws),
     )
     tws = [torch.from_numpy(w.copy()) for w in ws]
-    out, ttables = MigrationExecutable()(
-        src, torch.from_numpy(tables) if with_tables else None, *tws)
+    with _RowCopies(tws) as seen:
+        out, ttables = MigrationExecutable()(
+            src, torch.from_numpy(tables) if with_tables else None, *tws)
     assert all(a is b for a, b in zip(out, tws))  # rewritten in place
+    # only the moved rows are copied, each weight once: a k-swap batch
+    # writes 2k rows per weight, an identity map issues no copy at all
+    moves = src != np.arange(S)
+    assert moves.sum() == {"identity": 0, "swaps": 6}.get(kind, moves.sum())
+    assert seen.rows == 3 * moves.sum()
+    touched = 3 * int(moves.any(axis=1).sum())  # (layer, weight) pairs
+    assert seen.ops["index_copy_"] == seen.ops["index_select"] == touched
+    if kind == "identity":
+        assert not seen.weight_ops, seen.weight_ops
+    else:  # views of the weights as words, and per touched layer and
+        # weight one gather and one write
+        views = {"view", "detach", "select"}
+        assert set(seen.weight_ops) - views == {"index_select",
+                                                "index_copy_"}, seen.weight_ops
+        assert seen.weight_ops["index_copy_"] == touched
     for got, want in zip(out, jws):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     if with_tables:
