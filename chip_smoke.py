@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs seven phases, each printing one JSON line:
+runs eight phases, each printing one JSON line:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -18,10 +18,16 @@ runs seven phases, each printing one JSON line:
    the same bytes twice and under a permutation of its slots, and that
    K2's statistics are bit-equal from call to call; time kernel, plain
    version and one library call with CUDA events, and the kernels alone
-   with torch.profiler, next to the card's bound for the same work.
+   with torch.profiler, next to the card's bound for the same work. K1 is
+   also held and timed at the replicated pool's S = 84 slots (decode C =
+   3, prefill C = 2).
 3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
    engine on the card (kernels) and on the CPU (plain versions), same
-   seeded weights and placement, must give equal greedy tokens.
+   seeded weights and placement, must give equal greedy tokens. Then the
+   replicated + shed engine of the shed scenario (below) on the card in
+   ``"scan"`` and ``"python"`` and on the CPU: equal greedy tokens and
+   equal per-step (L,) overflow, shed and dropped counts, some steps
+   shedding, one capture.
 4. ``serve``   — full granite-moe-3b-a800m (32 layers, bf16, seeded random
    weights, paged KV, max_batch 8) serves 8 requests under a seeded
    non-identity placement in the engine's default ``decode_mode="scan"``
@@ -75,6 +81,26 @@ runs seven phases, each printing one JSON line:
    beside its HBM bound, the decode-step medians before, during and
    after the batches, the host ms a step of the controller, attribution
    and regret, and tokens/s.
+8. ``replicated`` — the shed scenario at full granite (32 layers, bf16,
+   seed-0 weights with the router zeroed so that every token ties onto
+   experts 0…7, paged KV, max_batch 8, ``"scan"``, decode capacity factor
+   1.5, one replica slot on each of 4 emulated devices, online GEM, shed
+   priced with a drop penalty, the fastest card slowed to 0.2 of its
+   believed speed at step 12). It checks that the pool holds 84 slots a
+   layer, 302 MB (4 × 32 × 3 × 1536 × 256 × 2 B) more than the 80-slot
+   pool; that each slot's rows are the bytes of the expert the live layout
+   puts there after the install and after every replica batch (per-row
+   checksums taken in virtual order) and the tables ``replica_table(P)``
+   of the live layouts; that tokens were shed, with dropped = overflow −
+   shed on every step and layer; that the enables flipped while the step
+   was captured once; K1/K2 launches = 32 × (prefills + decode steps) and
+   K2's counters at 0. A one-shot replicated GEM run with shed off then
+   checks the rows and tables after its one retarget. It prints the
+   decode-step median beside the ``serve`` phase's 80-slot one, the
+   device operations and busy time of the captured step with and without
+   the shed pass, the host ms a step of the shed accounting, the shed
+   counts, the install, batch and retarget times beside their HBM
+   bounds, and peak memory.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -225,6 +251,17 @@ def phase_kernels():
     F = cfg.expert_d_ff // cfg.expert_tp
     k, E = cfg.experts_per_token, cfg.num_experts
     # decode: C = ceil(8·8/40·2.0) = 4 at max_batch 8; prefill: C = 32 at P=128
+    # the replicated pool (phase ``replicated``): S = 80 + 4 devices × 1
+    # replica slot, C shrunk by 80/84 at decode_capacity_factor 1.5 (C = 3)
+    # and, for its 8-token prompts, at capacity_factor 1.25 (C = 2)
+    from repro_torch.models.dispatch import slot_capacity
+
+    S_rep = S + SHED_DEVICES * SHED_REPLICA_SLOTS
+    c_rep = {tag: slot_capacity(n, cfg, capacity_factor=cf, num_slots=S_rep,
+                                replicated=True)
+             for tag, n, cf in (("decode_s84", 8, SHED_DECODE_CF),
+                                ("prefill_s84", SHED_PROMPT,
+                                 cfg.capacity_factor))}
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     summary = {}
@@ -240,6 +277,7 @@ def phase_kernels():
         ("ragged_f96", 8, 4, D, 96, torch.float32),
         *((f"c{c}", S, c, D, F, torch.bfloat16)
           for c in (2, 5, 7, 8, 9, 16, 17, 64)),
+        *((tag, S_rep, c, D, F, torch.bfloat16) for tag, c in c_rep.items()),
     ]
     for tag, s, c, d, f, dtype in ffn_cases:
         args = _ffn_case(s, c, d, f, dtype, gen, dev)
@@ -259,7 +297,7 @@ def phase_kernels():
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
                "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
-        if tag in ("decode", "prefill"):
+        if tag in ("decode", "prefill", *c_rep):
             x, wg, wu, wd = args
 
             def library():
@@ -334,6 +372,141 @@ def phase_kernels():
     return summary
 
 
+# ------------------------------------------------------------ shed scenario
+# The replicated + shed engine of the ``parity`` and ``replicated`` phases,
+# the twin of the JAX tests' ``_run_shed_engine`` at granite width: a zeroed
+# router ties every token onto experts 0…7 (virtual 0…15), decode capacity
+# factor 1.5 makes the copies overflow, one replica slot a device, online
+# GEM without the replica refinement, shed priced with a drop penalty, and
+# a 4-device emulated staircase fleet whose fastest card falls to 0.2 of
+# its believed speed at step 12: the profile repair re-shares the hot
+# experts' copies so skewed that the small-share copy has free rows.
+SHED_DEVICES = 4
+SHED_REPLICA_SLOTS = 1
+SHED_DECODE_CF = 1.5
+SHED_BELIEVED = (0.6, 0.8, 1.0, 1.3)
+SHED_TRUE = (0.6, 0.8, 1.0, 0.2)
+SHED_SLOWDOWN_STEP = 12
+SHED_REQUESTS, SHED_PROMPT, SHED_NEW = 16, 8, 24
+SHED_MOVES_PER_STEP = 256
+
+
+def _shed_profile(speeds):
+    from repro_torch.core import DeviceFleet, profile_fleet, simulator_measure_fn
+
+    fleet = DeviceFleet.from_speeds(np.asarray(speeds, dtype=np.float64),
+                                    tile=1, tile_time=50e-6, base=10e-6)
+    return profile_fleet(simulator_measure_fn(fleet, seed=0), SHED_DEVICES,
+                         max_tokens=64, tile=1, repeats=5).profile
+
+
+def _shed_engine(params, cfg, device, mode, *, online=True, shed=True):
+    from repro_torch.core import GEMConfig
+    from repro_torch.online import DriftConfig, MigrationConfig
+    from repro_torch.replication import ReplicationConfig
+    from repro_torch.serving import EngineConfig, ServingEngine, ShedConfig
+
+    ecfg = EngineConfig(
+        max_batch=8, max_len=64, decode_mode=mode,
+        gem=GEMConfig(trace_length=8, num_restarts=4),
+        other_time_per_step=1e-4, online=online,
+        drift=DriftConfig(min_steps=4, threshold=100.0, var_threshold=2.0),
+        migration=MigrationConfig(max_moves_per_step=SHED_MOVES_PER_STEP,
+                                  base_overhead=0.0),
+        replan_cooldown=8, payback_horizon=100_000,
+        replication=ReplicationConfig(
+            replica_slots=SHED_REPLICA_SLOTS, exclude_speed_below=0.0,
+            consistent_only=False, refine=False),
+        shed=ShedConfig(enabled=shed, min_overflow=1, drop_penalty_s=0.01),
+    )
+    return ServingEngine(params, cfg, ecfg, profile=_shed_profile(SHED_BELIEVED),
+                         num_devices=SHED_DEVICES, device=device)
+
+
+def _shed_params(cfg, device, dtype):
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, seed=0, device=device, dtype=dtype)
+    params["blocks"]["moe"]["router"].zero_()  # all ties: experts 0…7
+    return params
+
+
+def _profile_replay(eng, steps: int = 5):
+    """Device operations, busy ms and host ms of the captured decode step
+    alone, all rows idle (torch.profiler over ``steps`` replays)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph, B = eng.decode_graph, eng.ecfg.max_batch
+    L = eng.config.num_layers
+    args = (np.zeros(B, np.int32), np.zeros((B, 1), np.int32))
+    kw = {"block_tables": np.zeros((B, graph.n_max), np.int32),
+          "shed_enables": (np.ones(L, np.int32)
+                           if graph.shed_enables is not None else None)}
+
+    def replay():
+        eng._decode(eng.params, eng.caches, *args, eng.config,
+                    eng.placements, **kw)
+
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"device_ops_per_step": sum(e.count for e in dev) / steps,
+            "device_busy_ms_per_step":
+                sum(e.self_device_time_total for e in dev) / steps / 1e3,
+            "host_ms_per_step": wall / steps * 1e3}
+
+
+def _record_shed(eng, steps, host_s=None):
+    """Record each decode step's (L,) overflow, shed and dropped counts as
+    the engine reads them back after the step, and the host seconds of
+    its ``_shed_step``."""
+    inner = eng._shed_step
+
+    def recorded(counts_virt, aux, cost_mx):
+        steps.append([getattr(aux, n).cpu().tolist() for n in (
+            "overflow_tokens", "shed_tokens", "dropped_tokens")])
+        t0 = time.perf_counter()
+        out = inner(counts_virt, aux, cost_mx)
+        if host_s is not None:
+            host_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._shed_step = recorded
+
+
+def _drive_shed(eng, vocab_size, *, requests=SHED_REQUESTS, new=SHED_NEW):
+    """Submit the scenario's requests and step until done, slowing the
+    fastest card at SHED_SLOWDOWN_STEP; returns the tokens."""
+    rng = np.random.default_rng(17)
+    for _ in range(requests):
+        eng.submit(rng.integers(0, vocab_size, size=SHED_PROMPT),
+                   max_new_tokens=new)
+    true = _shed_profile(SHED_TRUE)
+    for step in range(2_000):
+        if not eng.scheduler.has_work():
+            break
+        if step == SHED_SLOWDOWN_STEP:
+            eng.set_true_profile(true)
+        eng.step()
+    check(not eng.scheduler.has_work(), "shed scenario: the stream never drained")
+    return {r.uid: r.generated for r in eng.finished}
+
+
+def _check_shed_counts(tag, steps):
+    check(any(sum(shed) > 0 for _, shed, _ in steps),
+          f"{tag}: no step shed a token")
+    for overflow, shed, dropped in steps:
+        check(dropped == [o - x for o, x in zip(overflow, shed)],
+              f"{tag}: dropped {dropped} != overflow {overflow} − shed {shed}")
+
+
 # -------------------------------------------------------------------- parity
 def _placement(num_layers, num_slots, seed):
     rng = np.random.default_rng(seed)
@@ -393,6 +566,58 @@ def phase_parity():
           f"parity: GPU tokens {tokens['cuda']} != CPU tokens {tokens['cpu']}")
     emit({"phase": "parity", "ok": True, "layers": cfg.num_layers,
           "dtype": "float32", "requests": len(requests), "tokens": tokens["cuda"]})
+    phase_parity_shed()
+
+
+def phase_parity_shed():
+    """The replicated + shed engine at full width, 2 layers, fp32: card
+    ``"scan"``, card ``"python"`` and CPU give equal greedy tokens and
+    equal per-step (L,) overflow, shed and dropped counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2,
+                              decode_capacity_factor=SHED_DECODE_CF)
+    params = _shed_params(cfg, "cuda", torch.float32)
+    runs = {}
+    for device, mode in (("cuda", "scan"), ("cuda", "python"), ("cpu", "python")):
+        eng = _shed_engine(_to(params, device), cfg, device, mode)
+        steps = []
+        _record_shed(eng, steps)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = _drive_shed(eng, cfg.vocab_size)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        calls = cfg.num_layers * (eng.prefill_count + eng.decode_count)
+        if device == "cuda":
+            check(counts["moe_ffn"] == counts["topk_router_stats"] == calls,
+                  f"parity shed {mode}: launches {counts} != {calls}")
+        _check_shed_counts(f"parity shed {device} {mode}", steps)
+        runs[device, mode] = (eng, tokens, steps)
+        emit({"phase": "parity", "engine": "replicated+shed", "device": device,
+              "decode_mode": mode, "seconds": round(wall, 3),
+              "decode_steps": eng.decode_count, "launches": counts,
+              "graph_capture_counts": eng.graph_capture_counts,
+              "shed_tokens": sum(sum(x) for _, x, _ in steps),
+              "replans": [(r["step"], r["reason"]) for r in eng.controller.replans],
+              "batches": len(eng.migration_records)})
+    _, ref_tokens, ref_steps = runs["cpu", "python"]
+    for key, (eng, tokens, steps) in runs.items():
+        check(tokens == ref_tokens, f"parity shed {key}: tokens differ from the CPU's")
+        check(steps == ref_steps,
+              f"parity shed {key}: per-step shed counts differ from the CPU's")
+    check(runs["cuda", "scan"][0].graph_capture_counts
+          == {"decode": 1, "prefill": 0, "migrate": 0},
+          "parity shed: the scan engine captured more than once")
+    emit({"phase": "parity", "engine": "replicated+shed", "ok": True,
+          "layers": cfg.num_layers, "dtype": "float32",
+          "slots": int(runs["cpu", "python"][0].params["blocks"]["moe"]
+                       ["w_gate"].shape[1]),
+          "steps": len(ref_steps),
+          "shed_steps": sum(1 for _, x, _ in ref_steps if sum(x) > 0),
+          "shed_tokens": sum(sum(x) for _, x, _ in ref_steps),
+          "overflow_tokens": sum(sum(o) for o, _, _ in ref_steps)})
 
 
 # --------------------------------------------------------------------- serve
@@ -493,6 +718,7 @@ def phase_serve(summary):
     scan["eng"], scan["tokens"], main_counts, scan["row"] = _run_serve(
         "placed", placed, cfg, ecfg, e2s, requests, new_tokens, scan["logits"])
     serve_peak = torch.cuda.max_memory_allocated()
+    summary["serve_decode_step_ms_median"] = scan["row"]["decode_step_ms_median"]
     emit(scan["row"])
     _, tokens, _, row = _run_serve(
         "identity", params, cfg, ecfg, None, requests, new_tokens)
@@ -839,14 +1065,15 @@ def _online_engine(params, cfg, profile, *, online):
                          device="cuda")
 
 
-def _row_checksums(w):
+def _row_checksums(w, layers=None):
     """(L, S, 2) int64 per-row checksums of a weight's bits: the sum, and a
-    sum weighted by position, computed one layer at a time."""
+    sum weighted by position, computed one layer at a time (of ``layers``
+    only, when given)."""
     bits = _BITS[w.dtype]
     n = w[0, 0].numel()
     weight = (torch.arange(n, device=w.device) % 251 + 1).to(torch.int64)
     out = []
-    for layer in range(w.shape[0]):
+    for layer in (range(w.shape[0]) if layers is None else layers):
         x = w[layer].reshape(w.shape[1], n).view(bits).to(torch.int64)
         out.append(torch.stack([x.sum(1), (x * weight).sum(1)], dim=1))
         del x
@@ -1048,6 +1275,270 @@ def phase_online(serve_peak, cfg=None):
     return counts
 
 
+# ---------------------------------------------------------------- replicated
+def _check_rows(tag, moe, sums, s2e, layers):
+    """Each slot's rows in ``layers`` are the bytes of the expert ``s2e``
+    puts there (checksums of the virtual-order pool, ``sums``)."""
+    rows = torch.as_tensor(s2e).long()
+    for n, want_all in sums.items():
+        got = _row_checksums(moe[n], layers)
+        want = torch.stack([want_all[layer][rows[layer]] for layer in layers])
+        check(torch.equal(got, want),
+              f"{tag}: {n} rows are not the experts the layout names")
+
+
+def _live_layout(eng):
+    return np.stack([rp.slot_to_expert for rp in eng.current_rplacements])
+
+
+def _check_tables(tag, eng):
+    P = eng.ecfg.replication.pattern_period
+    want = np.stack([rp.replica_table(P) for rp in eng.current_rplacements])
+    check(np.array_equal(eng.placements.cpu().numpy(), want),
+          f"{tag}: the tables are not replica_table(P) of the live layouts")
+
+
+def _timed_swaps(eng, swaps):
+    """Time each call of the engine's migration executable (CUDA events)
+    and record the moved slots, touched layers and extra memory."""
+    migrate = eng._migrate
+
+    def timed(src, tables, *ws):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = migrate(src, tables, *ws)
+        e.record()
+        torch.cuda.synchronize()
+        moved = np.asarray(src) != np.arange(np.shape(src)[1])
+        swaps.append({"step": eng.step_count, "ms": s.elapsed_time(e),
+                      "moved_slots": int(moved.sum()),
+                      "layers": [int(x) for x in np.nonzero(moved.any(axis=1))[0]],
+                      "extra_bytes": torch.cuda.max_memory_allocated() - base,
+                      "peak_before": peak})
+        return out
+
+    eng._migrate = timed
+
+
+def _replicated_engine(cfg, *, online, sums, install, shed=True):
+    """Seed-0 full granite with the zeroed router, built into a replicated
+    shed engine; the install (the pool's expansion) is timed with CUDA
+    events, the virtual-order pool is dropped, and the expanded pool's
+    rows and tables are checked. ``sums`` gets the virtual-order row
+    checksums on the first call."""
+    from repro_torch.serving import engine as engine_module
+
+    params = _shed_params(cfg, "cuda", torch.bfloat16)
+    moe = params["blocks"]["moe"]
+    names = ("w_gate", "w_up", "w_down")
+    if not sums:
+        sums.update({n: _row_checksums(moe[n]) for n in names})
+    pool80 = sum(moe[n].numel() * moe[n].element_size() for n in names)
+    apply_placement = engine_module.apply_placement
+
+    def timed_install(moe, s2e):
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = apply_placement(moe, s2e)
+        e.record()
+        torch.cuda.synchronize()
+        install.append(s.elapsed_time(e))
+        return out
+
+    engine_module.apply_placement = timed_install
+    try:
+        eng = _shed_engine(params, cfg, "cuda", "scan", online=online,
+                           shed=shed)
+    finally:
+        engine_module.apply_placement = apply_placement
+    del params, moe  # the virtual-order pool goes: the engine holds its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = "replicated " + ("online" if online else "one-shot")
+    moe = eng.params["blocks"]["moe"]
+    S = int(moe["w_gate"].shape[1])
+    L, Ev = cfg.num_layers, cfg.num_virtual_experts
+    check(S == Ev + SHED_DEVICES * SHED_REPLICA_SLOTS,
+          f"{tag}: {S} slots a layer, not {Ev + SHED_DEVICES}")
+    extra = sum(moe[n].numel() * moe[n].element_size() for n in names) - pool80
+    check(extra == SHED_DEVICES * SHED_REPLICA_SLOTS * L * 3 * cfg.d_model
+          * (cfg.expert_d_ff // cfg.expert_tp) * 2,
+          f"{tag}: the pool grew by {extra} B")
+    _check_rows(f"{tag} install", moe, sums, _live_layout(eng), range(L))
+    _check_tables(f"{tag} install", eng)
+    return eng, extra, pool80 / (L * Ev)
+
+
+def phase_replicated(serve_ms, serve_peak):
+    """The replicated pool and the shed pass at full granite inside the
+    captured decode step: the shed scenario online (replica batches, shed
+    enables flipping), then a one-shot replicated GEM run (one retarget)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.replication import ReplicatedPlacement
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), decode_capacity_factor=SHED_DECODE_CF)
+    L, Ev = cfg.num_layers, cfg.num_virtual_experts
+    S = Ev + SHED_DEVICES * SHED_REPLICA_SLOTS
+    sums, install = {}, []
+    eng, extra, slot_bytes = _replicated_engine(cfg, online=True, sums=sums,
+                                                install=install)
+
+    # ---- the online run: replica batches and shed enables in the step
+    events, swaps, shed_steps, shed_host, enables = [], [], [], [], []
+    _timed_decode(eng, events)
+    _timed_swaps(eng, swaps)
+    _record_shed(eng, shed_steps, shed_host)
+    moe = eng.params["blocks"]["moe"]
+    online_step, step = eng._online_step, eng.step
+    checked = {"batches": 0}
+
+    def checked_online_step(counts_virt, cost_mx):
+        n = len(swaps)
+        out = online_step(counts_virt, cost_mx)
+        if len(swaps) > n:  # a batch landed: its layers' rows, the tables
+            tag = f"replicated batch at step {swaps[-1]['step']}"
+            _check_rows(tag, moe, sums, _live_layout(eng), swaps[-1]["layers"])
+            _check_tables(tag, eng)
+            checked["batches"] += 1
+        return out
+
+    def step_with_enables():
+        enables.append(eng.shed_enables.tolist())
+        return step()
+
+    eng._online_step, eng.step = checked_online_step, step_with_enables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _drive_shed(eng, cfg.vocab_size)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [b["peak_before"] for b in swaps])
+    calls = L * (eng.prefill_count + eng.decode_count)
+    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+          f"replicated: launches {counts} != {calls}")
+    one = {"decode": 1, "prefill": 0, "migrate": 0}
+    check(eng.graph_capture_counts == one,
+          f"replicated: captures {eng.graph_capture_counts}, want {one}")
+    check(_counters_at_zero(), "replicated: a K2 arrival counter is not 0")
+    check(bool(swaps) and checked["batches"] == len(swaps)
+          == len(eng.migration_records),
+          f"replicated: {len(swaps)} swaps, {checked['batches']} checked, "
+          f"{len(eng.migration_records)} records")
+    check(len({tuple(x) for x in enables}) > 1,
+          "replicated: the shed enables never flipped")
+    _check_shed_counts("replicated", shed_steps)
+    _check_rows("replicated end", moe, sums, _live_layout(eng), range(L))
+    _check_tables("replicated end", eng)
+    step_ms = [s.elapsed_time(e) for _, s, e in events]
+    bound_ms = [2 * b["moved_slots"] * slot_bytes / HBM_BYTES_PER_S * 1e3
+                for b in swaps]
+    shed_by_step = [sum(x) for _, x, _ in shed_steps]
+    replay = _profile_replay(eng)
+    emit({
+        "phase": "replicated", "run": "online", "layers": L,
+        "dtype": str(moe["w_gate"].dtype), "decode_mode": eng.ecfg.decode_mode,
+        "slots": S, "pool_extra_mb": extra / 1e6, "pool_extra_mib": extra / 2 ** 20,
+        "install_ms": install[0],
+        "install_bound_ms": 2 * L * S * slot_bytes / HBM_BYTES_PER_S * 1e3,
+        "requests": len(eng.finished), "prefills": eng.prefill_count,
+        "decode_steps": eng.decode_count,
+        "replans": [(r["step"], r["reason"], r["moves"])
+                    for r in eng.controller.replans],
+        "batches": [{"step": b["step"], "moved_slots": b["moved_slots"],
+                     "layers": len(b["layers"]), "ms": b["ms"]} for b in swaps],
+        "swap_ms_median": statistics.median(b["ms"] for b in swaps),
+        "swap_bound_ms_median": statistics.median(bound_ms),
+        "swap_extra_mib_max": max(b["extra_bytes"] for b in swaps) / 2 ** 20,
+        "shed_steps": sum(1 for x in shed_by_step if x > 0),
+        "shed_tokens_by_step": shed_by_step,
+        "overflow_tokens": sum(sum(o) for o, _, _ in shed_steps),
+        "shed_tokens": sum(shed_by_step),
+        "dropped_tokens": sum(sum(d) for _, _, d in shed_steps),
+        "shed_enable_sets": len({tuple(x) for x in enables}),
+        "shed_step_host_ms_median": statistics.median(shed_host) * 1e3,
+        "shed_step_host_ms_mean": statistics.fmean(shed_host) * 1e3,
+        "decode_step_ms_median": statistics.median(step_ms),
+        "serve_decode_step_ms_median_80_slots": serve_ms,
+        "replay_profile": replay,
+        "wall_s": wall, "peak_mem_gib": peak / 2 ** 30,
+        "serve_peak_mem_gib": serve_peak / 2 ** 30,
+        "launches": counts, "graph_capture_counts": eng.graph_capture_counts,
+        "graph_pool_mib": eng.decode_graph.pool_bytes / 2 ** 20,
+        "latency_report": eng.latency_report(),
+    })
+    main_counts = counts
+    del eng, moe, online_step, step, checked_online_step, step_with_enables
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the one-shot run, shed off (its captured step holds no shed
+    # operation): GEM's replicated plan lands as one retarget
+    eng, _, _ = _replicated_engine(cfg, online=False, shed=False, sums=sums,
+                                   install=install)
+    events, swaps = [], []
+    _timed_decode(eng, events)
+    _timed_swaps(eng, swaps)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _drive_shed(eng, cfg.vocab_size, requests=8, new=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    moe = eng.params["blocks"]["moe"]
+    check(eng.placement_applied and len(swaps) == 1
+          and len(eng.migration_records) == 1,
+          f"replicated one-shot: {len(swaps)} retargets")
+    (rec,), (swap,) = eng.migration_records, swaps
+    linear = ReplicatedPlacement.linear(Ev, SHED_DEVICES,
+                                        SHED_REPLICA_SLOTS).slot_to_expert
+    check(bool((_live_layout(eng) != linear).any()),
+          "replicated one-shot: the retarget left the linear layout")
+    _check_rows("replicated retarget", moe, sums, _live_layout(eng), range(L))
+    _check_tables("replicated retarget", eng)
+    calls = L * (eng.prefill_count + eng.decode_count)
+    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+          f"replicated one-shot: launches {counts} != {calls}")
+    check(eng.graph_capture_counts == one,
+          f"replicated one-shot: captures {eng.graph_capture_counts}")
+    check(_counters_at_zero(), "replicated one-shot: a K2 arrival counter is not 0")
+    check(eng.shed_enables is None and eng.decode_graph.shed_enables is None,
+          "replicated one-shot: the shed plane is on")
+    emit({
+        "phase": "replicated", "run": "one-shot", "replan_step": rec["step"],
+        "moves": rec["moves"], "moved_slots": swap["moved_slots"],
+        "retarget_ms": swap["ms"],
+        "retarget_bound_ms": 2 * swap["moved_slots"] * slot_bytes
+        / HBM_BYTES_PER_S * 1e3,
+        "retarget_extra_mib": swap["extra_bytes"] / 2 ** 20,
+        "install_ms": install[1],
+        "decode_steps": eng.decode_count, "prefills": eng.prefill_count,
+        "decode_step_ms_median": statistics.median(
+            s.elapsed_time(e) for _, s, e in events),
+        "shed": False, "replay_profile": _profile_replay(eng),
+        "wall_s": wall, "launches": counts,
+        "graph_capture_counts": eng.graph_capture_counts,
+    })
+    emit({"phase": "replicated", "ok": True, "slots": S,
+          "rows_equal_layout": True, "tables_equal_replica_tables": True,
+          "batches_checked": checked["batches"], "retargets_checked": 1})
+    del eng, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1077,6 +1568,8 @@ def main(argv=None) -> int:
     launches, serve_peak = phase_serve(summary)
     replan_launches = phase_replan(serve_peak)
     online_launches = phase_online(serve_peak)
+    replicated_launches = phase_replicated(
+        summary["serve_decode_step_ms_median"], serve_peak)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -1094,12 +1587,18 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[name],
             "replan_launches": replan_launches[name],
             "online_launches": online_launches[name],
+            "replicated_launches": replicated_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_us": row["device_us"], "bound_share": row["bound_share"],
             "shape": row["shape"],
         })
+    s84 = summary["moe_ffn/decode_s84"]
+    kernels[0]["replicated_pool"] = {
+        k: s84[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                            "library_ms", "bound_ms", "bound_by",
+                            "device_us", "bound_share")}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

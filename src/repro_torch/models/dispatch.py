@@ -11,8 +11,8 @@ small dataclasses of tensors, as in the JAX package:
 * :func:`build_dispatch` → :class:`DispatchPlan` — virtual-expert ids →
   physical slots through the (E_v,) placement table, stable-sort ranking
   within each slot, the capacity drop, and the (Gd, S, C) gather indices
-  and gates. Only the 1-D table path is ported; the replica split and the
-  shed pass raise ``NotImplementedError``.
+  and gates; with an (E_v, P) replica table, the replica split first and
+  the capacity-overflow shed pass after the drop.
 * :func:`expert_compute` — gather tokens into (Gd, S, C, D) buffers and
   run the grouped FFN through :func:`repro_torch.kernels.ops.moe_ffn`.
 * :func:`combine` — a gather, not a scatter-add: each token sums its
@@ -86,9 +86,11 @@ class DispatchPlan:
     (Gd, Ag) i64, port only: the flat ``slot · C + pos`` row of each of the
     ``Ag = Ng · k · expert_tp`` assignments, ``S · C`` (the sink) when
     dropped — the index :func:`combine` gathers with. ``dropped_tokens``
-    counts dropped assignments and ``dropped`` is that over ``Gd · Ag``;
-    ``overflow_tokens`` equals ``dropped_tokens`` with no shed pass, and
-    ``shed_tokens``/``shed_delta`` are zero.
+    counts dropped assignments and ``dropped`` is that over ``Gd · Ag``.
+    ``overflow_tokens`` counts the assignments past their slot's capacity,
+    ``shed_tokens`` those of them the shed pass re-seated
+    (``dropped_tokens = overflow_tokens − shed_tokens``), and
+    ``shed_delta`` (S,) the rows each slot received minus those it sent.
     """
 
     dispatch_idx: torch.Tensor
@@ -169,56 +171,134 @@ def _rank_in_group(slots, num_slots: int):
 
 
 def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
-                   *, capacity_factor: float,
-                   num_slots: int | None = None) -> DispatchPlan:
-    """Routing decision → gather plan (1-D placement table only).
+                   *, capacity_factor: float, num_slots: int | None = None,
+                   shed_enable=None) -> DispatchPlan:
+    """Routing decision → gather plan.
 
-    Virtual assignments ``vid = id · tp + j`` map through the (E_v,) table
-    to physical slots, rank within their (group, slot) in assignment order,
-    and drop beyond the capacity C = ⌈Ng·k/E · cf⌉. A 2-D replica table
-    (and with it the shed pass, which needs one) raises.
+    Virtual assignments ``vid = id · tp + j`` map through the placement
+    table to physical slots, rank within their (group, slot) in assignment
+    order, and drop beyond the capacity C = ⌈Ng·k/E · cf⌉.
+
+    ``expert_to_slot`` is the (E_v,) single-slot map or an (E_v, P)
+    replica-split table: each assignment then ranks within its (group,
+    virtual expert) and copy ``table[v, rank % P]`` takes it, and C shrinks
+    by E_v/S (:func:`slot_capacity`). ``num_slots`` is the pool's slot
+    count S (default E_v).
+
+    **Shed pass** (a 2-D table and ``shed_enable`` given, a 0/1 scalar
+    tensor): assignments past their slot's capacity re-seat on the free
+    rows of the other live copies of the same virtual expert instead of
+    dropping. Overflow assignments rank within their (group, virtual
+    expert) by the same stable sort; the copies are ordered least-loaded
+    first (slot id breaks ties, duplicate table columns last with no free
+    rows), and rank ``r`` takes the ``r``-th free row of that order. Each
+    re-seated assignment's ``assign_row`` follows it to its new row.
+    ``shed_enable=0`` gives the plan of the pass being absent bit for bit;
+    ``None`` leaves the pass out. Nothing here reads a value back to the
+    host, so the pass runs inside the captured decode step.
     """
-    table = torch.as_tensor(expert_to_slot, device=router.ids.device)
-    if table.dim() == 2:
-        raise NotImplementedError(
-            "replica-split (2-D) placement tables and the shed pass land "
-            "with the replication slice"
-        )
+    dev = router.ids.device
+    table = torch.as_tensor(expert_to_slot, device=dev).long()
+    replicated = table.dim() == 2
     Gd, Ng, k = router.ids.shape
     E = config.num_experts
     tp = config.expert_tp
     Ev = E * tp
     S = num_slots if num_slots is not None else Ev
-    dev = router.ids.device
     ids = router.ids.long()
     vids = ids[..., None] * tp + torch.arange(tp, device=dev)  # (Gd,Ng,k,tp)
     Ag = Ng * k * tp
     vids_flat = vids.reshape(Gd, Ag)
-    slots = table.long()[vids_flat]  # (Gd, Ag)
     group_of = torch.arange(Gd, device=dev)[:, None].expand(Gd, Ag).reshape(-1)
+    if replicated:
+        # replica split: rank within (group, virtual expert), then rank % P
+        # picks the copy through the table's share-interleaved columns
+        P = table.shape[1]
+        vpos, _ = _rank_in_group(group_of * Ev + vids_flat.reshape(-1),
+                                 Gd * Ev)
+        slots = table[vids_flat, vpos.reshape(Gd, Ag) % P]  # (Gd, Ag)
+    else:
+        slots = table[vids_flat]  # (Gd, Ag)
     keyed = group_of * S + slots.reshape(-1)
-    pos, _ = _rank_in_group(keyed, Gd * S)
+    pos, slot_sizes = _rank_in_group(keyed, Gd * S)
     pos = pos.reshape(Gd, Ag)
     tok_idx = torch.arange(Ng, device=dev)[:, None].expand(Ng, k * tp)
-    tok_idx = tok_idx.reshape(1, Ag).expand(Gd, Ag)
+    tok_idx = tok_idx.reshape(1, Ag).expand(Gd, Ag).to(torch.int32)
     a_gates = router.gates.reshape(Gd, Ng * k, 1).expand(Gd, Ng * k, tp)
-    a_gates = a_gates.reshape(Gd, Ag)
+    a_gates = a_gates.reshape(Gd, Ag).float()
 
     C = slot_capacity(Ng, config, capacity_factor=capacity_factor,
-                      num_slots=S, replicated=False)
+                      num_slots=S, replicated=replicated)
     keep = pos < C
     # dropped assignments land in a sink slot S, sliced off below
     slot_safe = torch.where(keep, slots, torch.full_like(slots, S))
     pos_safe = torch.where(keep, pos, torch.zeros_like(pos))
     gidx = torch.arange(Gd, device=dev)[:, None].expand(Gd, Ag)
     dispatch_idx = torch.full((Gd, S + 1, C), Ng, dtype=torch.int32, device=dev)
-    dispatch_idx[gidx, slot_safe, pos_safe] = tok_idx.to(torch.int32)
+    dispatch_idx[gidx, slot_safe, pos_safe] = tok_idx
     dispatch_gate = torch.zeros((Gd, S + 1, C), dtype=torch.float32, device=dev)
-    dispatch_gate[gidx, slot_safe, pos_safe] = a_gates.float()
+    dispatch_gate[gidx, slot_safe, pos_safe] = a_gates
     assign_row = torch.where(keep, slots * C + pos, torch.full_like(pos, S * C))
 
     kept = keep.sum().to(torch.int32)
     total = torch.full((), Gd * Ag, dtype=torch.int32, device=dev)
+    overflow_tokens = total - kept
+    shed_tokens = torch.zeros((), dtype=torch.int32, device=dev)
+    shed_delta = torch.zeros((S,), dtype=torch.int32, device=dev)
+    if replicated and shed_enable is not None:
+        shed_on = torch.as_tensor(shed_enable, device=dev).to(torch.int32) > 0
+        cnt = torch.clamp(slot_sizes.reshape(Gd, S), max=C)  # kept rows
+        # a table row may repeat a slot (single-copy experts, rounding):
+        # only its first column is a live copy. Column i is a duplicate
+        # when an earlier column j < i names the same slot
+        cols = torch.arange(P, device=dev)
+        earlier = cols[None, :] < cols[:, None]  # (P, P): j < i
+        dupe = ((table[:, :, None] == table[:, None, :]) & earlier).any(-1)
+        live = ~dupe[None]  # (1, E_v, P)
+        cload = cnt[:, table]  # (Gd, E_v, P) kept rows on each copy
+        free = torch.where(live, C - cload, torch.zeros_like(cload))
+        # waterfall order: least-loaded live copy first, slot id breaks
+        # ties, dead duplicates last
+        okey = torch.where(live, cload * (S + 1) + table[None],
+                           torch.full_like(cload, (C + 1) * (S + 1)))
+        order = torch.argsort(okey, dim=-1, stable=True)
+        sorted_slot = torch.gather(table[None].expand_as(cload), -1, order)
+        cumfree = torch.cumsum(torch.gather(free, -1, order), dim=-1)
+        # rank the overflow within (group, virtual expert) by the same
+        # stable sort; kept assignments park in a sentinel segment
+        rkey = torch.where(keep.reshape(-1),
+                           torch.full_like(group_of, Gd * Ev),
+                           group_of * Ev + vids_flat.reshape(-1))
+        orank, _ = _rank_in_group(rkey, Gd * Ev + 1)
+        orank = orank.reshape(Gd, Ag)
+        cf_a = cumfree[gidx, vids_flat]  # (Gd, Ag, P)
+        copy_idx = (cf_a <= orank[..., None]).sum(-1)
+        shed_ok = orank < cf_a[..., P - 1]
+        t_slot = torch.gather(sorted_slot[gidx, vids_flat], -1,
+                              torch.clamp(copy_idx, max=P - 1)[..., None])[..., 0]
+        prev_cum = torch.gather(cf_a, -1,
+                                torch.clamp(copy_idx - 1, min=0)[..., None])[..., 0]
+        prev_cum = torch.where(copy_idx > 0, prev_cum, torch.zeros_like(prev_cum))
+        # rows cnt..C-1 of the target copy are free, and the offset within
+        # them is below that copy's free count: kept rows are never hit
+        t_pos = cnt[gidx, t_slot] + (orank - prev_cum)
+        shed_mask = ~keep & shed_ok & shed_on
+        s_slot = torch.where(shed_mask, t_slot, torch.full_like(t_slot, S))
+        s_pos = torch.where(shed_mask, t_pos, torch.zeros_like(t_pos))
+        dispatch_idx[gidx, s_slot, s_pos] = tok_idx
+        dispatch_gate[gidx, s_slot, s_pos] = a_gates
+        assign_row = torch.where(shed_mask, t_slot * C + t_pos, assign_row)
+        shed_ones = shed_mask.reshape(-1).long()
+        recv = torch.zeros(S + 1, dtype=torch.long, device=dev)
+        recv.scatter_add_(0, s_slot.reshape(-1), shed_ones)
+        sent = torch.zeros(S + 1, dtype=torch.long, device=dev)
+        sent.scatter_add_(
+            0, torch.where(shed_mask, slots, torch.full_like(slots, S)).reshape(-1),
+            shed_ones)
+        shed_delta = (recv[:S] - sent[:S]).to(torch.int32)
+        shed_tokens = shed_ones.sum().to(torch.int32)
+        kept = kept + shed_tokens
+
     dropped_tokens = total - kept
     return DispatchPlan(
         dispatch_idx=dispatch_idx[:, :S].contiguous(),
@@ -226,9 +306,9 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
         assign_row=assign_row,
         dropped=1.0 - kept.float() / (Gd * Ag),
         dropped_tokens=dropped_tokens,
-        overflow_tokens=dropped_tokens.clone(),
-        shed_tokens=torch.zeros((), dtype=torch.int32, device=dev),
-        shed_delta=torch.zeros((S,), dtype=torch.int32, device=dev),
+        overflow_tokens=overflow_tokens,
+        shed_tokens=shed_tokens,
+        shed_delta=shed_delta,
     )
 
 

@@ -89,6 +89,8 @@ def _stack_aux(auxes: list[MoEAux]) -> MoEAux:
 def prefill(params, tokens, config: ModelConfig, placements=None):
     """tokens (B, S) → (last-position logits (B, V_pad) fp32, caches).
 
+    ``placements``: (L, E_v) expert→slot tables or (L, E_v, P) replica-split
+    tables (the prefill never runs the shed pass).
     caches: ``{"attn": {"k": (L, B, S, KV, hd), "v": …}}``.
     """
     _check_family(config)
@@ -128,9 +130,12 @@ def init_paged_decode_cache(config: ModelConfig, num_blocks: int,
 
 
 def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
-                placements=None, *, block_tables):
+                placements=None, *, block_tables, shed_enables=None):
     """One serving step on the paged cache: tokens (B, 1) int32,
     ``cur_len`` (B,) int32, ``block_tables`` (B, n_max) int32.
+    ``placements``: (L, E_v) or (L, E_v, P) tables; ``shed_enables``: (L,)
+    0/1 int32 per-layer switches of the shed pass, or None to leave the
+    pass out of the step.
 
     Returns (logits (B, V_pad) fp32, caches, moe aux with (L, …) fields).
     The pools in ``caches`` are updated in place (each layer writes its new
@@ -156,6 +161,7 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
         y, aux = moe_layer(
             h2, lp["moe"], placements[i], config,
             capacity_factor=config.decode_capacity_factor,
+            shed_enable=None if shed_enables is None else shed_enables[i],
         )
         auxes.append(aux)
         x = x + y
@@ -183,8 +189,12 @@ class DecodeGraph:
     host inputs are copied into :attr:`tokens` (B, 1), :attr:`cur_len`
     (B,) and :attr:`block_tables` (B, n_max), views of one int32 device
     buffer filled by one copy a step; the weights, the paged KV pools and
-    the (L, E_v) expert→slot tables are the caller's tensors, which the
-    caller updates in place (``copy_``) and never rebinds.
+    the (L, E_v) expert→slot tables (or (L, E_v, P) replica-split tables)
+    are the caller's tensors, which the caller updates in place (``copy_``)
+    and never rebinds. With ``shed=True`` the same buffer also holds
+    :attr:`shed_enables` (L,), the per-layer switches of the shed pass,
+    copied in with the other inputs each step; with ``shed=False`` the
+    captured step holds no shed operation at all.
 
     Binding happens at construction, with the static inputs at zero (every
     row idle: it reads and writes only the null KV block). On a CUDA device
@@ -206,19 +216,21 @@ class DecodeGraph:
     """
 
     def __init__(self, params, caches, placements, config: ModelConfig, *,
-                 batch: int, n_max: int, device):
+                 batch: int, n_max: int, device, shed: bool = False):
         _check_family(config)
         self.config = config
         self.device = torch.device(device)
         self.batch, self.n_max = batch, n_max
         cuda = self.device.type == "cuda"
-        words = batch * (2 + n_max)
+        rows = batch * (2 + n_max)
+        words = rows + (config.num_layers if shed else 0)
         self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
         self._host_np = self._host.numpy()
         self._inputs = torch.zeros(words, dtype=torch.int32, device=self.device)
         self.tokens = self._inputs[:batch].view(batch, 1)
         self.cur_len = self._inputs[batch:2 * batch]
-        self.block_tables = self._inputs[2 * batch:].view(batch, n_max)
+        self.block_tables = self._inputs[2 * batch:rows].view(batch, n_max)
+        self.shed_enables = self._inputs[rows:] if shed else None
         self._staged = torch.cuda.Event() if cuda else None
         self._stream = torch.cuda.Stream(self.device) if cuda else None
         self.builds = 0
@@ -236,6 +248,7 @@ class DecodeGraph:
         return decode_step(
             self._params, self._caches, self.cur_len, self.tokens,
             self.config, self._placements, block_tables=self.block_tables,
+            shed_enables=self.shed_enables,
         )
 
     def _bind(self, params, caches, placements) -> None:
@@ -267,26 +280,34 @@ class DecodeGraph:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self._graph, self._out, self._tally = graph, out, tally
 
-    def _stage(self, cur_len, tokens, block_tables) -> None:
+    def _stage(self, cur_len, tokens, block_tables, shed_enables) -> None:
         """Host inputs → the static device buffer, one copy."""
+        if (shed_enables is None) != (self.shed_enables is None):
+            raise ValueError(
+                "DecodeGraph: shed_enables must be given exactly when the "
+                "graph was built with shed=True")
         if self._staged is not None:
             self._staged.synchronize()  # the last step's copy has left it
         B, h = self.batch, self._host_np
+        rows = B * (2 + self.n_max)
         h[:B] = np.asarray(tokens).reshape(B)
         h[B:2 * B] = np.asarray(cur_len).reshape(B)
-        h[2 * B:] = np.asarray(block_tables).reshape(-1)
+        h[2 * B:rows] = np.asarray(block_tables).reshape(-1)
+        if shed_enables is not None:
+            h[rows:] = np.asarray(shed_enables).reshape(-1)
         self._inputs.copy_(self._host, non_blocking=True)
         if self._staged is not None:
             self._staged.record()
 
     def __call__(self, params, caches, cur_len, tokens, config: ModelConfig,
-                 placements, *, block_tables):
+                 placements, *, block_tables, shed_enables=None):
         """:func:`decode_step`'s signature and results, with ``cur_len``,
-        ``tokens`` and ``block_tables`` as host arrays. The logits and aux
-        are the graph's static outputs: the next call overwrites them."""
+        ``tokens``, ``block_tables`` and ``shed_enables`` as host arrays.
+        The logits and aux are the graph's static outputs: the next call
+        overwrites them."""
         if config is not self.config and config != self.config:
             raise ValueError("DecodeGraph: called with another model config")
-        self._stage(cur_len, tokens, block_tables)
+        self._stage(cur_len, tokens, block_tables, shed_enables)
         if self._pointers(params, caches, placements) != self._key:
             self._bind(params, caches, placements)
         if self._graph is None:

@@ -8,6 +8,11 @@ once (:func:`apply_placement`) and the router's choice is remapped through
 the (E_v,) ``expert_to_slot`` table, so outputs do not depend on the
 placement; only where each expert's tokens land does.
 
+Under the replication plane the pool has S = E_v + G·replica_slots rows a
+layer (``slot_to_expert`` repeats the experts that have copies) and the
+router remaps through an (E_v, P) replica-split table; the layer reads S
+off the stacked weights, so one code path serves both pools.
+
 :func:`moe_layer` composes the four stages of
 :mod:`repro_torch.models.dispatch`.
 """
@@ -68,8 +73,10 @@ def identity_placement(config: ModelConfig, num_layers: int, *,
 
 
 def apply_placement(moe_params, slot_to_expert):
-    """Permute the stacked expert weights into placement order: slot ``s``
-    of layer ``l`` takes virtual expert ``slot_to_expert[l, s]``."""
+    """Gather the stacked expert weights into placement order: slot ``s``
+    of layer ``l`` takes virtual expert ``slot_to_expert[l, s]``. The
+    (L, S) map may repeat experts (S > E_v), which expands the pool into
+    a replicated one."""
     out = dict(moe_params)
     for name in ("w_gate", "w_up", "w_down"):
         w = moe_params[name]
@@ -79,10 +86,12 @@ def apply_placement(moe_params, slot_to_expert):
 
 
 def moe_layer(x, p, expert_to_slot, config: ModelConfig, *,
-              capacity_factor: float | None = None):
+              capacity_factor: float | None = None, shed_enable=None):
     """x (B, T, D) → (y (B, T, D), :class:`MoEAux`) for one layer's params
-    ``p`` and its (E_v,) ``expert_to_slot`` table. One dispatch group (a
-    single device), so Gd = 1."""
+    ``p`` and its (E_v,) ``expert_to_slot`` table or (E_v, P) replica-split
+    table. One dispatch group (a single device), so Gd = 1.
+    ``shed_enable`` (a 0/1 scalar tensor, or None to leave the pass out)
+    turns on the shed pass of :func:`build_dispatch`."""
     B, T, D = x.shape
     # `is None`, not falsy-or: an explicit 0.0 means "minimum capacity"
     cf = capacity_factor if capacity_factor is not None else config.capacity_factor
@@ -90,7 +99,7 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, *,
     router = route(xg, p["router"], config)
     plan = build_dispatch(
         router, expert_to_slot, config, capacity_factor=cf,
-        num_slots=int(p["w_gate"].shape[0]),
+        num_slots=int(p["w_gate"].shape[0]), shed_enable=shed_enable,
     )
     y_e = expert_compute(xg, plan, p, config)
     y = combine(y_e, plan, (B, T, D))

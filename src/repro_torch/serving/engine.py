@@ -64,10 +64,30 @@ updated in place: assigning ``placements`` copies into the engine's one
 table tensor, and the swap rewrites the pool in place. Replacing a weight
 tensor after the capture recaptures, and is counted.
 
-Not here yet: replication (``replica_slots > 0`` raises
-``NotImplementedError``, so the controller's replicated and shed branches
-are never taken), shedding, the collective migration path and the dense
-KV mode (it comes with the sliding-window families).
+**Replication** (``EngineConfig(replication=ReplicationConfig(
+replica_slots>0))``, the ``gem`` policy and a profile required): at
+construction, before the decode step is captured, the virtual-order pool
+is expanded into S = E_v + G·replica_slots rows a layer (each device's
+extra slots copy its own experts) and the router remaps through (L, E_v,
+P) replica-split tables. The one-shot replan retargets the pool to the
+replication-aware plan in one row gather per layer; online replica
+batches rewrite only their moved rows. Either way the tables are rebuilt
+from the live layouts' shares and copied into the engine's one table
+tensor. Step costs and straggler attribution follow the speed-proportional
+split; regret prices against no placement. ``auto_slots`` derives
+``replica_slots`` from ``hbm_budget_bytes`` minus the paged KV pool.
+
+**Shedding** (``EngineConfig(shed=ShedConfig(enabled=True))``, a
+replicated pool required): the dispatch's second pass re-seats
+assignments past their slot's capacity on free rows of the expert's other
+copies. After each step the engine reads the (L,) shed and overflow
+counts and the (L, S) ``shed_delta``, charges the shed-adjusted latency,
+and prices the next step's (L,) enables (one step behind); the captured
+step reads the enables from its static input buffer, so a flip never
+recaptures it.
+
+Not here yet: the collective migration path and the dense KV mode (it
+comes with the sliding-window families).
 
 On a host without a GPU, ``tests/test_torch_online.py`` holds the online
 engine against the JAX engine in both decode modes
@@ -92,20 +112,32 @@ from ..core.score import step_cost_matrix, step_token_matrix
 from ..core.types import GEMConfig, Placement, VariabilityProfile
 from ..device import resolve_device
 from ..kernels.collective import MigrationExecutable
+from ..models.dispatch import slot_capacity
 from ..models.model import (
     DecodeGraph,
     decode_step,
     init_paged_decode_cache,
     prefill,
 )
-from ..models.moe import identity_placement
+from ..models.moe import apply_placement, identity_placement
 from ..online import (
     DriftConfig,
     MigrationConfig,
     OnlineConfig,
     OnlineController,
 )
-from ..replication import ReplicatedPlacement, ReplicationConfig
+from ..online.migration import replica_source_permutation
+from ..replication import (
+    ReplicatedPlacement,
+    ReplicationConfig,
+    plan_replicated_layers,
+    replica_fetch_rows,
+    replicated_step_cost_matrix,
+    replicated_step_token_matrix,
+    shed_adjusted_step_cost_matrix,
+    shed_device_deltas,
+    shed_gate_decisions,
+)
 from ..telemetry import (
     AttributionAccumulator,
     RegretTracker,
@@ -114,9 +146,15 @@ from ..telemetry import (
 )
 from ..telemetry.regret import record_step_metrics
 from .arrivals import RequestSpec
-from .kv_cache import PagedKVConfig, PagedKVPool
+from .kv_cache import (
+    PagedKVConfig,
+    PagedKVPool,
+    kv_pool_bytes,
+    replica_slots_for_headroom,
+)
 from .sampling import sample
 from .scheduler import Request, Scheduler
+from .shed import ShedConfig, default_token_bytes
 from .slo import slo_report
 
 __all__ = ["EngineConfig", "ServingEngine"]
@@ -135,9 +173,13 @@ class EngineConfig:
     placement_policy: str = "gem"  # gem | eplb | linear
     replan_after: int | None = None  # engine steps before replan (default:
     # gem.trace_length; 0 means "as soon as the trace collectors fill")
-    # replica_slots > 0 raises NotImplementedError until the replicated
-    # data plane lands
+    # replica_slots>0 installs a replicated pool (E_v + G·slots rows a
+    # layer) and replica-split router tables; needs the gem policy and a
+    # profile
     replication: ReplicationConfig = ReplicationConfig()
+    # enabled=True arms the dispatch's shed pass, priced each step for the
+    # next one; needs a replicated pool
+    shed: ShedConfig = ShedConfig()
     # --- online adaptation plane (repro_torch.online) ---
     online: bool = False  # drift-triggered replans + budgeted partial swaps
     # instead of the one-shot step-counter replan above
@@ -166,6 +208,9 @@ class EngineConfig:
     # migration recaptures it. "python" runs the per-layer loop eagerly:
     # the parity baseline.
     decode_mode: str = "scan"
+    # HBM budget shared by the paged KV pool and the replica pool; needed
+    # when replication.auto_slots derives replica_slots from the headroom
+    hbm_budget_bytes: float | None = None
 
 
 class ServingEngine:
@@ -202,18 +247,63 @@ class ServingEngine:
                 "exchange over an interconnect comes with the multi-card "
                 "path; 'host' applies every batch on the weights' device"
             )
-        rep = engine_config.replication
-        if rep.replica_slots > 0 or rep.auto_slots:
-            raise NotImplementedError(
-                "expert replication is not ported yet: the replicated pool, "
-                "the replica split and the replication-aware planner come "
-                "with the replication plane"
+        block_size = engine_config.kv.block_size
+        self._n_max = -(-engine_config.max_len // block_size)
+        num_blocks = engine_config.kv.num_blocks
+        if num_blocks is None:
+            # every slot holds a full-length request: admission never fails
+            num_blocks = 1 + engine_config.max_batch * self._n_max
+        dtype_bytes = embed.dtype.itemsize
+        if engine_config.replication.auto_slots:
+            # replica copies get what the paged KV pool leaves of the budget
+            if engine_config.hbm_budget_bytes is None:
+                raise ValueError(
+                    "replication.auto_slots needs a MoE config and "
+                    "EngineConfig.hbm_budget_bytes — the replica budget is "
+                    "derived from the paged KV pool's headroom"
+                )
+            pool_bytes = kv_pool_bytes(
+                num_blocks, block_size, config.num_layers,
+                config.num_kv_heads, config.head_dim, dtype_bytes,
+            )
+            engine_config = dataclasses.replace(
+                engine_config,
+                replication=dataclasses.replace(
+                    engine_config.replication,
+                    auto_slots=False,
+                    replica_slots=replica_slots_for_headroom(
+                        engine_config.hbm_budget_bytes - pool_bytes,
+                        d_model=config.d_model,
+                        expert_d_ff=config.expert_d_ff // config.expert_tp,
+                        num_layers=config.num_layers,
+                        bytes_per_param=dtype_bytes,
+                    ),
+                ),
+            )
+        replica_slots = engine_config.replication.replica_slots
+        if engine_config.shed.enabled and (profile is None
+                                           or replica_slots <= 0):
+            raise ValueError(
+                "EngineConfig(shed.enabled=True) needs a MoE config, an "
+                "attached VariabilityProfile, and a replicated pool "
+                "(replication.replica_slots > 0) — overflow tokens can "
+                "only re-seat on a live replica row, and the shed-vs-wait "
+                "gate prices against the profile's staircase curves"
             )
         if engine_config.online and profile is None:
             raise ValueError(
                 "EngineConfig(online=True) needs an attached "
                 "VariabilityProfile — without it no adaptation plane can "
                 "run and the engine would silently never replan"
+            )
+        if replica_slots > 0 and (
+            profile is None or engine_config.placement_policy != "gem"
+        ):
+            raise ValueError(
+                "EngineConfig(replication.replica_slots>0) needs a MoE "
+                "config, an attached VariabilityProfile, and the gem "
+                "placement policy — the replica split is speed-proportional "
+                "and only the gem planner is replication-aware"
             )
         self.params = params
         self.config = config
@@ -242,8 +332,10 @@ class ServingEngine:
         self.prefill_count = 0  # prefills run (one per installed request)
         self.decode_count = 0  # decode steps run
         # (L, E_v) expert→slot tables, identity while the pool is in
-        # virtual-expert order; the one-shot replan swaps them. One tensor
-        # for the engine's life: `placements = …` copies into it
+        # virtual-expert order; the one-shot replan swaps them. With a
+        # replicated pool, (L, E_v, P) replica-split tables. One tensor for
+        # the engine's life once the decode step is built: `placements = …`
+        # copies into it
         self._placements = identity_placement(
             config, config.num_layers, device=self.device
         )
@@ -255,8 +347,17 @@ class ServingEngine:
         # ground truth, when a caller injects one that departs the profile
         self.true_profile: VariabilityProfile | None = None
         self.placement_applied = False
-        # the replicated layouts stay None: the engine refuses replication
+        # the live replicated layouts; None without a replicated pool
         self.current_rplacements: list[ReplicatedPlacement] | None = None
+        # capacity-overflow shedding: (L,) int32 enables for the NEXT
+        # step's shed pass; None when the plane is off, and the decode step
+        # then holds no shed operation
+        self._shed_enables: np.ndarray | None = None
+        self._shed_token_bytes = 0.0
+        self._shed_total = 0
+        self._shed_overflow_total = 0
+        self._shed_saved_s = 0.0
+        self._shed_transfer_s = 0.0
         if profile is not None:
             # admission tracks the profiled fleet's slowest device
             self.scheduler.set_slow_device_factor(
@@ -277,13 +378,41 @@ class ServingEngine:
         self.current_placements: list[Placement] = [
             Placement.linear(Ev, nd) for _ in range(config.num_layers)
         ]
+        if replica_slots > 0:
+            # the replicated pool goes in now, before the decode step is
+            # captured: the slot count is a run constant, and the capture
+            # binds the expanded pool and the replica tables
+            self.current_rplacements = [
+                ReplicatedPlacement.linear(
+                    Ev, nd, replica_slots, profile=profile,
+                    config=engine_config.replication,
+                )
+                for _ in range(config.num_layers)
+            ]
+            self._install_replicated_pool(self.current_rplacements)
         self._migrate = MigrationExecutable()
         # one cost model for both replan paths: the online plane prices its
         # batches with it and the one-shot swap is charged the same way
         self._cost_model = engine_config.migration.cost_model_for_dims(
             config.d_model, config.expert_d_ff // config.expert_tp,
-            bytes_per_param=embed.dtype.itemsize,
+            bytes_per_param=dtype_bytes,
         )
+        if engine_config.shed.enabled:
+            # all layers start disabled: step t's overflow prices step t+1
+            self._shed_enables = np.zeros(config.num_layers, dtype=np.int32)
+            self._shed_token_bytes = (
+                float(engine_config.shed.token_bytes)
+                if engine_config.shed.token_bytes is not None
+                else default_token_bytes(config.d_model, dtype_bytes)
+            )
+            # the decode capacity the gate must predict: build_dispatch's
+            # own formula for one dispatch group
+            self._shed_capacity = slot_capacity(
+                max(engine_config.max_batch, 1), config,
+                capacity_factor=config.decode_capacity_factor,
+                num_slots=int(self.params["blocks"]["moe"]["w_gate"].shape[1]),
+                replicated=True,
+            )
         self.controller: OnlineController | None = None
         if engine_config.online:
             self.controller = OnlineController(
@@ -304,12 +433,6 @@ class ServingEngine:
                 telemetry=self.telemetry,
             )
 
-        block_size = engine_config.kv.block_size
-        self._n_max = -(-engine_config.max_len // block_size)
-        num_blocks = engine_config.kv.num_blocks
-        if num_blocks is None:
-            # every slot holds a full-length request: admission never fails
-            num_blocks = 1 + engine_config.max_batch * self._n_max
         self.kv_pool = PagedKVPool(
             num_blocks, block_size,
             watermark_blocks=engine_config.kv.watermark_blocks,
@@ -329,15 +452,16 @@ class ServingEngine:
         self._decode = decode_step
         if engine_config.decode_mode == "scan":
             self.decode_graph = DecodeGraph(
-                params, self.caches, self._placements, config,
+                self.params, self.caches, self._placements, config,
                 batch=engine_config.max_batch, n_max=self._n_max,
-                device=self.device,
+                device=self.device, shed=self._shed_enables is not None,
             )
             self._decode = self.decode_graph
 
     @property
     def placements(self) -> torch.Tensor:
-        """The (L, E_v) int32 expert→slot tables the model routes through."""
+        """The int32 tables the model routes through: (L, E_v) expert→slot
+        maps, or (L, E_v, P) replica-split tables with a replicated pool."""
         return self._placements
 
     @placements.setter
@@ -347,10 +471,20 @@ class ServingEngine:
         tables = torch.as_tensor(tables, device=self.device)
         if tuple(tables.shape) != tuple(self._placements.shape):
             raise ValueError(
-                f"placements {tuple(tables.shape)} != "
-                f"{tuple(self._placements.shape)} (L, E_v)"
+                f"placements {tuple(tables.shape)} != the engine's tables "
+                f"{tuple(self._placements.shape)}: (L, E_v), or (L, E_v, P) "
+                "with a replicated pool"
             )
         self._placements.copy_(tables)
+
+    @property
+    def shed_enables(self) -> np.ndarray | None:
+        """A copy of the (L,) 0/1 shed enables the *next* step dispatches
+        with (priced from the last step's overflow), or None when the shed
+        plane is off."""
+        if self._shed_enables is None:
+            return None
+        return self._shed_enables.copy()
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
@@ -514,15 +648,55 @@ class ServingEngine:
         telemetry hub's record list."""
         return self.telemetry.migration_records
 
-    def _apply_migration_sources(self, src: np.ndarray) -> None:
+    def _apply_migration_sources(self, src: np.ndarray, *,
+                                 swap_tables: bool) -> None:
         """Rewrite the expert pool in place to ``new[l] = old[l][src[l]]``
-        (only the moved rows are copied) and copy the swapped (L, E_v)
-        tables into the engine's one table tensor. Nothing the captured
-        decode step reads is rebound."""
+        (only the moved rows are copied). With ``swap_tables`` (permutation
+        batches) the swapped (L, E_v) tables are copied into the engine's
+        one table tensor; replica batches leave the tables to the caller,
+        which rebuilds them from the live layouts' shares. Nothing the
+        captured decode step reads is rebound."""
         moe = self.params["blocks"]["moe"]
-        _, self.placements = self._migrate(  # copied in place (setter)
-            src, self.placements, moe["w_gate"], moe["w_up"], moe["w_down"]
+        tables = self.placements if swap_tables else None
+        _, new_tables = self._migrate(
+            src, tables, moe["w_gate"], moe["w_up"], moe["w_down"]
         )
+        if swap_tables:
+            self.placements = new_tables  # copied in place (setter)
+
+    def _replica_tables(self, rplacements) -> np.ndarray:
+        """(L, E_v, P) replica-split router tables of the layouts."""
+        P = self.ecfg.replication.pattern_period
+        return np.stack([rp.replica_table(P) for rp in rplacements])
+
+    def _install_replicated_pool(self, rplacements) -> None:
+        """Expand the virtual-ordered expert weights into the replicated
+        slot pool: row ``s`` ← virtual expert ``slot_to_expert[s]``. Only
+        valid while the pool is in virtual order, at construction before
+        the decode step is captured: the expanded weights and the (L, E_v,
+        P) table tensor are new tensors, which the capture then binds."""
+        s2e = torch.as_tensor(
+            np.stack([rp.slot_to_expert for rp in rplacements]),
+            device=self.device,
+        )
+        blocks = dict(self.params["blocks"])
+        blocks["moe"] = apply_placement(blocks["moe"], s2e)
+        self.params = {**self.params, "blocks": blocks}
+        self._placements = torch.as_tensor(
+            self._replica_tables(rplacements), device=self.device
+        )
+
+    def _retarget_replicated_pool(self, rplacements) -> None:
+        """Move the live replicated pool to new layouts in one row gather
+        per layer (each target slot reads a current copy of its expert),
+        in place, and copy the new layouts' tables into the table tensor."""
+        srcs = np.stack([
+            replica_source_permutation(cur.slot_layout(), new.slot_layout())
+            for cur, new in zip(self.current_rplacements, rplacements)
+        ])
+        self._apply_migration_sources(srcs.astype(np.int32),
+                                      swap_tables=False)
+        self.placements = self._replica_tables(rplacements)
 
     def set_true_profile(self, profile: VariabilityProfile | None) -> None:
         """Inject the *actual* fleet behaviour when it departs the believed
@@ -537,22 +711,121 @@ class ServingEngine:
 
     def _step_cost_matrix(self, counts_virt: np.ndarray) -> np.ndarray | None:
         """(L, G) per-layer per-device latencies of this step on the
-        ground-truth fleet, under the current placements."""
+        ground-truth fleet, under the current placements (the
+        speed-proportional split with a replicated pool)."""
         if self._sim_profile is None:
             return None
+        if self.current_rplacements is not None:
+            return replicated_step_cost_matrix(
+                counts_virt, self._sim_profile, self.current_rplacements
+            )
         return step_cost_matrix(
             counts_virt, self._sim_profile, self.current_placements
         )
 
     def _step_token_matrix(self, counts_virt: np.ndarray) -> np.ndarray | None:
         """(L, G) per-layer per-device token loads of this step: the
-        straggler attribution's input."""
+        straggler attribution's input, replica-split aware."""
         if self._sim_profile is None:
             return None
-        return step_token_matrix(
-            counts_virt, self._sim_profile.num_devices,
-            self.current_placements,
-        )
+        G = self._sim_profile.num_devices
+        if self.current_rplacements is not None:
+            return replicated_step_token_matrix(
+                counts_virt, G, self.current_rplacements
+            )
+        return step_token_matrix(counts_virt, G, self.current_placements)
+
+    def _shed_operand(self) -> np.ndarray | None:
+        """The decode step's (L,) shed enables, None when the plane is off
+        (the step then holds no shed operation)."""
+        return self._shed_enables
+
+    def _shed_step(self, counts_virt: np.ndarray, moe_aux,
+                   cost_mx: np.ndarray | None) -> float | None:
+        """Per-step shed accounting and the next step's gate pricing.
+
+        Reads the (L,) ``overflow_tokens`` and ``shed_tokens`` and the
+        (L, S) ``shed_delta`` back after the step (never inside the
+        captured body). Returns the shed-adjusted latency the simulated
+        fleet paid this step, transfer included, or None when nothing shed
+        (the caller then charges ``cost_mx``). The controller, attribution
+        and regret keep seeing the un-shed ``cost_mx``."""
+        tel = self.telemetry
+        overflow = moe_aux.overflow_tokens.cpu().numpy().astype(np.int64)
+        shed_tok = moe_aux.shed_tokens.cpu().numpy().astype(np.int64)
+        shed_delta = moe_aux.shed_delta.cpu().numpy().astype(np.int64)
+        total_over = int(overflow.sum())
+        total_shed = int(shed_tok.sum())
+        self._shed_overflow_total += total_over
+        if total_over:
+            tel.counter("shed.overflow_tokens").inc(total_over)
+
+        adjusted: float | None = None
+        prof = self._sim_profile
+        if (total_shed > 0 and prof is not None and cost_mx is not None
+                and self.current_rplacements is not None):
+            tokens = self._step_token_matrix(counts_virt)  # un-shed (L, G)
+            spd = self.current_rplacements[0].slots_per_device
+            adj_mx = shed_adjusted_step_cost_matrix(
+                tokens, shed_delta, prof, spd
+            )
+            # only rows that change device cross the interconnect, charged
+            # at the controller's (else the engine's) cost model: the port
+            # has no injected ground-truth interconnect
+            cross_rows = float(
+                np.maximum(shed_device_deltas(shed_delta, spd), 0.0).sum()
+            )
+            model = (self.controller.cost_model
+                     if self.controller is not None else self._cost_model)
+            transfer_s = cross_rows * self._shed_token_bytes / model.bandwidth
+            legacy = float(cost_mx.max(axis=1).sum())
+            adjusted = float(adj_mx.max(axis=1).sum()) + transfer_s
+            self._shed_total += total_shed
+            self._shed_transfer_s += transfer_s
+            self._shed_saved_s += legacy - adjusted
+            tel.counter("shed.tokens").inc(total_shed)
+            tel.counter("shed.steps").inc()
+            tel.counter("shed.transfer_s").inc(transfer_s)
+            tel.gauge("shed.saved_s").set(self._shed_saved_s)
+            if tel.enabled:
+                recv_dev = np.maximum(
+                    shed_device_deltas(shed_delta, spd), 0.0
+                ).sum(axis=0)  # (G,) assignments received per device
+                total_recv = float(recv_dev.sum())
+                for g in range(recv_dev.shape[0]):
+                    if recv_dev[g] <= 0:
+                        continue
+                    tel.emit_span(
+                        "shed.recv", self.sim_time,
+                        transfer_s * float(recv_dev[g]) / total_recv,
+                        track=f"device{g}", step=self.step_count,
+                        tokens=int(recv_dev[g]),
+                    )
+
+        # price the NEXT step's enables from this step's overflow with the
+        # believed profile and bandwidth
+        shed = self.ecfg.shed
+        if self.controller is not None:
+            enables = self.controller.shed_decisions(
+                counts_virt, overflow,
+                token_bytes=self._shed_token_bytes,
+                capacity=self._shed_capacity,
+                min_overflow=shed.min_overflow,
+                hysteresis=shed.hysteresis,
+                drop_penalty_s=shed.drop_penalty_s,
+            )
+        else:
+            enables = shed_gate_decisions(
+                counts_virt, self.current_rplacements, self.profile,
+                self._shed_capacity,
+                bandwidth=self._cost_model.bandwidth,
+                token_bytes=self._shed_token_bytes,
+                min_overflow=shed.min_overflow,
+                hysteresis=shed.hysteresis,
+                drop_penalty_s=shed.drop_penalty_s,
+            )
+        self._shed_enables = np.asarray(enables, dtype=np.int32)
+        return adjusted
 
     def _observe_attribution(self, counts_virt: np.ndarray) -> None:
         """Split this step's straggler slack into load and variability
@@ -602,7 +875,9 @@ class ServingEngine:
         )
         sr = self.regret.observe(
             counts_virt, prof, float(cost_mx.max(axis=1).sum()),
-            placements=self.current_placements, lagging=lagging,
+            placements=(None if self.current_rplacements is not None
+                        else self.current_placements),
+            lagging=lagging,
         )
         record_step_metrics(self.telemetry, sr, self.step_count)
 
@@ -634,13 +909,17 @@ class ServingEngine:
                                self.profile.num_devices)
                 for c in self.planner.collectors
             ]
+        elif self.current_rplacements is not None:
+            self._retarget_replan()
+            return
         else:
             placements = self.planner.plan().placements
         # Step-4: the pool is still in virtual order, so each layer's
         # row-source map is its slot_to_expert table, and the table swap
         # inverts it into expert_to_slot; the pool is rewritten in place
         slot_to_expert = np.stack([p.slot_to_expert() for p in placements])
-        self._apply_migration_sources(slot_to_expert.astype(np.int32))
+        self._apply_migration_sources(slot_to_expert.astype(np.int32),
+                                      swap_tables=True)
         # the swap moves weights: charge its modelled cost (the host path
         # measures nothing) to the step that performs it
         moves = sum(
@@ -654,6 +933,42 @@ class ServingEngine:
         self.current_placements = placements
         self.placement_applied = True
 
+    def _retarget_replan(self) -> None:
+        """The one-shot replan of a replicated pool: the replication-aware
+        plan, priced by the rows each device must fetch, audited, and
+        applied as one retarget of the pool."""
+        rplacements = [
+            r.placement
+            for r in plan_replicated_layers(self.planner,
+                                            self.ecfg.replication)
+        ]
+        moves = sum(
+            replica_fetch_rows(cur, new)
+            for cur, new in zip(self.current_rplacements, rplacements)
+        )
+        # the decision's live and target layouts ride the event, so that a
+        # replay re-derives the priced move count from the log alone
+        self.telemetry.instant(
+            "audit.retarget",
+            track="controller",
+            step=self.step_count,
+            num_experts=int(self.planner.num_experts),
+            num_devices=int(self.profile.num_devices),
+            slot_layouts=[
+                rp.slot_layout().tolist() for rp in self.current_rplacements
+            ],
+            target_layouts=[rp.slot_layout().tolist() for rp in rplacements],
+            moves=int(moves),
+            modeled_s=float(self._cost_model.cost(moves)),
+        )
+        self._retarget_replicated_pool(rplacements)
+        swap_cost = self._record_migration(moves, self._cost_model.cost(moves))
+        if self.sim_step_latencies:
+            self.sim_step_latencies[-1] += swap_cost
+        self.sim_time += swap_cost
+        self.current_rplacements = rplacements
+        self.placement_applied = True
+
     def _online_step(self, counts_virt: np.ndarray,
                      cost_mx: np.ndarray) -> float:
         """Drive the online controller for one step; returns the migration
@@ -662,24 +977,33 @@ class ServingEngine:
         The controller sees the (L, E_v) counts and the per-device observed
         MoE time on the ground-truth fleet; a batch it hands back is one
         dense (L, S) row-source map, identity but for its moved slots,
-        applied to the pool in place with the router tables swapped in the
-        same call."""
-        decision = self.controller.observe_step(counts_virt,
-                                                cost_mx.sum(axis=0))
+        applied to the pool in place. A swap batch swaps the router tables
+        in the same call; a replica batch (a replicated pool) takes the
+        controller's tables, rebuilt from the new layouts' shares."""
+        ctrl = self.controller
+        decision = ctrl.observe_step(counts_virt, cost_mx.sum(axis=0))
         if decision.migration_step is not None:
-            src = self.controller.dense_migration_sources(
-                decision.migration_step
-            )
-            self._apply_migration_sources(src)
+            src = ctrl.dense_migration_sources(decision.migration_step)
+            self._apply_migration_sources(src,
+                                          swap_tables=not ctrl.replicated)
             self._record_migration(
                 decision.migration_step.num_moves, decision.migration_cost
             )
-            self.current_placements = list(self.controller.current_placements)
+            if ctrl.replicated:
+                self.placements = ctrl.expert_to_slot_tables()
+                self.current_rplacements = list(ctrl.current_rplacements)
+            else:
+                self.current_placements = list(ctrl.current_placements)
         if decision.profile_rescaled:
-            self.profile = self.controller.profile
+            self.profile = ctrl.profile
             self.scheduler.set_slow_device_factor(
                 float(self.profile.relative_speed().min())
             )
+            if ctrl.replicated:
+                # the repair re-shared every replicated expert: the split
+                # tables follow now, not at the next batch
+                self.placements = ctrl.expert_to_slot_tables()
+                self.current_rplacements = list(ctrl.current_rplacements)
         # "applied" means a planned placement reached the pool (a 0-move
         # schedule counts), not that a plan was made and gate-skipped
         if self.controller.planned and any(
@@ -740,10 +1064,13 @@ class ServingEngine:
         inputs = (self.cur_len, self.last_token[:, None], self.block_tables)
         if self.decode_graph is None:  # "python": new device tensors a step
             inputs = tuple(torch.as_tensor(a, device=dev) for a in inputs)
+        shed = self._shed_operand()
+        if self.decode_graph is None and shed is not None:
+            shed = torch.as_tensor(shed, device=dev)
         cur_len, tokens, block_tables = inputs
         logits, self.caches, moe_aux = self._decode(
             self.params, self.caches, cur_len, tokens, self.config,
-            self.placements, block_tables=block_tables,
+            self.placements, block_tables=block_tables, shed_enables=shed,
         )
         self.decode_count += 1
         generator = None
@@ -763,7 +1090,14 @@ class ServingEngine:
         counts_virt = np.repeat(self.expert_counts, self.config.expert_tp,
                                 axis=1)
         cost_mx = self._step_cost_matrix(counts_virt)
-        if cost_mx is not None:
+        shed_latency = None
+        if self._shed_enables is not None:
+            # shedding changes what the fleet paid, not what the control
+            # plane sees: cost_mx stays the un-shed matrix below
+            shed_latency = self._shed_step(counts_virt, moe_aux, cost_mx)
+        if shed_latency is not None:
+            sim_latency += shed_latency
+        elif cost_mx is not None:
             sim_latency += float(cost_mx.max(axis=1).sum())
         self._observe_attribution(counts_virt)
         self._observe_regret(counts_virt, cost_mx)
@@ -853,8 +1187,8 @@ class ServingEngine:
         """Step-level latency stats (``mean_tpot`` etc. are *step*
         latencies) merged with the per-request SLO percentiles and the
         paged-pool counters, the online plane's replan and migration totals,
-        and the attribution and regret summaries: the JAX engine's report
-        without the keys of the planes not ported yet (shed, collective)."""
+        the shed totals, and the attribution and regret summaries: the JAX
+        engine's report without the collective plane's keys."""
         lat = np.asarray(self.sim_step_latencies)
         lat = lat[lat > 0]
         e2e = np.asarray(
@@ -876,6 +1210,13 @@ class ServingEngine:
                 replans=float(len(self.controller.replans)),
                 migration_s=self.controller.total_migration_cost,
                 max_moves_per_step=float(self.controller.max_moves_in_step),
+            )
+        if self._shed_enables is not None:
+            out.update(
+                shed_tokens=float(self._shed_total),
+                shed_overflow_tokens=float(self._shed_overflow_total),
+                shed_saved_s=float(self._shed_saved_s),
+                shed_transfer_s=float(self._shed_transfer_s),
             )
         if self.attribution.steps > 0:
             # the per-device straggler tally (a list) stays on the

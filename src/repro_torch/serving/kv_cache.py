@@ -23,8 +23,11 @@ All bookkeeping here is host-side Python/numpy — the data plane only
 ever sees the dense ``(B, n_max)`` int32 block-table array built by
 :meth:`PagedKVPool.slot_tables`.
 
-This is the port's own copy of ``repro/serving/kv_cache.py``; the
-replica-budget helper comes with the replication slice.
+``replica_slots_for_headroom`` closes the loop with the replication plane:
+expert replica copies and KV blocks compete for the same HBM, so the
+replica budget is *derived* from what the pool leaves free.
+
+This is the port's own copy of ``repro/serving/kv_cache.py``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ __all__ = [
     "PagedKVPool",
     "blocks_for_tokens",
     "kv_pool_bytes",
+    "replica_slots_for_headroom",
 ]
 
 NULL_BLOCK = 0
@@ -211,3 +215,25 @@ def kv_pool_bytes(num_blocks: int, block_size: int, num_layers: int,
     """Physical bytes of the paged pool: K and V, all layers, all blocks."""
     per_entry = num_kv_heads * head_dim * bytes_per_param
     return 2 * num_layers * num_blocks * block_size * per_entry
+
+
+def replica_slots_for_headroom(
+    headroom_bytes: float,
+    *,
+    d_model: int,
+    expert_d_ff: int,
+    num_layers: int,
+    bytes_per_param: int,
+) -> int:
+    """Per-device replica slots affordable inside ``headroom_bytes``.
+
+    One replica slot adds one expert row on *every* layer of one device:
+    ``w_gate (D, Fv) + w_up (D, Fv) + w_down (Fv, D)`` = ``3·D·Fv`` params
+    per layer. The headroom is what the HBM budget leaves after the paged
+    KV pool (``kv_pool_bytes``) — replication and KV paging share one
+    budget instead of two hand constants (ROADMAP carry-over).
+    """
+    if headroom_bytes <= 0:
+        return 0
+    slot_bytes = 3 * d_model * expert_d_ff * num_layers * bytes_per_param
+    return int(headroom_bytes // slot_bytes)

@@ -25,10 +25,11 @@ from repro_torch.configs import get_smoke_config as torch_smoke_config  # noqa: 
 ARCH = "granite-moe-3b-a800m"
 
 
-def smoke_configs(**overrides):
-    """(JAX config, port config) of granite smoke, same overrides on both."""
-    jcfg = dataclasses.replace(jax_smoke_config(ARCH), **overrides)
-    tcfg = dataclasses.replace(torch_smoke_config(ARCH), **overrides)
+def smoke_configs(arch: str = ARCH, **overrides):
+    """(JAX config, port config) of an arch's smoke reduction (granite by
+    default), same overrides on both."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **overrides)
+    tcfg = dataclasses.replace(torch_smoke_config(arch), **overrides)
     return jcfg, tcfg
 
 

@@ -2,7 +2,8 @@
 
 ``repro_torch.core``, ``repro_torch.telemetry``, ``repro_torch.replication``
 and ``repro_torch.online`` are verbatim copies of their ``repro`` packages
-(numpy and the standard library only), pinned byte for byte here, so the
+(numpy and the standard library only), as is ``repro_torch.serving.shed``,
+pinned byte for byte here, so the
 planner's outputs must be equal, not close: placements, scores, swap
 counts, the EPLB baseline, the per-step cost and token matrices, the
 profile and the migration cost. The port's host migration executable is
@@ -45,6 +46,9 @@ COPIED = {
 PINNED = [pytest.param("core", name, id=name) for name in MODULES] + [
     pytest.param(pkg, name, id=f"{pkg}/{name}")
     for pkg, names in COPIED.items() for name in names
+] + [
+    # single modules of packages the port keeps its own versions of
+    pytest.param("serving", "shed", id="serving/shed"),
 ]
 NUM_DEVICES = 4
 

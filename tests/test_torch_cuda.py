@@ -308,6 +308,120 @@ def test_a_host_sync_in_the_decode_step_fails_the_capture(cuda, monkeypatch):
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shed", [0, 1])
+def test_shed_pass_on_the_card_equals_the_cpu_without_a_sync(cuda, shed):
+    """The replica split and the shed pass on CUDA tensors, under the sync
+    debug mode "error": every plan field equals the CPU's."""
+    from repro_torch.models import dispatch
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    Ev, k = cfg.num_virtual_experts, cfg.experts_per_token
+    rng = np.random.default_rng(2)
+    ids = np.tile(np.arange(k, dtype=np.int32), (1, 16, 1))  # all hot
+    gates = rng.uniform(0.1, 1.0, size=(1, 16, k)).astype(np.float32)
+    table = np.tile(np.arange(Ev, dtype=np.int32)[:, None], (1, 16))
+    table[:k, 14:] = Ev + np.arange(k)[:, None]  # a small-share copy
+    plans = {}
+    for dev in ("cpu", cuda):
+        zeros = torch.zeros(cfg.num_experts, device=dev)
+        router = dispatch.RouterOutput(
+            gates=torch.as_tensor(gates, device=dev),
+            ids=torch.as_tensor(ids, device=dev),
+            expert_counts=zeros.int(), density=zeros, probs_mean=zeros,
+            aux_loss=zeros.sum())
+        t = torch.as_tensor(table, device=dev)
+        enable = torch.full((), shed, dtype=torch.int32, device=dev)
+        mode = torch.cuda.get_sync_debug_mode()
+        if dev == cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            plans[str(dev)] = dispatch.build_dispatch(
+                router, t, cfg, capacity_factor=1.0, num_slots=Ev + 4,
+                shed_enable=enable)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    ref, got = plans["cpu"], plans[str(cuda)]
+    for name in ("dispatch_idx", "dispatch_gate", "assign_row", "dropped",
+                 "dropped_tokens", "overflow_tokens", "shed_tokens",
+                 "shed_delta"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    assert (int(ref.shed_tokens) > 0) == bool(shed)
+
+
+def _twin_profile(speeds):
+    """A 4-device emulated staircase fleet at ``speeds``, profiled."""
+    from repro_torch.core import DeviceFleet, profile_fleet, simulator_measure_fn
+
+    fleet = DeviceFleet.from_speeds(np.asarray(speeds, dtype=np.float64),
+                                    tile=1, tile_time=50e-6, base=10e-6)
+    return profile_fleet(simulator_measure_fn(fleet, seed=0), 4,
+                         max_tokens=64, tile=1, repeats=5).profile
+
+
+@pytest.mark.cuda
+def test_replicated_shed_engine_on_the_card_matches_the_cpu(cuda):
+    """Smoke granite, fp32, zeroed router, one replica slot a device, shed
+    on, online, the fastest card slowed mid-run: "scan" and "python" on
+    the card and "python" on the CPU give the same tokens and the same
+    per-step shed counts, some steps shed, and "scan" captures once."""
+    import dataclasses
+
+    from repro_torch.core import GEMConfig
+    from repro_torch.online import DriftConfig, MigrationConfig
+    from repro_torch.replication import ReplicationConfig
+    from repro_torch.serving import ShedConfig
+
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              decode_capacity_factor=1.5)
+    params = init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    params["blocks"]["moe"]["router"].zero_()
+    runs = {}
+    for dev, mode in (("cpu", "python"), (cuda, "python"), (cuda, "scan")):
+        eng = ServingEngine(
+            _to(params, dev), cfg,
+            EngineConfig(max_batch=8, max_len=40, decode_mode=mode,
+                         gem=GEMConfig(trace_length=8, num_restarts=4),
+                         online=True,
+                         drift=DriftConfig(min_steps=4, threshold=100.0,
+                                           var_threshold=2.0),
+                         migration=MigrationConfig(max_moves_per_step=256),
+                         replan_cooldown=8, payback_horizon=100_000,
+                         replication=ReplicationConfig(
+                             replica_slots=1, exclude_speed_below=0.0,
+                             consistent_only=False, refine=False),
+                         shed=ShedConfig(enabled=True, drop_penalty_s=0.01)),
+            profile=_twin_profile([0.6, 0.8, 1.0, 1.3]), num_devices=4,
+            device=dev)
+        steps = []
+        inner = eng._shed_step
+
+        def record(counts_virt, aux, cost_mx, steps=steps, inner=inner):
+            steps.append([getattr(aux, n).cpu().tolist() for n in (
+                "overflow_tokens", "shed_tokens", "dropped_tokens")])
+            return inner(counts_virt, aux, cost_mx)
+
+        eng._shed_step = record
+        rng = np.random.default_rng(17)
+        for _ in range(16):
+            eng.submit(rng.integers(0, cfg.vocab_size, size=8),
+                       max_new_tokens=24)
+        for step in range(200):
+            if not eng.scheduler.has_work():
+                break
+            if step == 12:
+                eng.set_true_profile(_twin_profile([0.6, 0.8, 1.0, 0.2]))
+            eng.step()
+        runs[str(dev), mode] = (eng, steps)
+    ref_eng, ref_steps = runs["cpu", "python"]
+    assert any(sum(shed) > 0 for _, shed, _ in ref_steps)
+    for key, (eng, steps) in runs.items():
+        assert {r.uid: r.generated for r in eng.finished} == \
+            {r.uid: r.generated for r in ref_eng.finished}, key
+        assert steps == ref_steps, key
+    assert runs[str(cuda), "scan"][0].graph_capture_counts["decode"] == 1
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}

@@ -114,12 +114,29 @@ def test_rank_in_group_is_stable():
 
 
 def test_two_d_replica_tables_are_not_ported_yet(setup):
-    _, tcfg, _, tp, e2s, x = setup
+    """2-D replica tables are ported now: a table that broadcasts each
+    expert's one slot over its columns gives the 1-D table's plan, and the
+    JAX plan, field for field."""
+    jcfg, tcfg, jp, tp, e2s, x = setup
     xg = torch.from_numpy(x).reshape(1, -1, tcfg.d_model)
     router = tdispatch.route(xg, tp["router"], tcfg)
-    table = torch.from_numpy(np.stack([e2s, e2s], axis=1))
-    with pytest.raises(NotImplementedError):
-        tdispatch.build_dispatch(router, table, tcfg, capacity_factor=1.0)
+    table = np.repeat(e2s[:, None], 2, axis=1)
+    plan2 = tdispatch.build_dispatch(router, torch.from_numpy(table), tcfg,
+                                     capacity_factor=0.5)
+    plan1 = tdispatch.build_dispatch(router, torch.from_numpy(e2s), tcfg,
+                                     capacity_factor=0.5)
+    jr = jdispatch.route(jnp.asarray(x).reshape(1, -1, jcfg.d_model),
+                         jp["router"], jcfg, host_policy(), backend="einsum")
+    jplan = jdispatch.build_dispatch(jr, jnp.asarray(table), jcfg,
+                                     host_policy(), capacity_factor=0.5)
+    assert int(plan2.dropped_tokens) > 0
+    for name in ("dispatch_idx", "dispatch_gate", "assign_row",
+                 "dropped_tokens", "overflow_tokens", "shed_tokens",
+                 "shed_delta"):
+        assert torch.equal(getattr(plan2, name), getattr(plan1, name)), name
+    for name in ("dispatch_idx", "dropped_tokens", "overflow_tokens"):
+        np.testing.assert_array_equal(getattr(plan2, name).numpy(),
+                                      np.asarray(getattr(jplan, name)))
 
 
 @pytest.mark.parametrize("num_tokens", [1, 7, 8, 128])

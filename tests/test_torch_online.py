@@ -235,9 +235,11 @@ REFUSALS = {
                    NotImplementedError, "multi-card"),
     "unknown-via": (dict(migration_via="nvlink"), True, ValueError,
                     "migration_via"),
-    "replication": (dict(online=True,
+    # replication is ported; the JAX engine's refusal of it under a policy
+    # other than gem holds
+    "replication": (dict(online=True, placement_policy="eplb",
                          replication=ReplicationConfig(replica_slots=2)),
-                    True, NotImplementedError, "replication"),
+                    True, ValueError, "replication"),
 }
 
 
@@ -251,3 +253,26 @@ def test_online_engine_refusals(case):
         tserving.ServingEngine(
             params, tcfg, tserving.EngineConfig(**knobs),
             profile=profile if with_profile else None, device="cpu")
+
+
+def test_online_engine_builds_a_replicated_pool():
+    """``replica_slots > 0`` with a profile and the gem policy: the pool
+    holds E_v + G·slots rows a layer, each device's extra slots copying
+    its own experts, and the controller plans replicated layouts."""
+    _, tcfg = smoke_configs(expert_tp=2)
+    params = init_params(tcfg, device="cpu", dtype=torch.float32)
+    profile, _ = _profiles(tcore)
+    eng = tserving.ServingEngine(
+        params, tcfg, tserving.EngineConfig(
+            online=True, replication=ReplicationConfig(replica_slots=2)),
+        profile=profile, num_devices=NUM_DEVICES, device="cpu")
+    Ev = tcfg.num_virtual_experts
+    S = Ev + NUM_DEVICES * 2
+    w = eng.params["blocks"]["moe"]["w_gate"]
+    assert tuple(w.shape[:2]) == (tcfg.num_layers, S)
+    s2e = eng.current_rplacements[0].slot_to_expert
+    for s, e in enumerate(s2e):
+        assert torch.equal(w[0, s], params["blocks"]["moe"]["w_gate"][0, e])
+    assert tuple(eng.placements.shape) == (tcfg.num_layers, Ev, 16)
+    assert eng.controller.replicated
+    assert eng.graph_capture_counts["decode"] == 1

@@ -107,14 +107,26 @@ def test_replan_matches_jax(policy):
 
 
 def test_replication_is_refused_until_ported():
+    """Replication is ported: the engine refuses it, as the JAX engine
+    does, only without a profile or under a policy other than gem, and
+    builds the replicated pool otherwise."""
     _, tcfg = smoke_configs(expert_tp=2)
     params = init_params(tcfg, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="replication"):
-        ServingEngine(
-            params, tcfg,
-            EngineConfig(replication=ReplicationConfig(replica_slots=1)),
-            profile=_profile(tcore), device="cpu",
-        )
+    rep = ReplicationConfig(replica_slots=1)
+    with pytest.raises(ValueError, match="replica_slots>0"):
+        ServingEngine(params, tcfg, EngineConfig(replication=rep),
+                      device="cpu")
+    with pytest.raises(ValueError, match="replica_slots>0"):
+        ServingEngine(params, tcfg, EngineConfig(replication=rep,
+                                                 placement_policy="eplb"),
+                      profile=_profile(tcore), device="cpu")
+    eng = ServingEngine(params, tcfg, EngineConfig(replication=rep),
+                        profile=_profile(tcore), num_devices=NUM_DEVICES,
+                        device="cpu")
+    Ev = tcfg.num_virtual_experts
+    assert eng.params["blocks"]["moe"]["w_up"].shape[1] == Ev + NUM_DEVICES
+    assert tuple(eng.placements.shape) == (tcfg.num_layers, Ev,
+                                           rep.pattern_period)
     with pytest.raises(ValueError, match="placement_policy"):
         ServingEngine(params, tcfg, EngineConfig(placement_policy="random"),
                       device="cpu")
