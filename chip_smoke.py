@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs eight phases, each printing one JSON line:
+runs ten phases, each printing JSON lines:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -20,17 +20,24 @@ runs eight phases, each printing one JSON line:
    version and one library call with CUDA events, and the kernels alone
    with torch.profiler, next to the card's bound for the same work. K1 is
    also held and timed at the replicated pool's S = 84 slots (decode C =
-   3, prefill C = 2).
+   3, prefill C = 2) and at Mixtral-8x7B's shapes, (16, 4, 4096)×(16,
+   4096, 7168) at decode and C = 1,279 for the ``swa`` phase's longest
+   prompt, and K2 at Mixtral's (8, 8) and (4,090, 8), k 2.
 3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
    engine on the card (kernels) and on the CPU (plain versions), same
    seeded weights and placement, must give equal greedy tokens. Then the
    replicated + shed engine of the shed scenario (below) on the card in
    ``"scan"`` and ``"python"`` and on the CPU: equal greedy tokens and
    equal per-step (L,) overflow, shed and dropped counts, some steps
-   shedding, one capture.
+   shedding, one capture. Then Mixtral-8x7B at full width, 2 layers,
+   fp32, window 4,096, under a placement: one request of 4,088 prompt
+   tokens and 16 new tokens, so the dense ring wraps at the ninth step, on
+   the card and on the CPU: equal greedy tokens.
 4. ``serve``   — full granite-moe-3b-a800m (32 layers, bf16, seeded random
    weights, paged KV, max_batch 8) serves 8 requests under a seeded
    non-identity placement in the engine's default ``decode_mode="scan"``
+   (first checking that the weights are the bits of a whole-tensor fp32
+   draw, as they were before large stacks were drawn a layer at a time)
    (the decode step captured once as a CUDA graph when the engine is
    built, replayed every step); tokens must equal an identity-placement
    run bit for bit, every MoE layer call must have launched the FFN and
@@ -101,6 +108,27 @@ runs eight phases, each printing one JSON line:
    the shed pass, the host ms a step of the shed accounting, the shed
    counts, the install, batch and retarget times beside their HBM
    bounds, and peak memory.
+9. ``swa`` — Mixtral-8x7B at its published width and 4,096-token sliding
+   window, depth cut to 16 of 32 layers (32 × 2.82 GB of bf16 expert
+   weights do not fit the card), seeded random weights, the dense KV ring
+   (``kv_mode="auto"``), max_batch 8, max_len 4,160, 8 requests of
+   4,064–4,090 prompt tokens and 48 new tokens, so every row's ring wraps.
+   Tokens under a seeded non-identity placement (applied in place) must
+   equal the identity run's, and ``"python"`` must equal ``"scan"``; one
+   capture per engine, K1/K2 launches = 16 × (prefills + decode steps),
+   K2's counters at 0. It prints the decode-step median beside its byte
+   bound (every weight but the embedding table, and every layer's ring),
+   decode tokens/s, each prefill's seconds, peak memory and the graph
+   pool's bytes.
+10. ``families`` — the eight configs without MoE layers (qwen1.5-4b,
+   qwen2.5-14b, qwen3-32b, gemma-7b, mamba2-1.3b, zamba2-1.2b,
+   musicgen-medium, internvl2-76b) at full width, bf16, whole depth for
+   mamba2, zamba2, qwen1.5 and musicgen and 4 layers for the others (to
+   bound the card's time): 4 requests of 16 new tokens in ``"scan"`` and
+   ``"python"``, tokens equal, one capture, no port kernel launched (no
+   MoE layer); then each at 2 layers (zamba2: 7, one stage and the shared
+   block), fp32, card tokens equal the CPU's. It prints the decode-step
+   medians.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -110,6 +138,7 @@ fp32 products are full fp32.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
@@ -124,6 +153,25 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "granite-moe-3b-a800m"
+# the ``swa`` phase: Mixtral-8x7B at its published width and 4,096-token
+# window, depth cut to 16 of 32 layers (32 × 2.82 GB of bf16 expert weights
+# do not fit the card's 80 GB), 8 slots, prompts of 4,064–4,090 tokens and
+# 48 new tokens on a ring of min(4096, 4160) = 4,096 entries: every row's
+# ring wraps during decode
+MIXTRAL = "mixtral-8x7b"
+SWA_LAYERS = 16
+SWA_BATCH = 8
+SWA_MAX_LEN = 4160
+SWA_PROMPTS = (4064, 4090)
+SWA_NEW = 48
+# the ``families`` phase: the eight configs without MoE layers at full
+# width, bf16; None keeps the whole depth, a number cuts it to bound the
+# card's time
+FAMILIES = {
+    "qwen1.5-4b": None, "qwen2.5-14b": 4, "qwen3-32b": 4, "gemma-7b": 4,
+    "mamba2-1.3b": None, "zamba2-1.2b": None, "musicgen-medium": None,
+    "internvl2-76b": 4,
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {  # dense, H100 SXM data sheet
     torch.bfloat16: 989e12,  # tensor cores
@@ -174,25 +222,48 @@ def _is_port_kernel(name: str) -> bool:
     return any(k in name for k in PORT_KERNELS)
 
 
-def device_us(fn, iters: int = 20) -> tuple[float, float]:
-    """Device time of one call of ``fn`` (µs): of the port kernels it
-    launches, summed over them, and of all its device work (the plain
-    reductions around a kernel included). torch.profiler over ``iters``
-    calls; fails when the trace holds no port kernel."""
+def _traced(run, attempts: int = 3):
+    """``run()`` under torch.profiler: (the trace's averages, what ``run``
+    returned, the number of traces taken). The profiler on the card at
+    times returns a window's trace without its device events, so a trace
+    that holds no port kernel is taken again, up to ``attempts`` times;
+    the caller reports the number and its check still fails when no trace
+    holds a port kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run()
+        avgs = prof.key_averages()
+        if any(e.device_type == DeviceType.CUDA and _is_port_kernel(e.key)
+               for e in avgs):
+            break
+    return avgs, out, attempt
+
+
+def device_us(fn, iters: int = 20) -> tuple[float, float, int]:
+    """Device time of one call of ``fn`` (µs): of the port kernels it
+    launches, summed over them, and of all its device work (the plain
+    reductions around a kernel included); and the number of traces taken.
+    torch.profiler over ``iters`` calls; fails when the trace holds no port
+    kernel."""
+    from torch.autograd import DeviceType
+
+    def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    fn()
+    torch.cuda.synchronize()
+    avgs, _, attempts = _traced(run)
+    dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
     port = sum(e.self_device_time_total for e in dev if _is_port_kernel(e.key))
     check(port > 0, "profile: no port kernel in the trace")
     every = sum(e.self_device_time_total for e in dev)
-    return port / iters, every / iters
+    return port / iters, every / iters, attempts
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -262,6 +333,18 @@ def phase_kernels():
              for tag, n, cf in (("decode_s84", 8, SHED_DECODE_CF),
                                 ("prefill_s84", SHED_PROMPT,
                                  cfg.capacity_factor))}
+    # Mixtral-8x7B (the ``swa`` phase): 16 virtual experts of D = 4096,
+    # F_v = 7168, top-2; decode C = 4 at max_batch 8, prefill C for the
+    # phase's longest prompt (4,090 tokens) at capacity factor 1.25
+    mix = get_config(MIXTRAL)
+    mS, mD = mix.num_virtual_experts, mix.d_model
+    mF = mix.expert_d_ff // mix.expert_tp
+    m_cap = {tag: slot_capacity(n, mix, capacity_factor=cf, num_slots=mS,
+                                replicated=False)
+             for tag, n, cf in (("mixtral_decode", SWA_BATCH,
+                                 mix.decode_capacity_factor),
+                                ("mixtral_prefill", SWA_PROMPTS[1],
+                                 mix.capacity_factor))}
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     summary = {}
@@ -278,7 +361,11 @@ def phase_kernels():
         *((f"c{c}", S, c, D, F, torch.bfloat16)
           for c in (2, 5, 7, 8, 9, 16, 17, 64)),
         *((tag, S_rep, c, D, F, torch.bfloat16) for tag, c in c_rep.items()),
+        *((tag, mS, c, mD, mF, torch.bfloat16) for tag, c in m_cap.items()),
     ]
+    # loops of calls for the timings; the prefill shape takes milliseconds
+    # a call (fp32 for the plain version)
+    iters = {"mixtral_prefill": (10, 3, 10)}
     for tag, s, c, d, f, dtype in ffn_cases:
         args = _ffn_case(s, c, d, f, dtype, gen, dev)
         got = ops.moe_ffn(*args)
@@ -297,8 +384,9 @@ def phase_kernels():
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
                "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
-        if tag in ("decode", "prefill", *c_rep):
+        if tag in ("decode", "prefill", *c_rep, *m_cap):
             x, wg, wu, wd = args
+            n_kernel, n_plain, n_library = iters.get(tag, (50, 20, 50))
 
             def library():
                 h = torch.nn.functional.silu(torch.bmm(x, wg)) * torch.bmm(x, wu)
@@ -308,18 +396,23 @@ def phase_kernels():
             nbytes = (2 * x.numel() + wg.numel() + wu.numel() + wd.numel()) * el
             b_ms, b_by = bound(nbytes, 2.0 * s * c * d * f * 3, dtype)
             row.update(
-                ms=time_ms(lambda: ops.moe_ffn(*args), 50),
-                plain_ms=time_ms(lambda: moe_ffn_ref(*args), 20),
-                library_ms=time_ms(library, 50),
+                ms=time_ms(lambda: ops.moe_ffn(*args), n_kernel),
+                plain_ms=time_ms(lambda: moe_ffn_ref(*args), n_plain),
+                library_ms=time_ms(library, n_library),
                 bound_ms=b_ms, bound_by=b_by,
             )
-            row["device_us"], row["call_device_us"] = device_us(
-                lambda: ops.moe_ffn(*args))
+            (row["device_us"], row["call_device_us"],
+             row["trace_attempts"]) = device_us(lambda: ops.moe_ffn(*args))
             row["bound_share"] = b_ms / (row["device_us"] / 1e3)
             summary[f"moe_ffn/{tag}"] = row
         rows.append(row)
+        del args, got, want, again, permuted
 
     router_cases = [("decode", 8, E, k), ("prefill", 128, E, k),
+                    ("mixtral_decode", SWA_BATCH, mix.num_experts,
+                     mix.experts_per_token),
+                    ("mixtral_prefill", SWA_PROMPTS[1], mix.num_experts,
+                     mix.experts_per_token),
                     ("ragged_t5", 5, E, k), ("limits", 64, 128, 8),
                     ("many_blocks_t1000", 1000, E, k),
                     ("many_blocks_t4096", 4096, E, k)]
@@ -346,7 +439,7 @@ def phase_kernels():
                 abs_err = max(abs_err, ps_abs)
             row = {"kernel": name, "case": tag, "shape": [T, e, kk],
                    "max_abs_err": abs_err, "bit_equal_repeated": True}
-            if tag in ("decode", "prefill"):
+            if tag in ("decode", "prefill", "mixtral_decode", "mixtral_prefill"):
                 def kernel():
                     return ops.topk_router(logits, kk, with_stats=with_stats)
 
@@ -364,7 +457,8 @@ def phase_kernels():
                     library_ms=time_ms(library, 200),
                     bound_ms=b_ms, bound_by=b_by,
                 )
-                row["device_us"], row["call_device_us"] = device_us(kernel)
+                (row["device_us"], row["call_device_us"],
+                 row["trace_attempts"]) = device_us(kernel)
                 row["bound_share"] = b_ms / (row["device_us"] / 1e3)
                 summary[f"{name}/{tag}"] = row
             rows.append(row)
@@ -431,16 +525,19 @@ def _shed_params(cfg, device, dtype):
     return params
 
 
-def _profile_replay(eng, steps: int = 5):
+def _profile_replay(eng, steps: int = 5, top: int = 0):
     """Device operations, busy ms and host ms of the captured decode step
-    alone, all rows idle (torch.profiler over ``steps`` replays)."""
+    alone, all rows idle (torch.profiler over ``steps`` replays), and with
+    ``top`` the ``top`` kernels by device time a step. On the dense cache
+    an idle step still reads every layer's whole ring."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     graph, B = eng.decode_graph, eng.ecfg.max_batch
     L = eng.config.num_layers
-    args = (np.zeros(B, np.int32), np.zeros((B, 1), np.int32))
-    kw = {"block_tables": np.zeros((B, graph.n_max), np.int32),
+    paged = graph.block_tables is not None
+    args = (np.zeros(B if paged else (), np.int32), np.zeros((B, 1), np.int32))
+    kw = {"block_tables": np.zeros((B, graph.n_max), np.int32) if paged else None,
           "shed_enables": (np.ones(L, np.int32)
                            if graph.shed_enables is not None else None)}
 
@@ -457,10 +554,17 @@ def _profile_replay(eng, steps: int = 5):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {"device_ops_per_step": sum(e.count for e in dev) / steps,
-            "device_busy_ms_per_step":
-                sum(e.self_device_time_total for e in dev) / steps / 1e3,
-            "host_ms_per_step": wall / steps * 1e3}
+    out = {"device_ops_per_step": sum(e.count for e in dev) / steps,
+           "device_busy_ms_per_step":
+               sum(e.self_device_time_total for e in dev) / steps / 1e3,
+           "host_ms_per_step": wall / steps * 1e3}
+    if top:
+        dev.sort(key=lambda e: -e.self_device_time_total)
+        out["top_kernels"] = [
+            {"name": e.key[:80], "ms_per_step":
+                 e.self_device_time_total / steps / 1e3,
+             "calls_per_step": e.count / steps} for e in dev[:top]]
+    return out
 
 
 def _record_shed(eng, steps, host_s=None):
@@ -567,6 +671,7 @@ def phase_parity():
     emit({"phase": "parity", "ok": True, "layers": cfg.num_layers,
           "dtype": "float32", "requests": len(requests), "tokens": tokens["cuda"]})
     phase_parity_shed()
+    phase_parity_swa()
 
 
 def phase_parity_shed():
@@ -648,13 +753,22 @@ def _counters_at_zero() -> bool:
 
 
 def _run_serve(tag, params, cfg, ecfg, e2s, requests, new_tokens,
-               logits=None):
-    """One full-granite run of ``requests``; checks what every run must
-    hold and returns (engine, tokens, launch counts, its JSON row)."""
+               logits=None, phase="serve", hook=None):
+    """One run of ``requests`` on a MoE config (full granite in ``serve``,
+    Mixtral in ``swa``), calling ``hook(engine)`` first if given; checks
+    what every run must hold and returns (engine, tokens, launch counts,
+    its JSON row)."""
     from repro_torch.kernels import ops
 
     L = cfg.num_layers
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = _serve(params, cfg, ecfg, "cuda", e2s, requests)
+    torch.cuda.synchronize()
+    build_bytes = torch.cuda.max_memory_allocated() - base
+    if hook is not None:
+        hook(eng)
     events = []
     _timed_decode(eng, events, logits)
     torch.cuda.synchronize()
@@ -665,37 +779,107 @@ def _run_serve(tag, params, cfg, ecfg, e2s, requests, new_tokens,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    check(len(done) == len(requests), f"serve {tag}: not all finished")
+    check(len(done) == len(requests), f"{phase} {tag}: not all finished")
     check(all(len(r.generated) == new_tokens for r in done),
-          f"serve {tag}: wrong token counts")
+          f"{phase} {tag}: wrong token counts")
     calls = L * (eng.prefill_count + eng.decode_count)
     check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
-          f"serve {tag}: launches {counts} != {calls}")
+          f"{phase} {tag}: launches {counts} != {calls}")
     per_layer = eng.expert_counts.sum(axis=1)
     check(bool((per_layer == ecfg.max_batch * cfg.experts_per_token).all()),
-          f"serve {tag}: expert counts {per_layer}")
+          f"{phase} {tag}: expert counts {per_layer}")
     scan = ecfg.decode_mode == "scan"
     check(eng.graph_capture_counts == {"decode": int(scan), "prefill": 0,
                                        "migrate": 0},
-          f"serve {tag}: capture counts {eng.graph_capture_counts}")
-    check(_counters_at_zero(), f"serve {tag}: a K2 arrival counter is not 0")
+          f"{phase} {tag}: capture counts {eng.graph_capture_counts}")
+    check(_counters_at_zero(), f"{phase} {tag}: a K2 arrival counter is not 0")
     step_ms = [s.elapsed_time(e) for _, s, e in events]
     median = statistics.median(step_ms)
     row = {
-        "phase": "serve", "placement": tag, "decode_mode": ecfg.decode_mode,
+        "phase": phase, "placement": tag, "decode_mode": ecfg.decode_mode,
         "layers": L, "dtype": "bfloat16",
+        "kv": "paged" if eng.paged else "dense",
         "requests": len(done), "new_tokens": new_tokens,
         "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
         "launches": counts, "graph_capture_counts": eng.graph_capture_counts,
         "graph_pool_mib": (eng.decode_graph.pool_bytes / 2 ** 20
                            if scan else None),
+        "graph_pool_bytes": eng.decode_graph.pool_bytes if scan else None,
         "decode_step_ms_median": median,
         "decode_step_ms_min": min(step_ms),
         "decode_only_tokens_per_s": ecfg.max_batch / (median / 1e3),
         "tokens_per_s": len(done) * new_tokens / wall, "wall_s": wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "build_peak_bytes_over_base": build_bytes,
     }
     return eng, {r.uid: r.generated for r in done}, counts, row
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def _checksum(tree) -> int:
+    """Sum over every leaf of its elements' bit patterns (int64), in the
+    leaves' sorted order, weighted by their position: equal only for the
+    same bits in the same places (up to collisions)."""
+    total = 0
+    for i, (_, w) in enumerate(_leaves(tree)):
+        bits = w.reshape(-1).view(_BITS[w.dtype]).long()
+        total += (i + 1) * int(bits.sum().item())
+    return total
+
+
+def _parent_draw(cfg, seed, dtype):
+    """The weights as the parent commit drew them: each stacked weight
+    whole in fp32 from one generator, scaled and cast, in
+    ``init_params``' order (embed, attention, MoE)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    L, D, V = cfg.num_layers, cfg.d_model, cfg.padded_vocab
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Ev, Fv = cfg.num_virtual_experts, cfg.expert_d_ff // cfg.expert_tp
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    check(cfg.tie_embeddings, "the parent's draw is written for tied embeddings")
+    embed = normal((V, D), 0.02)
+    s, so = float(1.0 / np.sqrt(D)), float(1.0 / np.sqrt(H * hd))
+    attn = {"wq": normal((L, D, H * hd), s), "wk": normal((L, D, KV * hd), s),
+            "wv": normal((L, D, KV * hd), s), "wo": normal((L, H * hd, D), so)}
+    s_out = float(1.0 / np.sqrt(cfg.expert_d_ff))
+    moe = {"router": normal((L, D, cfg.num_experts), s),
+           "w_gate": normal((L, Ev, D, Fv), s), "w_up": normal((L, Ev, D, Fv), s),
+           "w_down": normal((L, Ev, Fv, D), s_out)}
+    return {"embed": embed, "final_norm": zeros(D),
+            "blocks": {"ln1": zeros(L, D), "ln2": zeros(L, D), "attn": attn,
+                       "moe": moe}}
+
+
+def _check_granite_bits(params, cfg):
+    """Drawing large stacks one layer at a time must leave granite's
+    weights as the parent drew them: the checksums must be equal."""
+    parent = _parent_draw(cfg, 0, torch.bfloat16)
+    ours, theirs = _checksum(params), _checksum(parent)
+    names = [n for n, _ in _leaves(params)]
+    check(names == [n for n, _ in _leaves(parent)],
+          f"granite params tree {names} differs from the parent's")
+    check(ours == theirs,
+          f"granite weights changed: checksum {ours} != the parent's {theirs}")
+    del parent
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "granite_weights_checksum": ours,
+          "equals_parent_draw": True})
 
 
 def phase_serve(summary):
@@ -706,6 +890,7 @@ def phase_serve(summary):
     cfg = get_config(ARCH)
     L = cfg.num_layers
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    _check_granite_bits(params, cfg)
     s2e, e2s = _placement(L, cfg.num_virtual_experts, seed=4)
     check(not (s2e == np.arange(cfg.num_virtual_experts)).all(), "identity placement")
     placed = _with_placement(params, s2e)
@@ -792,10 +977,17 @@ def phase_profile(eng, mode, requests, summary, steps: int = 3):
     window is the card's idle share. Launches count ``cudaLaunch*`` and
     ``cudaGraphLaunch`` calls. Beside the port kernels' device time per
     call in the step, it repeats the two that the decode step does not
-    run, from the ``kernels`` phase: K1 at the prefill shape and K3."""
+    run, from the ``kernels`` phase: K1 at the prefill shape and K3. A
+    trace retaken by :func:`_traced` covers the next ``steps`` steps: the
+    requests hold enough new tokens for every attempt, the check below
+    holds that no request finished before the kept window's end, and the
+    row names the attempts and the window's steps."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    attempts = 3
+    check(min(new for _, new in requests) > 2 + steps * (1 + attempts),
+          f"profile {mode}: too few new tokens for {attempts} traces")
+    finished = len(eng.finished)
     for prompt, new in requests:
         eng.submit(prompt, max_new_tokens=new)
     eng.step()  # admits and prefills all requests, decodes once
@@ -807,13 +999,17 @@ def phase_profile(eng, mode, requests, summary, steps: int = 3):
         eng.step()
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
+        first = eng.step_count
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
+        return time.perf_counter() - t0, (first, eng.step_count - 1)
+
+    avgs, (wall, window), tries = _traced(run, attempts)
+    check(len(eng.finished) == finished,
+          f"profile {mode}: a request finished inside the profiled steps")
     dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
     cpu = [e for e in avgs if e.device_type == DeviceType.CPU]
     busy_us = sum(e.self_device_time_total for e in dev)
@@ -832,6 +1028,7 @@ def phase_profile(eng, mode, requests, summary, steps: int = 3):
 
     emit({
         "phase": "profile", "decode_mode": mode, "decode_steps": steps,
+        "trace_attempts": tries, "profiled_engine_steps": window,
         "step_ms_host": wall / steps * 1e3,
         "step_ms_host_unprofiled": statistics.median(plain_ms),
         "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -1539,6 +1736,301 @@ def phase_replicated(serve_ms, serve_peak):
     return main_counts
 
 
+# ----------------------------------------------------------------------- swa
+def _swa_config(num_layers=SWA_LAYERS):
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MIXTRAL), num_layers=num_layers)
+    check(cfg.sliding_window == 4096, "mixtral's published window is 4096")
+    return cfg
+
+
+def _place_in_place(moe, s2e):
+    """Permute the stacked expert weights into placement order in place,
+    one layer of one weight at a time (a second copy of Mixtral's experts
+    would not fit beside the first)."""
+    for name in ("w_gate", "w_up", "w_down"):
+        w = moe[name]
+        for layer in range(w.shape[0]):
+            idx = torch.as_tensor(s2e[layer], device=w.device).long()
+            w[layer].copy_(w[layer].index_select(0, idx))
+
+
+def _timed_prefills(eng, seconds):
+    """Host seconds of each prefill and its install (synchronised)."""
+    inner = eng._write_slot
+
+    def timed(slot, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(slot, req)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+
+    eng._write_slot = timed
+
+
+def _swa_requests(cfg):
+    """8 prompts of 4,064–4,090 tokens (both ends present), 48 new tokens
+    each: every row's ring of 4,096 entries wraps during decode."""
+    rng = np.random.default_rng(6)
+    lo, hi = SWA_PROMPTS
+    lengths = [lo, hi, *rng.integers(lo, hi + 1, size=SWA_BATCH - 2)]
+    requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), SWA_NEW)
+                for n in lengths]
+    ring = min(cfg.sliding_window, SWA_MAX_LEN)
+    check(all(len(p) <= ring < len(p) + SWA_NEW for p, _ in requests),
+          "swa: a prompt does not fit the ring, or a row's ring would not wrap")
+    return requests, ring
+
+
+def phase_swa():
+    """Mixtral-8x7B at full width with its 4,096-token window, 16 of 32
+    layers, bf16, on the dense KV ring: identity and placed runs in
+    ``"scan"``, the placed run again in ``"python"``."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+
+    cfg = _swa_config()
+    L, Ev = cfg.num_layers, cfg.num_virtual_experts
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = {name: w.numel() * w.element_size()
+                   for name, w in _leaves(params)}
+    emit({"phase": "swa", "config": MIXTRAL, "layers": L,
+          "layers_published": 32,
+          "cut": "depth 16 of 32: 32 x 2.82 GB of bf16 expert weights do "
+                 "not fit 80 GB", "sliding_window": cfg.sliding_window,
+          "d_model": cfg.d_model, "expert_d_ff": cfg.expert_d_ff,
+          "param_gib": sum(param_bytes.values()) / 2 ** 30, "init_s": init_s,
+          "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    requests, ring = _swa_requests(cfg)
+
+    def run(tag, e2s, mode, profile=False):
+        prefill_s = []
+        ecfg = EngineConfig(max_batch=SWA_BATCH, max_len=SWA_MAX_LEN,
+                            decode_mode=mode)
+        eng, tokens, counts, row = _run_serve(
+            tag, params, cfg, ecfg, e2s, requests, SWA_NEW, phase="swa",
+            hook=lambda e: _timed_prefills(e, prefill_s))
+        check(not eng.paged, "swa: the window must select the dense ring")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for _, t in _leaves(eng.caches))
+        # the engine's build holds the ring, the graph's pool and the idle
+        # warm-up's intermediates (a layer's fp32 ring), never a second ring
+        check(row["build_peak_bytes_over_base"] < 1.5 * cache_bytes,
+              f"swa {tag}: the build peaked "
+              f"{row['build_peak_bytes_over_base']} B over a "
+              f"{cache_bytes} B ring")
+        row.update(prefill_s=prefill_s, prefill_s_total=sum(prefill_s),
+                   prompt_lens=[len(p) for p, _ in requests], ring=ring,
+                   cache_gib=cache_bytes / 2 ** 30)
+        if profile:
+            row["replay_profile"] = _profile_replay(eng, top=12)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return tokens, counts, row, cache_bytes
+
+    identity, _, row, cache_bytes = run("identity", None, "scan")
+    emit(row)
+    s2e, e2s = _placement(L, Ev, seed=7)
+    check(not (s2e == np.arange(Ev)).all(), "swa: identity placement")
+    _place_in_place(params["blocks"]["moe"], s2e)
+    placed, counts, row, _ = run("placed", e2s, "scan", profile=True)
+    # every byte a decode step must read: the weights but the embedding
+    # table (a lookup of 8 rows; every expert slot gets rows), and the whole
+    # ring of every layer
+    step_bytes = (sum(param_bytes.values()) - param_bytes["embed"]
+                  + cache_bytes)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    row.update(decode_step_bound_ms=bound_ms, decode_step_bytes=step_bytes,
+               bound_share=bound_ms / row["decode_step_ms_median"])
+    emit(row)
+    check(placed == identity,
+          "swa: tokens under the placement differ from identity")
+    python, _, py_row, _ = run("placed", e2s, "python")
+    emit(py_row)
+    check(python == placed, "swa: the eager step's tokens differ from scan's")
+    emit({"phase": "swa", "ok": True, "placement_invariant": True,
+          "tokens_equal_python": True, "ring_wrapped": True,
+          "decode_step_ms_median": {"scan": row["decode_step_ms_median"],
+                                    "python": py_row["decode_step_ms_median"]},
+          "decode_step_bound_ms": bound_ms,
+          "decode_only_tokens_per_s": row["decode_only_tokens_per_s"],
+          "graph_pool_bytes": row["graph_pool_bytes"],
+          "prefill_s_total": row["prefill_s_total"],
+          "peak_mem_gib": row["peak_mem_gib"]})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parity_swa():
+    """Mixtral at full width, 2 layers, fp32, window 4,096: one request of
+    4,088 prompt tokens and 16 new tokens (the ring wraps at the ninth
+    step) on the card and on the CPU, under a placement: equal greedy
+    tokens."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+
+    cfg = _swa_config(num_layers=2)
+    params = init_params(cfg, seed=1, device="cuda", dtype=torch.float32)
+    s2e, e2s = _placement(cfg.num_layers, cfg.num_virtual_experts, seed=8)
+    _place_in_place(params["blocks"]["moe"], s2e)
+    rng = np.random.default_rng(9)
+    requests = [(rng.integers(0, cfg.vocab_size, size=4088), 16)]
+    ecfg = EngineConfig(max_batch=1, max_len=SWA_MAX_LEN)
+    torch.set_num_threads(8)
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else _to(params, "cpu")
+        eng = _serve(p, cfg, ecfg, device, e2s, requests)
+        check(not eng.paged, "parity swa: not the dense ring")
+        t0 = time.perf_counter()
+        done = eng.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        tokens[device] = {r.uid: r.generated for r in done}
+        check(len(done) == 1 and len(done[0].generated) == 16,
+              f"parity swa {device}: the request did not finish")
+        emit({"phase": "parity", "engine": "swa", "device": device,
+              "decode_mode": eng.ecfg.decode_mode,
+              "seconds": round(time.perf_counter() - t0, 3)})
+        del eng, p, done
+        gc.collect()
+    check(tokens["cuda"] == tokens["cpu"],
+          f"parity swa: GPU tokens {tokens['cuda']} != CPU {tokens['cpu']}")
+    emit({"phase": "parity", "engine": "swa", "ok": True, "layers": 2,
+          "dtype": "float32", "sliding_window": cfg.sliding_window,
+          "prompt": 4088, "new_tokens": 16, "ring_wraps_at_step": 9,
+          "tokens": tokens["cuda"]})
+    del params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ families
+def _family_run(cfg, params, mode, device, requests, max_batch, max_len):
+    """Serve ``requests`` on a config without MoE layers; returns (tokens,
+    decode-step ms list, launches, captures, paged, graph pool bytes,
+    SSM state and conv-buffer bytes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    ecfg = EngineConfig(max_batch=max_batch, max_len=max_len, decode_mode=mode)
+    eng = ServingEngine(params, cfg, ecfg, device=device)
+    check(eng.placements is None and eng.planner is None,
+          f"{cfg.name}: a config without MoE layers got a control plane")
+    events = []
+    if device == "cuda":
+        _timed_decode(eng, events)
+    for prompt, new in requests:
+        eng.submit(prompt, max_new_tokens=new)
+    ops.reset_launch_counts()
+    eng.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    check(len(eng.finished) == len(requests),
+          f"{cfg.name} {mode}: not all finished")
+    ssm_bytes = sum(t.numel() * t.element_size()
+                    for n, t in _leaves(eng.caches) if n.startswith("ssm"))
+    out = ({r.uid: r.generated for r in eng.finished},
+           [s.elapsed_time(e) for _, s, e in events], ops.launch_counts(),
+           eng.graph_capture_counts, eng.paged,
+           eng.decode_graph.pool_bytes if eng.decode_graph else None,
+           ssm_bytes)
+    del eng
+    return out
+
+
+def phase_families():
+    """The eight configs without MoE layers: at full width (whole or cut
+    depth), bf16, ``"scan"`` against ``"python"``; then at 2 layers (zamba2:
+    7, one stage of 6 mamba blocks and the shared block, then one tail
+    block), fp32, the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    torch.set_num_threads(8)
+    medians = {}
+    launches = collections.Counter()  # the full-width card runs' counts
+    for name, depth in FAMILIES.items():
+        cfg = get_config(name)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        check(not cfg.is_moe, f"{name}: expected a config without MoE layers")
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        rng = np.random.default_rng(10)
+        requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), 16)
+                    for n in rng.integers(16, 65, size=4)]
+        scan = _family_run(cfg, params, "scan", "cuda", requests, 4, 128)
+        python = _family_run(cfg, params, "python", "cuda", requests, 4, 128)
+        check(scan[0] == python[0], f"families {name}: scan tokens != python's")
+        check(scan[3] == {"decode": 1, "prefill": 0, "migrate": 0}
+              and python[3]["decode"] == 0,
+              f"families {name}: captures {scan[3]} / {python[3]}")
+        launches.update(scan[2])
+        launches.update(python[2])
+        check(not any(scan[2].values()) and not any(python[2].values()),
+              f"families {name}: a port kernel launched without MoE layers")
+        medians[name] = {"scan": statistics.median(scan[1]),
+                         "python": statistics.median(python[1])}
+        # a decode step reads every weight once (the embedding table only
+        # where it doubles as the LM head) and reads and writes the SSM
+        # state and conv buffers; the KV read of these short rows is left
+        # out
+        weight_bytes = sum(w.numel() * w.element_size()
+                           for n, w in _leaves(params)
+                           if n != "embed" or cfg.tie_embeddings)
+        bound_ms = (weight_bytes + 2 * scan[6]) / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "families", "config": name, "family": cfg.family,
+               "layers": cfg.num_layers,
+               "layers_published": get_config(name).num_layers,
+               "d_model": cfg.d_model, "dtype": "bfloat16",
+               "kv": "paged" if scan[4] else "dense",
+               "requests": len(requests), "new_tokens": 16,
+               "tokens_equal_python": True, "graph_capture_counts": scan[3],
+               "graph_pool_bytes": scan[5], "launches": scan[2],
+               "port_kernels": "none: no MoE layer",
+               "decode_step_ms_median": medians[name],
+               "decode_step_bound_ms": bound_ms,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del params, scan, python
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        small = dataclasses.replace(
+            get_config(name),
+            num_layers=(cfg.attn_every + 1) if cfg.is_hybrid else 2)
+        params = init_params(small, seed=1, device="cuda", dtype=torch.float32)
+        rng = np.random.default_rng(11)
+        requests = [(rng.integers(0, small.vocab_size, size=int(n)), 6)
+                    for n in rng.integers(12, 25, size=2)]
+        t0 = time.perf_counter()
+        card = _family_run(small, params, "scan", "cuda", requests, 2, 64)[0]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = _family_run(small, _to(params, "cpu"), "python", "cpu",
+                          requests, 2, 64)[0]
+        cpu_s = time.perf_counter() - t0
+        check(card == cpu, f"families {name}: card tokens {card} != CPU {cpu}")
+        row.update(parity_layers=small.num_layers, parity_dtype="float32",
+                   parity_tokens_equal=True, parity_card_s=card_s,
+                   parity_cpu_s=cpu_s)
+        emit(row)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "families", "ok": True, "configs": list(FAMILIES),
+          "decode_step_ms_median": medians})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1570,6 +2062,10 @@ def main(argv=None) -> int:
     online_launches = phase_online(serve_peak)
     replicated_launches = phase_replicated(
         summary["serve_decode_step_ms_median"], serve_peak)
+    gc.collect()
+    torch.cuda.empty_cache()
+    swa_launches = phase_swa()
+    families_launches = phase_families()
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -1588,6 +2084,8 @@ def main(argv=None) -> int:
             "replan_launches": replan_launches[name],
             "online_launches": online_launches[name],
             "replicated_launches": replicated_launches[name],
+            "swa_launches": swa_launches[name],
+            "families_launches": families_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -1599,6 +2097,13 @@ def main(argv=None) -> int:
         k: s84[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                             "library_ms", "bound_ms", "bound_by",
                             "device_us", "bound_share")}
+    for i, name in ((0, "moe_ffn"), (1, "topk_router_stats")):
+        for tag in ("mixtral_decode", "mixtral_prefill"):
+            row = summary[f"{name}/{tag}"]
+            kernels[i][tag] = {
+                k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by",
+                                    "device_us", "bound_share")}
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

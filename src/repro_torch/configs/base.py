@@ -86,6 +86,19 @@ class ModelConfig:
         return not self.is_ssm
 
     @property
+    def sub_quadratic(self) -> bool:
+        """SSM, hybrid or sliding-window attention."""
+        return self.ssm_state > 0 or self.sliding_window > 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def num_virtual_experts(self) -> int:
         """E_v = num_experts · expert_tp: the stacked expert rows per layer."""
         return self.num_experts * self.expert_tp
@@ -95,15 +108,24 @@ class ModelConfig:
         return self.expert_d_ff if self.is_moe else self.d_ff
 
     def param_count(self) -> int:
-        """Parameter count of the attention families this port serves."""
-        if self.ssm_state > 0:
-            raise NotImplementedError("SSM families are not ported yet")
+        """Approximate total parameter count, the JAX package's formula."""
         D, V = self.d_model, self.vocab_size
         total = V * D if self.tie_embeddings else 2 * V * D
+        if self.ssm_state > 0:
+            di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            # in_proj (z, x, B, C, dt) + out_proj + conv + head params
+            per_layer_ssm = (D * (2 * di + 2 * ns + nh) + di * D
+                             + self.ssm_conv * (di + 2 * ns) + 2 * nh)
+        if self.is_ssm:
+            return total + self.num_layers * (per_layer_ssm + D)
         hd, H, KV = self.head_dim, self.num_heads, self.num_kv_heads
         attn = D * H * hd + 2 * D * KV * hd + H * hd * D
         if self.is_moe:
             ffn = self.num_experts * (3 * D * self.expert_d_ff) + D * self.num_experts
         else:
             ffn = 3 * D * self.d_ff
+        if self.is_hybrid:
+            # ssm blocks every layer + one shared attention+MLP block
+            return (total + self.num_layers * (per_layer_ssm + D)
+                    + attn + 3 * D * self.d_ff + 2 * D)
         return total + self.num_layers * (attn + ffn + 2 * D)

@@ -4,9 +4,9 @@
 4096 [arXiv:2401.04088]. ``expert_tp=2`` splits each expert into two
 F-slices: 16 virtual experts.
 
-The port serves paged KV only, which refuses a sliding window: until
-sliding-window attention is ported, run this config (and its smoke
-reduction, whose window is 32) with ``sliding_window=0``.
+The engine serves the 4,096-token window (32 in the smoke reduction) on
+the dense KV ring, as the JAX engine does: ``kv_mode="auto"`` pages only
+attention families without a window.
 """
 from .base import ModelConfig
 

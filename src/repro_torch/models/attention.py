@@ -1,9 +1,12 @@
-"""Attention: causal prefill over a whole prompt and paged decode.
+"""Attention: causal (optionally sliding-window) prefill over a whole
+prompt, decode against a dense per-slot cache (a ring under a sliding
+window), and paged decode.
 
 Plain torch products, as the JAX package leaves them to XLA
 (``repro/models/attention.py``): there is no attention kernel to port.
 Weights keep the JAX layouts — ``wq`` (D, H·hd), ``wk``/``wv`` (D, KV·hd),
-``wo`` (H·hd, D) — and the paged pool is (N, bs, KV, hd) per layer.
+``wo`` (H·hd, D) — the dense cache is (B, S_max, KV, hd) per layer and the
+paged pool (N, bs, KV, hd) per layer.
 """
 from __future__ import annotations
 
@@ -11,11 +14,12 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, rms_norm, rope
+from .layers import apply_rope, normal_init, rms_norm, rope
 
 __all__ = [
     "init_attention",
     "attention_train",
+    "attention_decode",
     "attention_decode_paged",
 ]
 
@@ -30,9 +34,8 @@ def init_attention(config: ModelConfig, *, num_layers: int, dtype, device,
     so = float(1.0 / np.sqrt(H * hd))
 
     def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return w.mul_(scale).to(dtype)
+        return normal_init(shape, scale, dtype=dtype, device=device,
+                           generator=generator)
 
     params = {
         "wq": normal((num_layers, D, H * hd), s),
@@ -72,14 +75,15 @@ def _project_qkv(x, p, config: ModelConfig):
 
 
 def attention_train(x, p, config: ModelConfig, *, return_cache: bool = False):
-    """Causal self-attention over the whole sequence (full attention only).
+    """Causal self-attention over the whole sequence; with
+    ``config.sliding_window`` w > 0, query q sees keys k with q − k < w.
 
     x (B, S, D) → (out (B, S, D), (k, v) each (B, S, KV, hd) | None). The
-    JAX version chunks queries to bound its score matrix; each row's
-    softmax is the same, so one chunk gives the same numbers.
+    JAX version chunks queries to bound its score matrix, and under a
+    window gathers a static-width key block per chunk; masked keys get
+    ``exp(−1e30 − m) = 0`` in either layout, so one masked pass over the
+    whole row gives each row the same softmax.
     """
-    if config.sliding_window > 0:
-        raise NotImplementedError("sliding-window attention is not ported yet")
     B, S, _ = x.shape
     H, KV, hd = config.num_heads, config.num_kv_heads, config.head_dim
     G = H // KV
@@ -92,12 +96,80 @@ def attention_train(x, p, config: ModelConfig, *, return_cache: bool = False):
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     pos = torch.arange(S, device=x.device)
     mask = pos[:, None] >= pos[None, :]  # (q, s)
+    if config.sliding_window > 0:
+        mask &= (pos[:, None] - pos[None, :]) < config.sliding_window
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     out = out.reshape(B, S, H * hd)
     y = torch.matmul(out, p["wo"])
     return y, ((k, v) if return_cache else None)
+
+
+def attention_decode(x, p, k_cache, v_cache, cur_len, config: ModelConfig):
+    """One decode step against one layer's dense cache.
+
+    x (B, 1, D); ``k_cache``/``v_cache`` (B, S_max, KV, hd), one panel per
+    slot; ``cur_len`` a 0-d int32 tensor shared by the batch: the number of
+    positions already written. The new K/V goes to ``cur_len`` — modulo
+    S_max under a sliding window, where the cache is a ring of S_max =
+    min(window, max_len) entries and the valid entries are those written
+    1 … min(cur_len, window − 1) steps ago (``age = (write_pos − pos) mod
+    S_max``); the new token attends to itself. Returns out (B, 1, D).
+
+    Everything about the position — RoPE, the write index and the valid
+    mask — is computed on the device from ``cur_len``, so a captured step
+    reads it from a static buffer. The new K/V is written **in place**
+    (the JAX ``decode_cache_update="dus"``; its ``"onehot"`` blend writes
+    the same values) after the scores have read the cache.
+    """
+    B = x.shape[0]
+    H, KV, hd = config.num_heads, config.num_kv_heads, config.head_dim
+    G = H // KV
+    S_max = k_cache.shape[-3]
+    q, k_new, v_new = _project_qkv(x, p, config)
+    cur = cur_len.reshape(1).long()
+    cos, sin = rope(cur, hd, config.rope_theta)  # (1, hd/2)
+    q = apply_rope(q, cos[None], sin[None])
+    k_new = apply_rope(k_new, cos[None], sin[None])
+
+    window = config.sliding_window if config.sliding_window > 0 else 0
+    # past the panel's end the index is clamped, as dynamic_update_slice
+    # clamps its start
+    write_pos = (torch.remainder(cur, S_max) if window
+                 else torch.clamp(cur, max=S_max - 1))  # (1,)
+
+    qg = q.reshape(B, KV, G, hd)
+    scale = 1.0 / np.sqrt(hd)
+    s_cache = torch.einsum(
+        "bkgd,bskd->bkgs", qg.to(k_cache.dtype).float(), k_cache.float()
+    ) * scale  # (B, KV, G, S_max) fp32
+    pos = torch.arange(S_max, device=x.device)
+    if window:
+        age = torch.remainder(write_pos - pos, S_max)
+        valid = (age >= 1) & (age <= torch.clamp(cur, max=window - 1))
+    else:
+        valid = pos < cur
+    s_cache = torch.where(valid, s_cache, torch.full_like(s_cache, NEG_INF))
+    s_new = torch.einsum(
+        "bkgd,bkd->bkg", qg.float(), k_new[:, 0].float()
+    )[..., None] * scale  # (B, KV, G, 1)
+
+    # two-piece softmax, as the JAX decode path writes it
+    m = torch.maximum(s_cache.max(dim=-1, keepdim=True).values, s_new)
+    e_cache = torch.exp(s_cache - m)
+    e_new = torch.exp(s_new - m)
+    denom = e_cache.sum(dim=-1, keepdim=True) + e_new
+    out_cache = torch.einsum(
+        "bkgs,bskd->bkgd", e_cache.to(v_cache.dtype).float(), v_cache.float()
+    )
+    out = (out_cache + e_new * v_new[:, 0, :, None].float()) / denom
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    y = torch.matmul(out, p["wo"])
+
+    k_cache.index_copy_(1, write_pos, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, write_pos, v_new.to(v_cache.dtype))
+    return y
 
 
 def attention_decode_paged(x, p, k_pool, v_pool, block_tables, cur_len,

@@ -1,4 +1,5 @@
-"""Shared model layers: RMSNorm, RoPE, vocab embedding and logits.
+"""Shared model layers: RMSNorm, RoPE, gated MLPs, vocab embedding and
+logits, and the seeded weight draw every ``init_*`` uses.
 
 Plain functions on tensors, in the JAX package's layouts (``repro/models/
 layers.py``), so that both packages run the same weights.
@@ -12,7 +13,44 @@ import torch
 
 from ..configs.base import ModelConfig
 
-__all__ = ["rms_norm", "rope", "apply_rope", "embed_tokens", "lm_logits"]
+__all__ = [
+    "rms_norm",
+    "rope",
+    "apply_rope",
+    "gated_mlp",
+    "init_gated_mlp",
+    "embed_tokens",
+    "lm_logits",
+    "normal_init",
+]
+
+# a stacked weight whose fp32 draw takes more bytes than this is drawn one
+# layer at a time (Mixtral's experts: a 30 GB fp32 draw whole)
+WHOLE_DRAW_BYTES = 8 << 30
+
+
+def normal_init(shape, scale: float, *, dtype, device,
+                generator: torch.Generator):
+    """``N(0, 1) · scale`` in ``dtype``, drawn in fp32 from ``generator``.
+
+    A weight whose fp32 draw fits in :data:`WHOLE_DRAW_BYTES` is drawn
+    whole and cast, the way every weight was drawn before (granite's keep
+    their bits). A larger stack is drawn one leading slice at a time into
+    the ``dtype`` tensor, so no fp32 copy of the whole stack exists. On the
+    CPU the two give the same values when a slice holds a multiple of 16
+    elements; on the card the draws differ (the generator's offsets follow
+    each call's size)."""
+    numel = int(np.prod(shape))
+    if numel * 4 <= WHOLE_DRAW_BYTES:
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        w = torch.randn(shape[1:], generator=generator, device=device,
+                        dtype=torch.float32)
+        out[i].copy_(w.mul_(scale))
+    return out
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -48,6 +86,36 @@ def apply_rope(x, cos, sin):
     s = sin[..., None, :]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def init_gated_mlp(d_model: int, d_ff: int, *, num_layers: int, dtype, device,
+                   generator: torch.Generator):
+    def normal(shape, scale):
+        return normal_init(shape, scale, dtype=dtype, device=device,
+                           generator=generator)
+
+    scale_in = float(1.0 / np.sqrt(d_model))
+    scale_out = float(1.0 / np.sqrt(d_ff))
+    return {
+        "w_gate": normal((num_layers, d_model, d_ff), scale_in),
+        "w_up": normal((num_layers, d_model, d_ff), scale_in),
+        "w_down": normal((num_layers, d_ff, d_model), scale_out),
+    }
+
+
+def gated_mlp(x, p, *, activation: str):
+    """x (B, S, D) → (B, S, D): ``(act(x·W_gate) ⊙ x·W_up)·W_down`` with
+    SwiGLU (``silu``) or GeGLU (the tanh-approximated ``gelu``, as
+    ``jax.nn.gelu(approximate=True)``), in x's dtype."""
+    h_gate = torch.matmul(x, p["w_gate"])
+    h_up = torch.matmul(x, p["w_up"])
+    if activation == "swiglu":
+        h = torch.nn.functional.silu(h_gate) * h_up
+    elif activation == "geglu":
+        h = torch.nn.functional.gelu(h_gate, approximate="tanh") * h_up
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return torch.matmul(h, p["w_down"])
 
 
 def embed_tokens(ids, table, config: ModelConfig):

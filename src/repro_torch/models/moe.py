@@ -30,6 +30,7 @@ from .dispatch import (
     expert_compute,
     route,
 )
+from .layers import normal_init
 
 __all__ = [
     "init_moe",
@@ -51,9 +52,8 @@ def init_moe(config: ModelConfig, *, num_layers: int, dtype, device,
     s_out = float(1.0 / np.sqrt(config.expert_d_ff))
 
     def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return w.mul_(scale).to(dtype)
+        return normal_init(shape, scale, dtype=dtype, device=device,
+                           generator=generator)
 
     return {
         "router": normal((num_layers, D, E), s_in),

@@ -1,14 +1,27 @@
-"""Continuous-batching serving engine on the paged KV cache, with GEM's
-control plane: the one-shot replan and the online adaptation plane.
+"""Continuous-batching serving engine for every model family, with GEM's
+control plane on MoE configs: the one-shot replan and the online
+adaptation plane.
 
 Port of the serving core of ``repro/serving/engine.py``: a fixed pool of
-``max_batch`` decode slots, FCFS admission against the paged KV pool,
-one prefill per admitted request (chunked-prefill accounting optional),
-youngest-first preemption when the pool runs dry, and a simulated clock
+``max_batch`` decode slots, FCFS admission, one prefill per admitted
+request (chunked-prefill accounting optional), and a simulated clock
 advanced by the configured per-step and per-prefill-token costs. Every
 step runs the model's decode step over all ``max_batch`` rows, idle ones
 included, exactly as the JAX engine does, so the MoE layers see the same
 batches on both.
+
+**KV modes** (``EngineConfig.kv_mode``). ``"paged"``: admission against
+the paged KV pool, per-row lengths, and youngest-first preemption when the
+pool runs dry; attention families without a sliding window only.
+``"dense"``: one ``max_len`` panel per slot and attention site (a ring of
+``min(window, max_len)`` entries under a sliding window) and the SSM
+state and conv buffers per slot; every step runs at one length shared by
+the batch, the longest row's, so a shorter row attends over the zero
+panels past its prompt and takes its RoPE position and write index from
+that maximum (the JAX engine's dense approximation, kept as it is). A
+prompt longer than the ring raises ``ValueError``. ``"auto"`` (the
+default) is paged exactly when the family qualifies: the port has no
+mesh, so the JAX engine's mesh condition never holds.
 
 The GEM control plane (:mod:`repro_torch.core`):
 
@@ -86,8 +99,10 @@ and prices the next step's (L,) enables (one step behind); the captured
 step reads the enables from its static input buffer, so a flip never
 recaptures it.
 
-Not here yet: the collective migration path and the dense KV mode (it
-comes with the sliding-window families).
+The GEM planes (replans, online, replication, shedding) need a MoE config
+and refuse the others, as the JAX engine does; a config without MoE
+layers serves with no control plane. Not here yet: the collective
+migration path.
 
 On a host without a GPU, ``tests/test_torch_online.py`` holds the online
 engine against the JAX engine in both decode modes
@@ -116,6 +131,7 @@ from ..models.dispatch import slot_capacity
 from ..models.model import (
     DecodeGraph,
     decode_step,
+    init_decode_cache,
     init_paged_decode_cache,
     prefill,
 )
@@ -195,6 +211,9 @@ class EngineConfig:
     # until the multi-card path lands
     migration_via: str = "host"
     other_time_per_step: float = 0.0  # simulated non-MoE per-step latency
+    # "auto" pages the KV cache on attention families without a sliding
+    # window (the port has no mesh); "paged" / "dense" force
+    kv_mode: str = "auto"  # auto | paged | dense
     kv: PagedKVConfig = PagedKVConfig()
     # chunked prefill: >0 spreads a prompt's *simulated* prefill time over
     # ceil(P/chunk) engine steps; the prefill itself runs once, when the
@@ -247,6 +266,25 @@ class ServingEngine:
                 "exchange over an interconnect comes with the multi-card "
                 "path; 'host' applies every batch on the weights' device"
             )
+        family_ok = (not (config.is_ssm or config.is_hybrid)
+                     and config.sliding_window == 0)
+        if engine_config.kv_mode == "auto":
+            self.paged = family_ok
+        elif engine_config.kv_mode == "paged":
+            if not family_ok:
+                raise ValueError(
+                    "kv_mode='paged' needs an attention-family arch without "
+                    "a sliding window (SSM state is O(1) per slot; SWA ring "
+                    "ages don't survive the block indirection)"
+                )
+            self.paged = True
+        elif engine_config.kv_mode == "dense":
+            self.paged = False
+        else:
+            raise ValueError(
+                f"kv_mode={engine_config.kv_mode!r} not in "
+                "('auto', 'paged', 'dense')"
+            )
         block_size = engine_config.kv.block_size
         self._n_max = -(-engine_config.max_len // block_size)
         num_blocks = engine_config.kv.num_blocks
@@ -255,15 +293,17 @@ class ServingEngine:
             num_blocks = 1 + engine_config.max_batch * self._n_max
         dtype_bytes = embed.dtype.itemsize
         if engine_config.replication.auto_slots:
-            # replica copies get what the paged KV pool leaves of the budget
-            if engine_config.hbm_budget_bytes is None:
+            # replica copies get what the KV pool leaves of the budget
+            if engine_config.hbm_budget_bytes is None or not config.is_moe:
                 raise ValueError(
                     "replication.auto_slots needs a MoE config and "
                     "EngineConfig.hbm_budget_bytes — the replica budget is "
                     "derived from the paged KV pool's headroom"
                 )
+            pool_blocks = (num_blocks if self.paged
+                           else 1 + engine_config.max_batch * self._n_max)
             pool_bytes = kv_pool_bytes(
-                num_blocks, block_size, config.num_layers,
+                pool_blocks, block_size, config.num_layers,
                 config.num_kv_heads, config.head_dim, dtype_bytes,
             )
             engine_config = dataclasses.replace(
@@ -282,6 +322,7 @@ class ServingEngine:
             )
         replica_slots = engine_config.replication.replica_slots
         if engine_config.shed.enabled and (profile is None
+                                           or not config.is_moe
                                            or replica_slots <= 0):
             raise ValueError(
                 "EngineConfig(shed.enabled=True) needs a MoE config, an "
@@ -290,14 +331,16 @@ class ServingEngine:
                 "only re-seat on a live replica row, and the shed-vs-wait "
                 "gate prices against the profile's staircase curves"
             )
-        if engine_config.online and profile is None:
+        if engine_config.online and (profile is None or not config.is_moe):
             raise ValueError(
-                "EngineConfig(online=True) needs an attached "
-                "VariabilityProfile — without it no adaptation plane can "
+                "EngineConfig(online=True) needs a MoE config and an attached "
+                "VariabilityProfile — without them no adaptation plane can "
                 "run and the engine would silently never replan"
             )
         if replica_slots > 0 and (
-            profile is None or engine_config.placement_policy != "gem"
+            profile is None
+            or not config.is_moe
+            or engine_config.placement_policy != "gem"
         ):
             raise ValueError(
                 "EngineConfig(replication.replica_slots>0) needs a MoE "
@@ -331,24 +374,13 @@ class ServingEngine:
         self.preemption_count = 0
         self.prefill_count = 0  # prefills run (one per installed request)
         self.decode_count = 0  # decode steps run
-        # (L, E_v) expert→slot tables, identity while the pool is in
-        # virtual-expert order; the one-shot replan swaps them. With a
-        # replicated pool, (L, E_v, P) replica-split tables. One tensor for
-        # the engine's life once the decode step is built: `placements = …`
-        # copies into it
-        self._placements = identity_placement(
-            config, config.num_layers, device=self.device
-        )
+        self.kv_pool: PagedKVPool | None = None
         self.expert_counts: np.ndarray | None = None  # (L, E), last step
         self.sim_step_latencies: list[float] = []
-
-        # GEM control plane (the port serves MoE configs only)
         self.profile = profile
         # ground truth, when a caller injects one that departs the profile
         self.true_profile: VariabilityProfile | None = None
         self.placement_applied = False
-        # the live replicated layouts; None without a replicated pool
-        self.current_rplacements: list[ReplicatedPlacement] | None = None
         # capacity-overflow shedding: (L,) int32 enables for the NEXT
         # step's shed pass; None when the plane is off, and the decode step
         # then holds no shed operation
@@ -363,6 +395,67 @@ class ServingEngine:
             self.scheduler.set_slow_device_factor(
                 float(profile.relative_speed().min())
             )
+        # GEM control plane: MoE configs only; None for the others
+        self._placements: torch.Tensor | None = None
+        self.planner: GEMPlanner | None = None
+        self.controller: OnlineController | None = None
+        self.attribution: AttributionAccumulator | None = None
+        self.regret: RegretTracker | None = None
+        self.current_placements: list[Placement] | None = None
+        # the live replicated layouts; None without a replicated pool
+        self.current_rplacements: list[ReplicatedPlacement] | None = None
+        if config.is_moe:
+            self._init_control_plane(profile, num_devices, replica_slots,
+                                     dtype_bytes)
+
+        if self.paged:
+            self.kv_pool = PagedKVPool(
+                num_blocks, block_size,
+                watermark_blocks=engine_config.kv.watermark_blocks,
+            )
+            self.kv_pool.telemetry = self.telemetry
+            self.caches = init_paged_decode_cache(
+                config, num_blocks, block_size, device=self.device,
+                dtype=embed.dtype,
+            )
+        else:
+            self.caches = init_decode_cache(
+                config, engine_config.max_batch, engine_config.max_len,
+                device=self.device, dtype=embed.dtype,
+            )
+        self.cur_len = np.zeros(engine_config.max_batch, dtype=np.int32)
+        self.last_token = np.zeros(engine_config.max_batch, dtype=np.int32)
+        # (B, n_max) attention-side view of the paged cache; null-block
+        # rows for idle slots. None on the dense cache
+        self.block_tables = (
+            np.zeros((engine_config.max_batch, self._n_max), dtype=np.int32)
+            if self.paged else None
+        )
+        self.decode_graph: DecodeGraph | None = None
+        self._decode = decode_step
+        if engine_config.decode_mode == "scan":
+            self.decode_graph = DecodeGraph(
+                self.params, self.caches, self._placements, config,
+                batch=engine_config.max_batch,
+                n_max=self._n_max if self.paged else None,
+                device=self.device, shed=self._shed_enables is not None,
+            )
+            self._decode = self.decode_graph
+
+    def _init_control_plane(self, profile, num_devices, replica_slots,
+                            dtype_bytes) -> None:
+        """The GEM planner, attribution, regret, the placement tables, the
+        replicated pool, the migration executable, the shed plane and the
+        online controller of a MoE config."""
+        config, engine_config = self.config, self.ecfg
+        # (L, E_v) expert→slot tables, identity while the pool is in
+        # virtual-expert order; the one-shot replan swaps them. With a
+        # replicated pool, (L, E_v, P) replica-split tables. One tensor for
+        # the engine's life once the decode step is built: `placements = …`
+        # copies into it
+        self._placements = identity_placement(
+            config, config.num_layers, device=self.device
+        )
         nd = num_devices or (profile.num_devices if profile else 4)
         Ev = config.num_virtual_experts
         self.planner = GEMPlanner(
@@ -375,7 +468,7 @@ class ServingEngine:
         self.regret = RegretTracker(Ev, nd)
         if profile is not None:
             self.planner.set_profile(profile)
-        self.current_placements: list[Placement] = [
+        self.current_placements = [
             Placement.linear(Ev, nd) for _ in range(config.num_layers)
         ]
         if replica_slots > 0:
@@ -413,7 +506,6 @@ class ServingEngine:
                 num_slots=int(self.params["blocks"]["moe"]["w_gate"].shape[1]),
                 replicated=True,
             )
-        self.controller: OnlineController | None = None
         if engine_config.online:
             self.controller = OnlineController(
                 self.planner,
@@ -433,41 +525,19 @@ class ServingEngine:
                 telemetry=self.telemetry,
             )
 
-        self.kv_pool = PagedKVPool(
-            num_blocks, block_size,
-            watermark_blocks=engine_config.kv.watermark_blocks,
-        )
-        self.kv_pool.telemetry = self.telemetry
-        self.caches = init_paged_decode_cache(
-            config, num_blocks, block_size, device=self.device,
-            dtype=embed.dtype,
-        )
-        self.cur_len = np.zeros(engine_config.max_batch, dtype=np.int32)
-        self.last_token = np.zeros(engine_config.max_batch, dtype=np.int32)
-        # (B, n_max) attention-side view; null-block rows for idle slots
-        self.block_tables = np.zeros(
-            (engine_config.max_batch, self._n_max), dtype=np.int32
-        )
-        self.decode_graph: DecodeGraph | None = None
-        self._decode = decode_step
-        if engine_config.decode_mode == "scan":
-            self.decode_graph = DecodeGraph(
-                self.params, self.caches, self._placements, config,
-                batch=engine_config.max_batch, n_max=self._n_max,
-                device=self.device, shed=self._shed_enables is not None,
-            )
-            self._decode = self.decode_graph
-
     @property
-    def placements(self) -> torch.Tensor:
+    def placements(self) -> torch.Tensor | None:
         """The int32 tables the model routes through: (L, E_v) expert→slot
-        maps, or (L, E_v, P) replica-split tables with a replicated pool."""
+        maps, or (L, E_v, P) replica-split tables with a replicated pool;
+        None for a config without MoE layers."""
         return self._placements
 
     @placements.setter
     def placements(self, tables) -> None:
         """Copy new tables into the engine's one table tensor; the captured
         decode step reads that tensor, so it is never rebound."""
+        if self._placements is None:
+            raise ValueError(f"{self.config.name} has no MoE layers to place")
         tables = torch.as_tensor(tables, device=self.device)
         if tuple(tables.shape) != tuple(self._placements.shape):
             raise ValueError(
@@ -490,14 +560,15 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens: int, *,
                arrival_time: float | None = None, task: str = "") -> int:
         prompt = np.asarray(prompt, np.int32)
-        total = int(prompt.shape[0]) + int(max_new_tokens)
-        need = self.kv_pool.blocks_for(total)
-        if need > self.kv_pool.usable_blocks:
-            raise ValueError(
-                f"request needs {need} KV blocks but the pool only has "
-                f"{self.kv_pool.usable_blocks} — it could never be served "
-                "(grow PagedKVConfig.num_blocks or shorten it)"
-            )
+        if self.kv_pool is not None:
+            total = int(prompt.shape[0]) + int(max_new_tokens)
+            need = self.kv_pool.blocks_for(total)
+            if need > self.kv_pool.usable_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool only has "
+                    f"{self.kv_pool.usable_blocks} — it could never be "
+                    "served (grow PagedKVConfig.num_blocks or shorten it)"
+                )
         self._uid += 1
         req = Request(
             self._uid, prompt, max_new_tokens,
@@ -537,6 +608,44 @@ class ServingEngine:
             )
 
     # ------------------------------------------------------------------
+    def _write_slot(self, slot: int, req: Request) -> None:
+        """Prefill one request and install its caches into slot ``slot`` of
+        the dense cache: the K/V panels written at [0, P) and zeroed past
+        the prompt, the SSM state and conv buffers replaced. A prompt
+        longer than the panel (the ring, under a sliding window) raises
+        ``ValueError``, where the JAX engine's pad by ``pool − new`` does."""
+        tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
+        logits, caches = prefill(
+            self.params, tokens, self.config, self.placements
+        )
+        self.prefill_count += 1
+        c = self.caches
+        if "attn" in c:
+            for name in ("k", "v"):
+                pool, new = c["attn"][name], caches["attn"][name]
+                P, S_pool = new.shape[-3], pool.shape[-3]
+                if P > S_pool:
+                    raise ValueError(
+                        f"prompt of {P} tokens does not fit the dense KV "
+                        f"cache's {S_pool} positions a slot (the ring under "
+                        "a sliding window: min(window, max_len))"
+                    )
+                panel = pool[..., slot, :, :, :]
+                panel[..., :P, :, :].copy_(new[..., 0, :, :, :])
+                panel[..., P:, :, :].zero_()
+        for key in ("ssm", "ssm_staged", "ssm_tail"):
+            if key in c:
+                for part, pool in c[key].items():
+                    # batch axis: state (…, B, nh, hd, N), conv (…, B, cw-1, C)
+                    new = caches[key][part]
+                    pool.select(pool.dim() - 4 if part == "state"
+                                else pool.dim() - 3, slot).copy_(
+                        new.select(new.dim() - 4 if part == "state"
+                                   else new.dim() - 3, 0))
+        self.cur_len[slot] = req.prompt_len
+        self.last_token[slot] = int(torch.argmax(logits[0]))
+        self.installed[slot] = True
+
     def _install_paged_slot(self, slot: int, req: Request) -> None:
         """Prefill one request and write its K/V into its owned blocks."""
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
@@ -578,7 +687,10 @@ class ServingEngine:
             advanced += advance
             charge += advance * self.ecfg.prefill_time_per_token
             if req.prefilled:
-                self._install_paged_slot(slot, req)
+                if self.paged:
+                    self._install_paged_slot(slot, req)
+                else:
+                    self._write_slot(slot, req)
                 installed_now.append(req)
         self.sim_time += charge
         if advanced > 0:
@@ -886,8 +998,8 @@ class ServingEngine:
         layer's collector holds ``trace_length`` steps, plan with the
         configured policy and apply it between two decode steps. The
         online mode replans on drift instead (:meth:`_online_step`)."""
-        if (self.controller is not None or self.placement_applied
-                or self.profile is None):
+        if (self.planner is None or self.controller is not None
+                or self.placement_applied or self.profile is None):
             return
         gem = self.ecfg.gem
         threshold = (
@@ -1034,14 +1146,16 @@ class ServingEngine:
         self._ingest_arrivals()
         tel = self.telemetry
         t0 = self.sim_time
-        for _slot, req in self.scheduler.admit(can_admit=self._kv_admit):
+        can_admit = self._kv_admit if self.kv_pool is not None else None
+        for _slot, req in self.scheduler.admit(can_admit=can_admit):
             req.start_step = self.step_count
 
         if not self.scheduler.active:
             return {"active": 0}
 
         prefill_charge = self._prefill_phase()
-        self._ensure_decode_capacity()
+        if self.paged:
+            self._ensure_decode_capacity()
         if not self.installed.any():
             # prefill-only step (chunked prefill in flight, or everything
             # was preempted): charge the prefill time, no decode
@@ -1061,9 +1175,17 @@ class ServingEngine:
             }
 
         dev = self.device
-        inputs = (self.cur_len, self.last_token[:, None], self.block_tables)
+        if self.paged:
+            cur_len = self.cur_len
+        else:
+            # one length shared by the batch, the longest row's: shorter
+            # rows attend over the zero panels past their prompts (the JAX
+            # engine's dense approximation)
+            cur_len = np.asarray(self.cur_len.max(), dtype=np.int32)
+        inputs = (cur_len, self.last_token[:, None], self.block_tables)
         if self.decode_graph is None:  # "python": new device tensors a step
-            inputs = tuple(torch.as_tensor(a, device=dev) for a in inputs)
+            inputs = tuple(None if a is None else torch.as_tensor(a, device=dev)
+                           for a in inputs)
         shed = self._shed_operand()
         if self.decode_graph is None and shed is not None:
             shed = torch.as_tensor(shed, device=dev)
@@ -1080,33 +1202,9 @@ class ServingEngine:
         next_tokens = sample(
             logits, temperature=self.ecfg.temperature, generator=generator
         ).cpu().numpy()
-        # read back after the step (a replay's static outputs), never
-        # inside the captured body
-        self.expert_counts = moe_aux.expert_counts.cpu().numpy()
-        dropped = int(moe_aux.dropped_tokens.cpu().numpy().sum())
-
-        # GEM Step-1: the router's per-layer counts, in virtual experts
         sim_latency = prefill_charge + self.ecfg.other_time_per_step
-        counts_virt = np.repeat(self.expert_counts, self.config.expert_tp,
-                                axis=1)
-        cost_mx = self._step_cost_matrix(counts_virt)
-        shed_latency = None
-        if self._shed_enables is not None:
-            # shedding changes what the fleet paid, not what the control
-            # plane sees: cost_mx stays the un-shed matrix below
-            shed_latency = self._shed_step(counts_virt, moe_aux, cost_mx)
-        if shed_latency is not None:
-            sim_latency += shed_latency
-        elif cost_mx is not None:
-            sim_latency += float(cost_mx.max(axis=1).sum())
-        self._observe_attribution(counts_virt)
-        self._observe_regret(counts_virt, cost_mx)
-        tel.counter("dispatch.dropped_tokens").inc(dropped)
-        if self.controller is not None:
-            sim_latency += self._online_step(counts_virt, cost_mx)
-        else:
-            for layer in range(self.config.num_layers):
-                self.planner.observe_step(layer, counts_virt[layer])
+        if moe_aux is not None:
+            sim_latency = self._moe_step(moe_aux, sim_latency)
         tel.emit_span(
             "decode", self.sim_time, sim_latency - prefill_charge,
             step=self.step_count, active=int(self.installed.sum()),
@@ -1134,8 +1232,9 @@ class ServingEngine:
             self.scheduler.release(slot)
             self.cur_len[slot] = 0
             self.installed[slot] = False
-            self.kv_pool.release(req.uid)
-            self.block_tables[slot, :] = 0
+            if self.kv_pool is not None:
+                self.kv_pool.release(req.uid)
+                self.block_tables[slot, :] = 0
 
         if decoded:
             tel.counter("engine.decode_tokens").inc(decoded)
@@ -1152,6 +1251,40 @@ class ServingEngine:
             "sim_latency": sim_latency,
             "placement_applied": self.placement_applied,
         }
+
+    def _moe_step(self, moe_aux, sim_latency: float) -> float:
+        """The GEM control plane's share of a step: Step-1's counts, the
+        simulated MoE latency (shed-adjusted with the shed plane on),
+        attribution, regret, and the online plane or the one-shot
+        planner's trace. Returns ``sim_latency`` with the step's charges
+        added in the JAX engine's order."""
+        tel = self.telemetry
+        # read back after the step (a replay's static outputs), never
+        # inside the captured body
+        self.expert_counts = moe_aux.expert_counts.cpu().numpy()
+        dropped = int(moe_aux.dropped_tokens.cpu().numpy().sum())
+        # GEM Step-1: the router's per-layer counts, in virtual experts
+        counts_virt = np.repeat(self.expert_counts, self.config.expert_tp,
+                                axis=1)
+        cost_mx = self._step_cost_matrix(counts_virt)
+        shed_latency = None
+        if self._shed_enables is not None:
+            # shedding changes what the fleet paid, not what the control
+            # plane sees: cost_mx stays the un-shed matrix below
+            shed_latency = self._shed_step(counts_virt, moe_aux, cost_mx)
+        if shed_latency is not None:
+            sim_latency += shed_latency
+        elif cost_mx is not None:
+            sim_latency += float(cost_mx.max(axis=1).sum())
+        self._observe_attribution(counts_virt)
+        self._observe_regret(counts_virt, cost_mx)
+        tel.counter("dispatch.dropped_tokens").inc(dropped)
+        if self.controller is not None:
+            sim_latency += self._online_step(counts_virt, cost_mx)
+        else:
+            for layer in range(self.config.num_layers):
+                self.planner.observe_step(layer, counts_virt[layer])
+        return sim_latency
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
         steps = 0
@@ -1178,7 +1311,9 @@ class ServingEngine:
         return slo_report(self.finished)
 
     def kv_stats(self) -> dict[str, float]:
-        """Paged-pool occupancy/pressure counters."""
+        """Paged-pool occupancy/pressure counters (empty when dense)."""
+        if self.kv_pool is None:
+            return {}
         out = self.kv_pool.stats()
         out["kv_preemptions"] = float(self.preemption_count)
         return out
@@ -1218,13 +1353,13 @@ class ServingEngine:
                 shed_saved_s=float(self._shed_saved_s),
                 shed_transfer_s=float(self._shed_transfer_s),
             )
-        if self.attribution.steps > 0:
+        if self.attribution is not None and self.attribution.steps > 0:
             # the per-device straggler tally (a list) stays on the
             # accumulator and in the registry
             out.update(
                 (k, v) for k, v in self.attribution.summary().items()
                 if isinstance(v, float)
             )
-        if self.regret.steps > 0:
+        if self.regret is not None and self.regret.steps > 0:
             out.update(self.regret.summary())
         return out

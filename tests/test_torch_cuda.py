@@ -432,3 +432,97 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b", "zamba2-1.2b",
+                                  "gemma-7b"])
+def test_dense_cache_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """Smoke configs on the dense cache (mixtral's window-32 ring wraps;
+    the SSM state and conv buffers; zamba2's shared block; gemma's GeGLU,
+    forced dense), fp32, ragged prompts: the captured step and the eager
+    one on the card give the CPU's greedy tokens, and the capture leaves
+    the caches as it found them."""
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 19, 11)]
+    out, launches = {}, {}
+    for dev, mode in (("cpu", "python"), (cuda, "scan"), (cuda, "python")):
+        eng = ServingEngine(_to(params, dev), cfg, EngineConfig(
+            max_batch=2, max_len=64, kv_mode="dense", decode_mode=mode),
+            device=dev)
+        assert all(not t.any() for t in _cache_leaves(eng.caches))
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=24)
+        ops.reset_launch_counts()
+        out[str(dev), mode] = {r.uid: r.generated for r in eng.run()}
+        launches[str(dev), mode] = ops.launch_counts()
+        if mode == "scan":
+            assert eng.graph_capture_counts["decode"] == 1
+    assert out[str(cuda), "scan"] == out["cpu", "python"]
+    assert out[str(cuda), "python"] == out["cpu", "python"]
+    if cfg.is_moe:
+        assert launches[str(cuda), "scan"]["moe_ffn"] > 0
+    else:
+        assert not any(launches[str(cuda), "scan"].values())
+
+
+def _cache_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v)
+        else:
+            yield v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,paged,slots", [
+    ("mixtral-8x7b", False, 40), ("mamba2-1.3b", False, 40),
+    ("zamba2-1.2b", False, 40), ("qwen2.5-14b", False, 32768),
+    ("granite-moe-3b-a800m", True, 4096),
+], ids=["ring", "ssm", "hybrid", "dense-128MB", "paged-128MB"])
+def test_binding_restores_the_caches_without_a_second_copy(cuda, arch, paged,
+                                                           slots):
+    """``DecodeGraph`` runs the idle step twice before it captures: on
+    random fp32 caches the binding leaves every entry as it found it (the
+    paged pool's null block aside), and at 128 MB of KV cache over 8
+    layers the binding's peak allocation above the caches stays under half
+    of them (one layer's intermediates are an eighth), so no second copy of
+    the cache is made. ``slots`` is max_len on the dense cache and the
+    block count on the paged one."""
+    import dataclasses
+
+    from repro_torch.models import init_decode_cache, init_paged_decode_cache
+    from repro_torch.models.model import DecodeGraph
+
+    cfg = get_smoke_config(arch)
+    if not cfg.is_hybrid:
+        cfg = dataclasses.replace(cfg, num_layers=8)
+    params = init_params(cfg, seed=2, device=cuda, dtype=torch.float32)
+    B, bs = 2, 16
+    if paged:
+        caches = init_paged_decode_cache(cfg, slots, bs, device=cuda,
+                                         dtype=torch.float32)
+    else:
+        caches = init_decode_cache(cfg, B, slots, device=cuda,
+                                   dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for t in _cache_leaves(caches):
+        t.normal_(generator=gen)
+    before = [t.clone() for t in _cache_leaves(caches)]
+    cache_bytes = sum(t.numel() * t.element_size() for t in before)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    graph = DecodeGraph(params, caches, None, cfg, batch=B,
+                        n_max=4 if paged else None, device=cuda)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert graph.builds == 1 and graph._graph is not None
+    for t, old in zip(_cache_leaves(caches), before):
+        if paged:
+            t, old = t[:, 1:], old[:, 1:]
+        assert torch.equal(t, old)
+    if cache_bytes >= 2 ** 27:
+        assert extra < cache_bytes // 2, (extra, cache_bytes)

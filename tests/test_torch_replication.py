@@ -427,15 +427,18 @@ def test_mixtral_config_copy_equals_jax(which):
 
 
 def test_mixtral_smoke_serves_on_the_port():
-    """The port refuses the smoke config's sliding window and serves it
-    with the window off."""
+    """The smoke config's sliding window is served on the dense KV ring
+    under ``kv_mode="auto"``; forcing the paged cache refuses it, and with
+    the window off ``"auto"`` pages."""
     cfg = get_smoke_config(ARCH)
     params = init_params(cfg, device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="sliding"):
         tserving.ServingEngine(params, cfg, tserving.EngineConfig(
+            max_batch=2, max_len=32, kv_mode="paged"), device="cpu")
+    for window, paged in ((cfg.sliding_window, False), (0, True)):
+        wcfg = dataclasses.replace(cfg, sliding_window=window)
+        eng = tserving.ServingEngine(params, wcfg, tserving.EngineConfig(
             max_batch=2, max_len=32), device="cpu")
-    cfg = dataclasses.replace(cfg, sliding_window=0)
-    eng = tserving.ServingEngine(params, cfg, tserving.EngineConfig(
-        max_batch=2, max_len=32), device="cpu")
-    eng.submit(np.arange(5), max_new_tokens=3)
-    assert len(eng.run()[0].generated) == 3
+        assert eng.paged is paged
+        eng.submit(np.arange(5), max_new_tokens=3)
+        assert len(eng.run()[0].generated) == 3
