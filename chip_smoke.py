@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs ten phases, each printing JSON lines:
+runs eleven phases, each printing JSON lines:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -129,6 +129,27 @@ runs ten phases, each printing JSON lines:
    MoE layer); then each at 2 layers (zamba2: 7, one stage and the shared
    block), fp32, card tokens equal the CPU's. It prints the decode-step
    medians.
+11. ``train`` — full granite-moe-3b-a800m (32 layers, bf16 parameters,
+   fp32 moments, seed-0 weights, a seeded non-identity placement) through
+   the port's training launcher (``repro_torch.launch.train``): 20 AdamW
+   steps of 4 × 128 tokens from the synthetic stream at capacity factor
+   2.0 (C = 205), through K1/K2 forward and their ``torch.autograd.
+   Function`` backwards. It checks that every loss and grad norm is
+   finite, that the last loss is below the first, that each step's
+   expert counts sum to 512 × 8 a layer, and that K1 and K2 launched
+   32 × 20 times and K3 never. It prints the step time (CUDA events at
+   each step's end, median of steps 5–18), tokens/s, the median shares of
+   the step spent in the forward, the backward and the update, peak
+   memory, and the last step under torch.profiler: device busy time
+   against its wall, device operations, and the kernels by device time. Then, at full width, 2 layers, fp32: one step's loss, expert
+   counts and gradients on the card against the CPU's (loss within 1e-4
+   relative, each gradient leaf within 1e-3 of its max), and the placed
+   run against an identity run on the card (counts equal, loss within
+   1e-4, expert gradients in virtual order within 1e-3); then the
+   launcher at ``--smoke`` with a checkpoint directory: 20 steps straight
+   against 10, a kill, a restart and 10 more (losses within 1e-4
+   relative). ``kernels`` also holds and times K1 at the train shape
+   (80, 205, 1536)×(80, 1536, 256) and K2 at (512, 40), k 8.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -172,6 +193,16 @@ FAMILIES = {
     "mamba2-1.3b": None, "zamba2-1.2b": None, "musicgen-medium": None,
     "internvl2-76b": 4,
 }
+# the ``train`` phase: full granite through the port's training launcher,
+# 4 sequences of 128 tokens a step (512 tokens, C = ⌈512·8/40 · 2.0⌉ = 205),
+# 20 steps, step times from step 5 to the last but one (the last is
+# profiled)
+TRAIN_STEPS = 20
+TRAIN_BATCH = 4
+TRAIN_SEQ = 128
+TRAIN_TIMED_FROM = 5
+TRAIN_TOP = 25  # kernels listed from the profiled step
+TRAIN_PLACEMENT_SEED = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {  # dense, H100 SXM data sheet
     torch.bfloat16: 989e12,  # tensor cores
@@ -345,6 +376,8 @@ def phase_kernels():
                                  mix.decode_capacity_factor),
                                 ("mixtral_prefill", SWA_PROMPTS[1],
                                  mix.capacity_factor))}
+    c_train = slot_capacity(TRAIN_BATCH * TRAIN_SEQ, cfg, capacity_factor=2.0,
+                            num_slots=S, replicated=False)
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     summary = {}
@@ -362,6 +395,8 @@ def phase_kernels():
           for c in (2, 5, 7, 8, 9, 16, 17, 64)),
         *((tag, S_rep, c, D, F, torch.bfloat16) for tag, c in c_rep.items()),
         *((tag, mS, c, mD, mF, torch.bfloat16) for tag, c in m_cap.items()),
+        # the ``train`` phase's forward: 512 tokens at capacity factor 2.0
+        ("train", S, c_train, D, F, torch.bfloat16),
     ]
     # loops of calls for the timings; the prefill shape takes milliseconds
     # a call (fp32 for the plain version)
@@ -384,7 +419,7 @@ def phase_kernels():
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
                "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
-        if tag in ("decode", "prefill", *c_rep, *m_cap):
+        if tag in ("decode", "prefill", "train", *c_rep, *m_cap):
             x, wg, wu, wd = args
             n_kernel, n_plain, n_library = iters.get(tag, (50, 20, 50))
 
@@ -409,6 +444,7 @@ def phase_kernels():
         del args, got, want, again, permuted
 
     router_cases = [("decode", 8, E, k), ("prefill", 128, E, k),
+                    ("train", TRAIN_BATCH * TRAIN_SEQ, E, k),
                     ("mixtral_decode", SWA_BATCH, mix.num_experts,
                      mix.experts_per_token),
                     ("mixtral_prefill", SWA_PROMPTS[1], mix.num_experts,
@@ -439,7 +475,8 @@ def phase_kernels():
                 abs_err = max(abs_err, ps_abs)
             row = {"kernel": name, "case": tag, "shape": [T, e, kk],
                    "max_abs_err": abs_err, "bit_equal_repeated": True}
-            if tag in ("decode", "prefill", "mixtral_decode", "mixtral_prefill"):
+            if tag in ("decode", "prefill", "train", "mixtral_decode",
+                       "mixtral_prefill"):
                 def kernel():
                     return ops.topk_router(logits, kk, with_stats=with_stats)
 
@@ -2031,6 +2068,250 @@ def phase_families():
     return launches
 
 
+# --------------------------------------------------------------------- train
+def _train_grads(params, batch, cfg, e2s, device):
+    """The loss, expert counts and gradients (leaf name → tensor on the
+    CPU) of one train step's loss on ``device``, remat off."""
+    from repro_torch.models import loss_fn
+
+    params = _to(params, device)
+    names = [n for n, _ in _leaves(params)]
+    flat = dict(_leaves(params))
+    for t in flat.values():
+        t.requires_grad_(True)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    tables = None if e2s is None else torch.as_tensor(e2s, device=device)
+    loss, aux = loss_fn(params, tb, cfg, tables, remat=False)
+    grads = torch.autograd.grad(loss, [flat[n] for n in names])
+    return (loss.item(), aux["expert_counts"].cpu(),
+            {n: g.detach().cpu() for n, g in zip(names, grads)})
+
+
+def _check_grads(tag, got, want, tol):
+    """Each leaf within ``tol`` of that leaf's max |g|; returns the worst
+    share."""
+    worst = 0.0
+    for n, w in want.items():
+        scale = w.abs().max().item()
+        err = (got[n] - w).abs().max().item()
+        check(err <= tol * max(scale, 1e-30),
+              f"train {tag}: {n} gradient off by {err} (max |g| {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def phase_train_parity():
+    """Full granite width at 2 layers, fp32 (TF32 off), capacity factor 2.0,
+    under a placement: one step's loss, expert counts and gradients on the
+    card (K1/K2 and their autograd Functions) against the CPU's (the plain
+    versions) from the same weights and batch; then the placed run against
+    an identity run on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import placement
+    from repro_torch.models import init_params
+    from repro_torch.training import DataConfig, SyntheticTokenStream
+
+    torch.set_num_threads(8)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2,
+                              capacity_factor=2.0)
+    s2e, e2s = placement(2, cfg.num_virtual_experts, TRAIN_PLACEMENT_SEED)
+    base = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    placed = _with_placement(base, s2e)
+    batch = next(SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)))
+    t0 = time.perf_counter()
+    card = _train_grads(placed, batch, cfg, e2s, "cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = _train_grads(placed, batch, cfg, e2s, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(card[1], cpu[1]), "train parity: expert counts differ")
+    rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    check(rel <= 1e-4, f"train parity: loss {card[0]} vs CPU {cpu[0]}")
+    worst = _check_grads("parity", card[2], cpu[2], 1e-3)
+    # placement invariance: identity weights and tables on the card; the
+    # expert gradients, taken back to virtual order, are the same
+    ident = _train_grads(base, batch, cfg, None, "cuda")
+    check(torch.equal(ident[1], card[1]),
+          "train placement: expert counts differ from the identity run")
+    rel_placed = abs(ident[0] - card[0]) / abs(ident[0])
+    check(rel_placed <= 1e-4,
+          f"train placement: loss {card[0]} vs identity {ident[0]}")
+    back = dict(card[2])
+    order = torch.as_tensor(e2s).long()
+    for n in ("blocks.moe.w_gate", "blocks.moe.w_up", "blocks.moe.w_down"):
+        back[n] = torch.take_along_dim(card[2][n], order[:, :, None, None], 1)
+    worst_placed = _check_grads("placement", back, ident[2], 1e-3)
+    emit({"phase": "train", "check": "card_vs_cpu", "layers": 2,
+          "d_model": cfg.d_model, "dtype": "float32", "tokens": TRAIN_BATCH * TRAIN_SEQ,
+          "loss_card": card[0], "loss_cpu": cpu[0], "loss_rel_diff": rel,
+          "expert_counts_equal": True, "grad_worst_share_of_max": worst,
+          "placed_vs_identity_loss_rel_diff": rel_placed,
+          "placed_vs_identity_grad_worst_share_of_max": worst_placed,
+          "card_s": card_s, "cpu_s": cpu_s})
+
+
+def phase_train_resume():
+    """The launcher at ``--smoke`` on the card with a checkpoint directory:
+    20 steps straight against 10 steps, a kill after the step-10
+    checkpoint and a restart that runs the other 10. The gather's and the
+    embedding's backwards add with atomics, so the losses agree to 1e-4
+    relative, not bit for bit."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    class Killed(Exception):
+        pass
+
+    def kill_at_10(step, metrics):
+        if step == 10:
+            raise Killed
+
+    argv = ["--smoke", "--steps", "20", "--placement-seed",
+            str(TRAIN_PLACEMENT_SEED)]
+    straight = launch_train.run(launch_train.parse_args(argv))
+    with tempfile.TemporaryDirectory() as d:
+        args = launch_train.parse_args(argv + ["--ckpt-dir", d])
+        try:
+            launch_train.run(args, on_step=kill_at_10)
+            check(False, "train resume: the kill did not happen")
+        except Killed:
+            pass
+        resumed = launch_train.run(args)
+    check([h["step"] for h in resumed] == list(range(10, 20)),
+          "train resume: did not restart at step 10")
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(resumed, straight[10:]))
+    check(rel <= 1e-4, f"train resume: losses differ by {rel} relative")
+    emit({"phase": "train", "check": "resume", "config": "smoke",
+          "steps": 20, "restart_at": 10, "loss_max_rel_diff": rel,
+          "losses_straight": [h["loss"] for h in straight]})
+
+
+def phase_train():
+    """Full granite-moe-3b-a800m through the port's training launcher (bf16
+    parameters, fp32 moments, seed-0 weights, a seeded placement, 4 × 128
+    tokens a step, capacity factor 2.0: C = 205), 20 AdamW steps; then
+    the card against the CPU and the resume. Returns the launch counts of
+    the full-width run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.dispatch import slot_capacity
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    L, k = cfg.num_layers, cfg.experts_per_token
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_end, marks = [], []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # the last step runs under torch.profiler (it is left out of the times)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step_end.append(ev)
+        if step in (TRAIN_STEPS - 2, TRAIN_STEPS - 1):
+            torch.cuda.synchronize()
+            (prof.start if step == TRAIN_STEPS - 2 else prof.stop)()
+
+    args = launch_train.parse_args([
+        "--arch", ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+        str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--placement-seed",
+        str(TRAIN_PLACEMENT_SEED)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = launch_train.run(args, on_step=on_step, mark=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    check(len(history) == TRAIN_STEPS, "train: not every step ran")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in history), "train: a loss or grad norm is not finite")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    for h in history:
+        per_layer = h["expert_counts"].sum(axis=1)
+        check(h["expert_counts"].shape == (L, cfg.num_experts)
+              and bool((per_layer == tokens * k).all()),
+              f"train: step {h['step']} expert counts {per_layer}")
+    want = L * TRAIN_STEPS  # one forward a layer a step, remat off
+    check(counts["moe_ffn"] == want and counts["topk_router_stats"] == want
+          and counts["topk_router"] == 0,
+          f"train: launches {counts}, expected {want} of K1 and K2, 0 of K3")
+    # step time: CUDA events at each step's end; the parts from the marks
+    # the step records after queueing its forward, backward and update
+    timed = range(TRAIN_TIMED_FROM, TRAIN_STEPS - 1)
+    steps = [step_end[i - 1].elapsed_time(step_end[i]) for i in timed]
+    by_step = [dict() for _ in range(TRAIN_STEPS)]
+    i = 0
+    for name, ev in marks:
+        by_step[i][name] = ev
+        if name == "update":
+            i += 1
+    parts = {"forward": [], "backward": [], "update": []}
+    for i in timed:
+        ev = by_step[i]
+        total = step_end[i - 1].elapsed_time(step_end[i])
+        parts["forward"].append(step_end[i - 1].elapsed_time(ev["forward"]) / total)
+        parts["backward"].append(ev["forward"].elapsed_time(ev["backward"]) / total)
+        parts["update"].append(ev["backward"].elapsed_time(ev["update"]) / total)
+    step_ms = statistics.median(steps)
+    # the profiled step: device time by kernel, busy against its wall
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:TRAIN_TOP]
+    profile_row = {
+        "step": TRAIN_STEPS - 1,
+        "wall_ms": step_end[-2].elapsed_time(step_end[-1]),
+        "device_busy_ms": busy_us / 1e3,
+        "device_ops": sum(e.count for e in dev),
+        "port_kernels_ms": {
+            name: sum(e.self_device_time_total for e in dev if name in e.key) / 1e3
+            for name in PORT_KERNELS},
+        "top": [{"name": e.key[:90], "calls": e.count,
+                 "ms": e.self_device_time_total / 1e3} for e in top]}
+    emit({"phase": "train", "config": ARCH, "layers": L, "dtype": "bfloat16",
+          "moments": "float32", "steps": TRAIN_STEPS,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "capacity": slot_capacity(tokens, dataclasses.replace(
+              cfg, capacity_factor=2.0), capacity_factor=2.0,
+              num_slots=cfg.num_virtual_experts, replicated=False),
+          "placement_seed": TRAIN_PLACEMENT_SEED, "losses": losses,
+          "grad_norms": [h["grad_norm"] for h in history],
+          "moe_dropped": [h["moe_dropped"] for h in history],
+          "launches": counts, "expert_counts_sum_ok": True,
+          "step_ms_median": step_ms, "step_ms": steps,
+          "step_ms_timed_from": TRAIN_TIMED_FROM,
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "share_median": {n: statistics.median(v) for n, v in parts.items()},
+          "peak_mem_gib": peak / 2 ** 30, "wall_s": wall,
+          "profile": profile_row})
+    check(busy_us > 0, "train: the profiled step holds no device time")
+    del history
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity()
+    phase_train_resume()
+    emit({"phase": "train", "ok": True, "loss_first": losses[0],
+          "loss_last": losses[-1], "step_ms_median": step_ms})
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2066,6 +2347,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     swa_launches = phase_swa()
     families_launches = phase_families()
+    train_launches = phase_train()
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -2086,6 +2368,7 @@ def main(argv=None) -> int:
             "replicated_launches": replicated_launches[name],
             "swa_launches": swa_launches[name],
             "families_launches": families_launches[name],
+            "train_launches": train_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2097,6 +2380,11 @@ def main(argv=None) -> int:
         k: s84[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                             "library_ms", "bound_ms", "bound_by",
                             "device_us", "bound_share")}
+    for i, name in ((0, "moe_ffn"), (1, "topk_router_stats")):
+        kernels[i]["train"] = {
+            k: summary[f"{name}/train"][k]
+            for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                      "bound_ms", "bound_by", "device_us", "bound_share")}
     for i, name in ((0, "moe_ffn"), (1, "topk_router_stats")):
         for tag in ("mixtral_decode", "mixtral_prefill"):
             row = summary[f"{name}/{tag}"]

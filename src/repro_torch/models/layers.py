@@ -21,6 +21,7 @@ __all__ = [
     "init_gated_mlp",
     "embed_tokens",
     "lm_logits",
+    "cross_entropy_loss",
     "normal_init",
 ]
 
@@ -126,7 +127,11 @@ def embed_tokens(ids, table, config: ModelConfig):
 
 
 def lm_logits(x, params, config: ModelConfig):
-    """x (B, S, D) → logits (B, S, V_pad) fp32, pad-vocab entries −1e30."""
+    """x (B, S, D) → logits (B, S, V_pad) fp32, pad-vocab entries −1e30.
+
+    The JAX train and decode modes differ only in their sharding, so one
+    function serves both. The pad entries are written in place, which
+    gives them a zero gradient, as ``jnp.where`` does."""
     if config.tie_embeddings:
         logits = torch.matmul(x, params["embed"].t())
     else:
@@ -135,3 +140,22 @@ def lm_logits(x, params, config: ModelConfig):
     if config.padded_vocab != config.vocab_size:
         logits[..., config.vocab_size:] = -1e30
     return logits
+
+
+def cross_entropy_loss(logits, labels, *, mask=None):
+    """Mean token NLL: logits (B, S, V) fp32, labels (B, S); ``mask``
+    (B, S) optional 0/1 validity (the vision patch positions are 0).
+
+    Written as the JAX version is: the max is detached where it shifts
+    the logits and not where it is added back, so the gradient carries
+    the max's (one-hot, split between ties) term as the reference's does
+    (``torch.amax`` splits it between ties as ``jnp.max`` does)."""
+    vmax = torch.amax(logits, dim=-1, keepdim=True)
+    shifted = logits - vmax.detach()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + vmax[..., 0]
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -24,6 +24,11 @@ The layer stack is a Python loop over layers, the JAX package's
 ``"python"`` mode; :class:`DecodeGraph` is its ``"scan"`` mode: the same
 decode step over static buffers, captured once as a CUDA graph and replayed
 every step. Caches are updated in place.
+
+Training (:func:`forward_train`, :func:`loss_fn`) and :func:`prefill` run
+the same blocks over the full sequence (:func:`_stack_forward`); autograd
+differentiates them, through the kernels' ``torch.autograd.Function``s in
+the MoE layers. No train path reaches the decode steps' in-place writes.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -42,6 +48,7 @@ from .attention import (
     init_attention,
 )
 from .layers import (
+    cross_entropy_loss,
     embed_tokens,
     gated_mlp,
     init_gated_mlp,
@@ -54,6 +61,8 @@ from .ssm import init_ssm, ssm_cache_zeros, ssm_decode, ssm_train
 
 __all__ = [
     "init_params",
+    "forward_train",
+    "loss_fn",
     "prefill",
     "init_decode_cache",
     "init_paged_decode_cache",
@@ -125,6 +134,17 @@ def _layer(tree, i):
             for k, v in tree.items()}
 
 
+def _unbind(tree) -> list:
+    """A stacked tree → one dict of views per layer. One ``unbind`` a leaf:
+    its backward stacks the layers' gradients once, where indexing each
+    layer (:func:`_layer`) would add L full-size gradients of the stack."""
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    per = {k: _unbind(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 def _stack(trees: list):
     """Per-layer dicts of tensors → one dict of (n, …) stacks."""
     return {k: (_stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
@@ -149,21 +169,144 @@ def _embed_input(params, tokens, config: ModelConfig, patches=None):
     return x
 
 
-def _ssm_block_train(x, lp, config: ModelConfig):
+def _remat(body, on: bool):
+    """``jax.checkpoint`` of a layer body: with ``on``, its activations are
+    not kept for the backward but recomputed there (the kernels launch
+    again)."""
+    if not on:
+        return body
+
+    def recomputed(*args):
+        return checkpoint(body, *args, use_reentrant=False)
+
+    return recomputed
+
+
+def _ssm_block_train(x, lp, config: ModelConfig, *, return_cache: bool):
     h = rms_norm(x, lp["ln"], config.norm_eps)
-    y, cache = ssm_train(h, lp["ssm"], config, return_cache=True)
+    y, cache = ssm_train(h, lp["ssm"], config, return_cache=return_cache)
     return x + y, cache
 
 
-def _attn_mlp_train(x, lp, config: ModelConfig):
-    """ln → attention → ln → gated MLP (the dense blocks and zamba2's
-    shared block); returns (x, {"k", "v"})."""
+def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
+                      return_cache: bool):
+    """ln → attention → ln → MoE layer (a MoE config's blocks, under the
+    layer's (E_v,) table ``placement_l``) or gated MLP (the dense blocks
+    and zamba2's shared block); returns (x, {"k", "v"} | None, MoEAux |
+    None)."""
     h = rms_norm(x, lp["ln1"], config.norm_eps)
-    a, (k, v) = attention_train(h, lp["attn"], config, return_cache=True)
+    a, kv = attention_train(h, lp["attn"], config, return_cache=return_cache)
+    cache = {"k": kv[0], "v": kv[1]} if return_cache else None
     x = x + a
     h2 = rms_norm(x, lp["ln2"], config.norm_eps)
-    y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation)
-    return x + y, {"k": k, "v": v}
+    aux = None
+    if "moe" in lp:
+        y, aux = moe_layer(h2, lp["moe"], placement_l, config)
+    else:
+        y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation)
+    return x + y, cache, aux
+
+
+def _stack_forward(x, params, placements, config: ModelConfig, *,
+                   return_cache: bool, remat: bool):
+    """The whole layer stack over a full sequence, as the JAX
+    ``_stack_forward``: (x, caches | None, [MoEAux per layer] | None).
+
+    ``remat`` recomputes each layer body in the backward
+    (``torch.utils.checkpoint``), where JAX wraps it in ``jax.checkpoint``:
+    the attention families' whole layer, and each mamba block and the
+    shared block of the hybrid. The MoE layers run under the (L, E_v)
+    expert→slot tables ``placements`` (identity when None) over weights
+    already in slot order; the capacity factor is the config's."""
+    L = config.num_layers
+    blocks = _unbind(params["blocks"])
+
+    def ssm_block(xc, lp):
+        return _ssm_block_train(xc, lp, config, return_cache=return_cache)
+
+    def attn_block(xc, lp, placement_l):
+        return _attn_block_train(xc, lp, placement_l, config,
+                                 return_cache=return_cache)
+
+    ssm_block, attn_block = _remat(ssm_block, remat), _remat(attn_block, remat)
+    if config.is_hybrid:
+        staged, _ = _hybrid_split(config)
+        n_stages = staged // config.attn_every
+        sp = _layer(params["shared"], 0)
+        stage_ssm, stage_attn = [], []
+        for s in range(n_stages):
+            inner = []
+            for j in range(config.attn_every):
+                x, c = ssm_block(x, blocks[s * config.attn_every + j])
+                inner.append(c)
+            x, kv, _ = attn_block(x, sp, None)
+            stage_ssm.append(inner)
+            stage_attn.append(kv)
+        tail = []
+        for i in range(staged, L):
+            x, c = ssm_block(x, blocks[i])
+            tail.append(c)
+        caches = None
+        if return_cache:
+            caches = {"ssm_staged": _stack([_stack(c) for c in stage_ssm]),
+                      "attn": _stack(stage_attn),
+                      "ssm_tail": _stack(tail) if tail else None}
+        return x, caches, None
+    if config.is_ssm:
+        ssm = []
+        for i in range(L):
+            x, c = ssm_block(x, blocks[i])
+            ssm.append(c)
+        return x, ({"ssm": _stack(ssm)} if return_cache else None), None
+    if config.is_moe and placements is None:
+        placements = identity_placement(config, L, device=x.device)
+    kvs, auxes = [], []
+    for i in range(L):
+        x, kv, aux = attn_block(x, blocks[i],
+                                placements[i] if config.is_moe else None)
+        kvs.append(kv)
+        auxes.append(aux)
+    caches = {"attn": _stack(kvs)} if return_cache else None
+    return x, caches, (auxes if config.is_moe else None)
+
+
+def forward_train(params, batch, config: ModelConfig, placements=None, *,
+                  remat: bool = True):
+    """batch: ``tokens`` (B, S) int, ``labels`` (B, P + S), for the vision
+    frontend ``patches`` (B, P, D) (and a ``loss_mask``); ``placements``
+    the (L, E_v) expert→slot tables of a MoE config.
+
+    Returns (logits (B, P + S, V_pad) fp32, aux): for a MoE config
+    ``expert_counts`` (L, E) i32, the mean ``aux_loss`` and ``dropped``
+    over the layers and the summed ``dropped_tokens``, as the JAX
+    ``forward_train`` gives them; else an empty dict."""
+    x = _embed_input(params, batch["tokens"], config, batch.get("patches"))
+    x, _, auxes = _stack_forward(x, params, placements, config,
+                                 return_cache=False, remat=remat)
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
+    logits = lm_logits(x, params, config)
+    aux = {}
+    if auxes is not None:
+        moe = _stack_aux(auxes)
+        aux["expert_counts"] = moe.expert_counts
+        aux["aux_loss"] = torch.mean(moe.aux_loss)
+        aux["dropped"] = torch.mean(moe.dropped)
+        aux["dropped_tokens"] = torch.sum(moe.dropped_tokens).to(torch.int32)
+    return logits, aux
+
+
+def loss_fn(params, batch, config: ModelConfig, placements=None, *,
+            remat: bool = True):
+    """(cross entropy over ``labels`` under the optional ``loss_mask`` +
+    ``router_aux_coef`` · aux loss for a MoE config, aux); the JAX
+    ``loss_fn``."""
+    logits, aux = forward_train(params, batch, config, placements,
+                                remat=remat)
+    loss = cross_entropy_loss(logits, batch["labels"],
+                              mask=batch.get("loss_mask"))
+    if config.is_moe:
+        loss = loss + config.router_aux_coef * aux["aux_loss"]
+    return loss, aux
 
 
 def prefill(params, tokens, config: ModelConfig, placements=None, *,
@@ -179,54 +322,9 @@ def prefill(params, tokens, config: ModelConfig, placements=None, *,
     ``{"ssm_staged": (n_stages, attn_every, B, …), "attn": (n_stages, B, S,
     KV, hd), "ssm_tail": (leftover, B, …) or None}``.
     """
-    L = config.num_layers
-    blocks = params["blocks"]
     x = _embed_input(params, tokens, config, patches)
-    if config.is_hybrid:
-        staged, leftover = _hybrid_split(config)
-        n_stages = staged // config.attn_every
-        sp = _layer(params["shared"], 0)
-        stage_ssm, stage_attn = [], []
-        for s in range(n_stages):
-            inner = []
-            for j in range(config.attn_every):
-                x, c = _ssm_block_train(
-                    x, _layer(blocks, s * config.attn_every + j), config)
-                inner.append(c)
-            stage_ssm.append(_stack(inner))
-            x, kv = _attn_mlp_train(x, sp, config)
-            stage_attn.append(kv)
-        tail = []
-        for i in range(staged, L):
-            x, c = _ssm_block_train(x, _layer(blocks, i), config)
-            tail.append(c)
-        caches = {"ssm_staged": _stack(stage_ssm), "attn": _stack(stage_attn),
-                  "ssm_tail": _stack(tail) if tail else None}
-    elif config.is_ssm:
-        ssm = []
-        for i in range(L):
-            x, c = _ssm_block_train(x, _layer(blocks, i), config)
-            ssm.append(c)
-        caches = {"ssm": _stack(ssm)}
-    else:
-        if config.is_moe and placements is None:
-            placements = identity_placement(config, L, device=tokens.device)
-        kvs = []
-        for i in range(L):
-            lp = _layer(blocks, i)
-            if not config.is_moe:
-                x, kv = _attn_mlp_train(x, lp, config)
-                kvs.append(kv)
-                continue
-            h = rms_norm(x, lp["ln1"], config.norm_eps)
-            a, (k, v) = attention_train(h, lp["attn"], config,
-                                        return_cache=True)
-            kvs.append({"k": k, "v": v})
-            x = x + a
-            h2 = rms_norm(x, lp["ln2"], config.norm_eps)
-            y, _ = moe_layer(h2, lp["moe"], placements[i], config)
-            x = x + y
-        caches = {"attn": _stack(kvs)}
+    x, caches, _ = _stack_forward(x, params, placements, config,
+                                  return_cache=True, remat=False)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = lm_logits(x[:, -1:], params, config)
     return logits[:, 0], caches

@@ -156,7 +156,10 @@ def ssm_train(x, p, config: ModelConfig, *, return_cache: bool = False):
         # within-chunk quadratic form
         scores = torch.einsum("bqn,bkn->bqk", C_b, B_b)
         seg = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Q, Q, nh)
-        Lmat = torch.where(tri, torch.exp(seg), torch.zeros_like(seg))
+        # masked before the exp: above the diagonal seg > 0 can overflow,
+        # and where(tri, exp(seg), 0) then has a 0 · inf = NaN gradient
+        # (the reference's does); exp(−inf) = 0 gives the same values
+        Lmat = torch.exp(seg.masked_fill(~tri, float("-inf")))
         y_diag = torch.einsum("bqk,bqkh,bkhp->bqhp", scores, Lmat, dtx_b)
         # the carried state's contribution
         y_off = torch.einsum("bqn,bqh,bhpn->bqhp", C_b, torch.exp(cum), h)

@@ -2,7 +2,8 @@
 
 ``repro_torch.core``, ``repro_torch.telemetry``, ``repro_torch.replication``
 and ``repro_torch.online`` are verbatim copies of their ``repro`` packages
-(numpy and the standard library only), as is ``repro_torch.serving.shed``,
+(numpy and the standard library only), as are ``repro_torch.serving.shed``
+and ``repro_torch.training.data``,
 pinned byte for byte here, so the
 planner's outputs must be equal, not close: placements, scores, swap
 counts, the EPLB baseline, the per-step cost and token matrices, the
@@ -49,6 +50,7 @@ PINNED = [pytest.param("core", name, id=name) for name in MODULES] + [
 ] + [
     # single modules of packages the port keeps its own versions of
     pytest.param("serving", "shed", id="serving/shed"),
+    pytest.param("training", "data", id="training/data"),
 ]
 NUM_DEVICES = 4
 

@@ -526,3 +526,104 @@ def test_binding_restores_the_caches_without_a_second_copy(cuda, arch, paged,
         assert torch.equal(t, old)
     if cache_bytes >= 2 ** 27:
         assert extra < cache_bytes // 2, (extra, cache_bytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_function_on_the_card_matches_the_plain_backward(cuda, dtype):
+    """The autograd Function over K1: its forward is the kernel (one launch,
+    counted), its backward the reference math; on the card against the
+    same Function on the CPU (the plain forward) from the same inputs."""
+    from repro_torch.kernels.autograd import MoEFFN
+
+    dt = getattr(torch, dtype)
+    cpu = [t.requires_grad_(True) for t in _ffn_inputs(6, 9, 64, 96, dt, "cpu")]
+    dev = [t.detach().to(cuda).requires_grad_(True) for t in cpu]
+    g = torch.Generator().manual_seed(3)
+    cot = torch.randn((6, 9, 64), generator=g).to(dt)
+    before = ops.launch_counts()["moe_ffn"]
+    y = ops.moe_ffn(*dev)
+    assert type(y.grad_fn).__name__ == "MoEFFNBackward"
+    got = torch.autograd.grad(y, dev, grad_outputs=cot.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_ffn"] == before + 1
+    want = torch.autograd.grad(MoEFFN.apply(*cpu), cpu, grad_outputs=cot)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, a, b in zip(("dx", "dWg", "dWu", "dWd"), got, want):
+        assert a.dtype == b.dtype == dt, name
+        scale = b.float().abs().max().item()
+        err = (a.cpu().float() - b.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, E, k", [(64, 40, 8), (1000, 8, 2), (5, 128, 8)])
+def test_topk_router_function_on_the_card_matches_the_plain_backward(
+        cuda, T, E, k):
+    """The autograd Function over K2: ids and counts equal, non-differentiable
+    and of their own storage (the kernel returns views of one buffer), the
+    logits' gradient under cotangents on the gates and on probs_sum equal
+    to the CPU's within 1e-5 of its max."""
+    from repro_torch.kernels.autograd import TopKRouter
+
+    logits = _router_logits(T, E, "cpu")
+    g = torch.Generator().manual_seed(T)
+    cg = torch.randn((T, k), generator=g)
+    cp = torch.randn((E,), generator=g)
+    lc = logits.clone().requires_grad_(True)
+    ld = logits.to(cuda).requires_grad_(True)
+    before = ops.launch_counts()["topk_router_stats"]
+    out = ops.topk_router(ld, k, with_stats=True)
+    assert ops.launch_counts()["topk_router_stats"] == before + 1
+    ptrs = {t.untyped_storage().data_ptr() for t in out}
+    assert len(ptrs) == 4
+    gates, ids, psum, counts = out
+    assert not ids.requires_grad and not counts.requires_grad
+    want = TopKRouter.apply(lc, k)
+    assert torch.equal(ids.cpu(), want[1]) and torch.equal(counts.cpu(), want[3])
+    (got,) = torch.autograd.grad((gates, psum), ld,
+                                 grad_outputs=(cg.to(cuda), cp.to(cuda)))
+    (ref,) = torch.autograd.grad((want[0], want[2]), lc, grad_outputs=(cg, cp))
+    scale = ref.abs().max().item()
+    assert (got.cpu() - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """granite smoke, fp32, under a placement: one step of the train step
+    through K1/K2 (launches = layers × 1 forward, remat off) against the
+    CPU's: loss within 1e-5, expert counts equal, each parameter leaf
+    after the update within 1e-4 in relative norm (Adam's first step moves
+    a coordinate whose gradient is at rounding level by up to the learning
+    rate either way, so not element by element)."""
+    from repro_torch.launch.train import placement
+    from repro_torch.models import apply_placement
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    s2e, e2s = placement(cfg.num_layers, cfg.num_virtual_experts, seed=2)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+    out = {}
+    for device in ("cpu", cuda):
+        params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+        params["blocks"]["moe"] = apply_placement(params["blocks"]["moe"], s2e)
+        params = tree_map(lambda t: t.to(device), params)
+        state = init_train_state(params, AdamWConfig())
+        step = make_train_step(cfg, AdamWConfig(), remat=False)
+        ops.reset_launch_counts()
+        state, m = step(state, {k: torch.from_numpy(v).to(device)
+                                for k, v in batch.items()},
+                        torch.from_numpy(e2s).to(device))
+        out[str(device)] = (float(m["loss"]), m["expert_counts"].cpu(),
+                            state["params"], ops.launch_counts())
+    (lc, cc, pc, _), (ld, cd, pd, launched) = out["cpu"], out[str(cuda)]
+    assert launched["moe_ffn"] == launched["topk_router_stats"] == cfg.num_layers
+    assert launched["topk_router"] == 0
+    assert abs(ld - lc) <= 1e-5 * abs(lc)
+    assert torch.equal(cd, cc)
+    for a, b in zip(leaves(pd), leaves(pc)):
+        err = torch.linalg.vector_norm(a.detach().cpu() - b.detach())
+        assert err.item() <= 1e-4 * torch.linalg.vector_norm(b).item()

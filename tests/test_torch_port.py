@@ -32,7 +32,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.ops, repro_torch.models\n"
         "import repro_torch.serving, repro_torch.core, repro_torch.online\n"
         "import repro_torch.replication, repro_torch.kernels.collective\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.training, repro_torch.checkpoint\n"
+        "import repro_torch.kernels.autograd, repro_torch.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
