@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs eleven phases, each printing JSON lines:
+runs fourteen phases, each printing JSON lines:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -150,6 +150,32 @@ runs eleven phases, each printing JSON lines:
    against 10, a kill, a restart and 10 more (losses within 1e-4
    relative). ``kernels`` also holds and times K1 at the train shape
    (80, 205, 1536)×(80, 1536, 256) and K2 at (512, 40), k 8.
+12. ``dryrun`` — the port's dry run (``repro_torch.launch.dryrun``) of every
+   (arch × shape) cell on the meta device, spread over worker processes
+   that never touch the card: every cell must be ``ok`` (33) or
+   ``skipped`` (7); it prints each cell's line and the sweep's host
+   seconds. Then granite's cells at this card's own shapes — the ``train``
+   phase's 4 × 128 at capacity factor 2.0 with remat off, and a dense
+   ``decode_step`` of 8 rows over 4,096 positions — each against one eager
+   step on the card: the predicted parameter, gradient, moment and cache
+   bytes must equal the ``nbytes`` sums of the tensors the card holds (the
+   gradients' from one autograd pass after the train step), and
+   the predicted peak must lie within ±1 % of ``max_memory_allocated``
+   over the step (after ``reset_peak_memory_stats``), less what the card
+   held before the cell's inputs were made. It prints the train
+   cell's FLOPs beside the ``train`` phase's median step time and the
+   achieved TFLOP/s, and what the card holds before and after the phase
+   (after it also without cuBLAS's workspaces).
+13. ``examples`` — ``examples/torch_quickstart.py`` and
+   ``examples/torch_serve_moe.py --requests 4`` in this process on the
+   card: the quickstart's data-plane Δ against the identity placement
+   must be 0 under the GEM placement, every request must be served, and
+   K1/K2 must have launched.
+14. ``collective`` — the ``replan`` scenario at full width, 4 layers, under
+   ``migration_via="collective"`` and ``"host"``: equal tokens, equal rows
+   and tables after the swap, equal migration records (``"via":
+   "host"``: one card has no expert sharding), K1/K2 launched on every MoE
+   layer call, one capture.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -163,6 +189,7 @@ import collections
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2309,7 +2336,425 @@ def phase_train():
     phase_train_resume()
     emit({"phase": "train", "ok": True, "loss_first": losses[0],
           "loss_last": losses[-1], "step_ms_median": step_ms})
+    return counts, step_ms
+
+
+# -------------------------------------------------------------------- dryrun
+# the ``dryrun`` phase: the sweep of every (arch × shape) cell on meta runs
+# in worker processes that never touch the card; granite's cells at the
+# ``train`` phase's shape and at an 8-row dense decode step are then held
+# against the card
+DRYRUN_WORKERS = 7
+DRYRUN_DECODE_LEN = 4096  # the dense cache's positions a row
+DRYRUN_PEAK_TOL = 0.01
+_SLOW_FIRST = ("mamba2", "zamba2", "internvl2", "qwen3", "mixtral")
+
+
+def _dry_worker_init(src: str) -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # shapes only: no CUDA context
+    if src not in sys.path:
+        sys.path.insert(0, src)
+
+
+def _dry_cell(arch: str, shape: str, hbm) -> dict:
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(arch, shape, hbm=hbm)
+
+
+def _dry_sweep(src: Path, hbm) -> tuple[dict, float]:
+    """``--all`` on meta, the cells spread over worker processes (spawned:
+    the parent holds a CUDA context); returns the cells by key and the
+    sweep's host seconds."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.configs import ARCHS, SHAPES
+
+    cells = sorted(((a, s) for a in ARCHS for s in SHAPES),
+                   key=lambda c: (not c[0].startswith(_SLOW_FIRST),
+                                  c[1] not in ("train_4k", "prefill_32k")))
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_dry_worker_init, initargs=(str(src),)) as pool:
+        futures = {f"{a}|{s}|1xgpu": pool.submit(_dry_cell, a, s, hbm)
+                   for a, s in cells}
+        out = {k: f.result() for k, f in futures.items()}
+    return out, time.perf_counter() - t0
+
+
+def _outside_bytes() -> int:
+    """What the card holds before a cell's inputs are made (what earlier
+    phases left allocated: cuBLAS workspaces, cached tables, the kernels'
+    counters): subtracted from ``max_memory_allocated``, so that the
+    measured peak is the cell's own, inputs included, as the dry run
+    counts it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _outside_owners(top: int = 8) -> dict:
+    """The CUDA storages that Python objects still reach (``gc``), grouped
+    by their tensors' (shape, dtype), largest first: who holds what
+    :func:`_outside_bytes` finds before the phase (allocations made in C++
+    alone, such as a CUDA graph's pool or cuBLAS's workspace, show only
+    in the difference)."""
+    import warnings
+
+    seen, groups = set(), collections.Counter()
+    with warnings.catch_warnings():  # deprecated aliases warn on isinstance
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            try:
+                if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                    continue
+                st = obj.untyped_storage()
+            except Exception:  # noqa: BLE001 — a lazy proxy object
+                continue
+            if st.data_ptr() in seen:
+                continue
+            seen.add(st.data_ptr())
+            groups[f"{tuple(obj.shape)} {obj.dtype}"] += st.nbytes()
+    return {"reached_bytes": sum(groups.values()),
+            "largest": groups.most_common(top)}
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(t.nelement() * t.element_size() for _, t in _leaves(tree))
+
+
+def _dry_train_card(cfg, shape, placement) -> dict:
+    """One eager train step of ``cfg`` at ``shape`` on the card (remat off,
+    AdamW's defaults, the state and batch made first) under ``placement``
+    (slot_to_expert, expert_to_slot): the bytes of what the card holds and
+    the step's peak (see :func:`_outside_bytes`); the gradients' bytes are
+    those of one autograd pass on the card after the step."""
+    from repro_torch.models import apply_placement, init_params, loss_fn
+    from repro_torch.training import (
+        AdamWConfig, init_train_state, make_train_step)
+
+    outside = _outside_bytes()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    s2e, e2s = placement
+    params["blocks"]["moe"] = apply_placement(params["blocks"]["moe"], s2e)
+    placements = torch.from_numpy(e2s).cuda()
+    state = init_train_state(params, AdamWConfig())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S = shape.global_batch, shape.seq_len
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    held = {"params": _tree_nbytes(state["params"]),
+            "moments": _tree_nbytes({"mu": state["opt"]["mu"],
+                                     "nu": state["opt"]["nu"]})}
+    step = make_train_step(cfg, AdamWConfig(), remat=False)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    _, metrics = step(state, batch, placements)
+    e.record()
+    torch.cuda.synchronize()
+    held.update(peak=torch.cuda.max_memory_allocated() - outside,
+                outside=outside, before_step=base - outside,
+                step_ms=s.elapsed_time(e), loss=float(metrics["loss"]))
+    loss, _ = loss_fn(state["params"], batch, cfg, placements, remat=False)
+    grads = torch.autograd.grad(loss,
+                                [w for _, w in _leaves(state["params"])])
+    held["grads"] = sum(g.nelement() * g.element_size() for g in grads)
+    return held
+
+
+def _dry_decode_card(cfg, shape) -> dict:
+    """One eager dense decode step of ``cfg`` at ``shape`` on the card
+    (identity placement): the bytes it holds and the step's peak."""
+    from repro_torch.models import decode_step, init_decode_cache, init_params
+    from repro_torch.models.moe import identity_placement
+
+    outside = _outside_bytes()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    caches = init_decode_cache(cfg, shape.global_batch, shape.seq_len,
+                               device="cuda")
+    placements = identity_placement(cfg, cfg.num_layers, device="cuda")
+    tokens = torch.zeros((shape.global_batch, 1), dtype=torch.int32,
+                         device="cuda")
+    cur_len = torch.tensor(shape.seq_len // 2, dtype=torch.int32,
+                           device="cuda")
+    held = {"params": _tree_nbytes(params), "caches": _tree_nbytes(caches)}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.no_grad():
+        s.record()
+        logits, _, _ = decode_step(params, caches, cur_len, tokens, cfg,
+                                   placements)
+        e.record()
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), "dryrun: decode logits not finite")
+    held.update(peak=torch.cuda.max_memory_allocated() - outside,
+                outside=outside, before_step=base - outside,
+                step_ms=s.elapsed_time(e))
+    return held
+
+
+def phase_dryrun(src: Path, train_step_ms: float):
+    """The meta-device dry run: ``--all`` (every cell ``ok`` or ``skipped``),
+    then granite's train cell at the ``train`` phase's shape (4 × 128,
+    remat off, capacity factor 2.0) and a dense decode cell of 8 rows,
+    each against one eager step on the card: parameter, gradient, moment
+    and cache bytes equal (the gradients' from one more autograd pass),
+    the peak within ±1 %. Returns the launch counts of the card steps."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    outside = _outside_bytes()
+    emit({"phase": "dryrun", "held_before_phase_bytes": outside,
+          "held_by_python": _outside_owners()})
+    props = torch.cuda.get_device_properties(0)
+    hbm = (int(props.total_memory), f"cuda:0 total_memory ({props.name})")
+    cells, sweep_s = _dry_sweep(src, hbm)
+    for key, cell in cells.items():
+        print(dryrun.cell_line(key, cell), flush=True)
+    status = collections.Counter(c["status"] for c in cells.values())
+    check(status["error"] == 0,
+          f"dryrun: cells in error: "
+          f"{[k for k, c in cells.items() if c['status'] == 'error']}")
+    check(status == {"ok": 33, "skipped": 7}, f"dryrun: statuses {status}")
+    fits = sorted(k for k, c in cells.items()
+                  if c["status"] == "ok" and c["fits_hbm"])
+    emit({"phase": "dryrun", "sweep": "all", "device": "meta",
+          "cells": len(cells), "statuses": dict(status),
+          "sweep_host_s": sweep_s, "workers": DRYRUN_WORKERS,
+          "cell_host_s_max": max(c.get("host_s", 0.0) for c in cells.values()),
+          "fits_hbm": fits, "hbm_bytes": hbm[0]})
+
+    base = get_config(ARCH)
+    train_cfg = dataclasses.replace(base, capacity_factor=2.0)
+    train_shape = ShapeSpec("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    decode_shape = ShapeSpec("decode_card", DRYRUN_DECODE_LEN, 8, "decode")
+    rows = {}
+    ops.reset_launch_counts()
+    for tag, cfg, shape in (("train", train_cfg, train_shape),
+                            ("decode", base, decode_shape)):
+        cell = dryrun.run_cell(ARCH, shape, config=cfg, remat=False, hbm=hbm)
+        check(cell["status"] == "ok", f"dryrun {tag}: {cell}")
+        mem = cell["memory"]
+        if tag == "train":
+            card = _dry_train_card(cfg, shape, launch_train.placement(
+                cfg.num_layers, cfg.num_virtual_experts,
+                TRAIN_PLACEMENT_SEED))
+            pairs = {"params": mem["params_bytes"], "grads": mem["grads_bytes"],
+                     "moments": mem["moments_bytes"]}
+        else:
+            card = _dry_decode_card(cfg, shape)
+            pairs = {"params": mem["params_bytes"],
+                     "caches": mem["caches_bytes"]}
+        for name, predicted in pairs.items():
+            check(predicted == card[name],
+                  f"dryrun {tag}: {name} {predicted} B predicted, "
+                  f"{card[name]} B on the card")
+        err = mem["peak_bytes"] / card["peak"] - 1.0
+        check(abs(err) <= DRYRUN_PEAK_TOL,
+              f"dryrun {tag}: peak {mem['peak_bytes']} B predicted, "
+              f"{card['peak']} B measured ({err:+.3%})")
+        rows[tag] = {"shape": dataclasses.asdict(shape),
+                     "predicted": mem, "card": card, "peak_rel_err": err,
+                     "flops": cell["cost"]["flops"],
+                     "bytes": cell["cost"]["bytes"],
+                     "ops": cell["cost"]["ops"], "host_s": cell["host_s"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    # the train step's forward, the gradient pass's forward, a decode step
+    calls = base.num_layers * 3
+    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
+          f"dryrun: launches {counts}, expected {calls} of K1 and K2")
+    flops = rows["train"]["flops"]
+    emit({"phase": "dryrun", "config": ARCH, "cells": rows,
+          "train_flops": flops, "train_step_ms_median": train_step_ms,
+          "train_tflop_per_s": flops / (train_step_ms / 1e3) / 1e12,
+          "launches": counts})
+    # what the card still holds, then without cuBLAS's workspaces (one for
+    # each stream cuBLAS has run on, kept until cleared)
+    held = _outside_bytes()
+    torch._C._cuda_clearCublasWorkspaces()
+    emit({"phase": "dryrun", "held_after_phase_bytes": held,
+          "held_without_cublas_workspaces_bytes": _outside_bytes()})
+    emit({"phase": "dryrun", "ok": True, "bytes_equal": True,
+          "peak_within": DRYRUN_PEAK_TOL,
+          "seconds": time.perf_counter() - t0})
     return counts
+
+
+# ------------------------------------------------------------------ examples
+def _run_example(name: str, argv: list[str]):
+    """``examples/<name>`` in this process on the card (runpy), its
+    standard output captured and echoed; returns (its globals, its
+    lines)."""
+    import contextlib
+    import io
+    import runpy
+
+    path = ROOT / "examples" / name
+    buf = io.StringIO()
+    old = sys.argv
+    sys.argv = [str(path), *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = old
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  {name}: {line}", flush=True)
+    return out, lines
+
+
+def phase_examples():
+    """``torch_quickstart.py`` and ``torch_serve_moe.py --requests 4`` on the
+    card: the data plane's Δ under the GEM placement is 0, every request
+    is served, and K1/K2 launched."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    start = time.perf_counter()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cwd = Path.cwd()
+        os.chdir(d)  # the quickstart writes its Chrome trace here
+        try:
+            qs, qs_lines = _run_example("torch_quickstart.py", [])
+        finally:
+            os.chdir(cwd)
+    qs_s = time.perf_counter() - t0
+    check(qs["device"].type == "cuda", "examples: the quickstart left the card")
+    check(qs["delta"] == 0.0,
+          f"examples: data plane Δ {qs['delta']} under the GEM placement")
+    check(len(qs["done"]) == 8 and all(len(r.generated) > 0 for r in qs["done"]),
+          "examples: the quickstart did not serve every request")
+    qs_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    _, sv_lines = _run_example("torch_serve_moe.py", ["--requests", "4"])
+    sv_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(any(x.startswith("served 4 requests in ") for x in sv_lines),
+          "examples: torch_serve_moe.py did not serve 4 requests")
+    check(qs_counts["moe_ffn"] > 0 and qs_counts["topk_router_stats"] > 0,
+          f"examples: the quickstart launched {qs_counts}")
+    check(counts["moe_ffn"] > qs_counts["moe_ffn"]
+          and counts["topk_router_stats"] > qs_counts["topk_router_stats"],
+          f"examples: torch_serve_moe.py launched nothing: {counts}")
+    check(_counters_at_zero(), "examples: a K2 arrival counter is not 0")
+    emit({"phase": "examples", "quickstart": qs_lines[-4:],
+          "quickstart_s": qs_s, "quickstart_launches": qs_counts,
+          "serve_moe": sv_lines[:3], "serve_moe_s": sv_s,
+          "launches": counts, "data_plane_delta": qs["delta"]})
+    emit({"phase": "examples", "ok": True,
+          "seconds": time.perf_counter() - start})
+    return counts
+
+
+# ---------------------------------------------------------------- collective
+COLLECTIVE_LAYERS = 4
+
+
+def _collective_engine(cfg, via):
+    """The port's launcher's one-shot GEM engine (seed-0 weights, the
+    emulated 4-device fleet at high variability, 8 requests of 32 new
+    tokens) with ``migration_via=via``."""
+    from repro_torch.core import GEMConfig
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    eng = ServingEngine(
+        params, cfg,
+        EngineConfig(max_batch=8, max_len=128,
+                     gem=GEMConfig(trace_length=16, num_restarts=10),
+                     placement_policy="gem", other_time_per_step=2e-4,
+                     migration_via=via),
+        profile=launcher.emulated_profile("high", 4), num_devices=4,
+        device="cuda",
+    )
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, 32))),
+                   max_new_tokens=32)
+    return eng
+
+
+def phase_collective():
+    """The one-shot replan scenario at full width, 4 layers, under
+    ``migration_via="collective"`` and ``"host"``: equal tokens, equal rows
+    after the swap, equal migration records saying ``"via": "host"``, and
+    K1/K2 launched on every MoE layer call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=COLLECTIVE_LAYERS,
+                              decode_capacity_factor=4.0)
+    runs, counts = {}, {}
+    for via in ("collective", "host"):
+        eng = _collective_engine(cfg, via)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[via] = ops.launch_counts()
+        calls = cfg.num_layers * (eng.prefill_count + eng.decode_count)
+        check(len(done) == 8 and all(len(r.generated) == 32 for r in done),
+              f"collective {via}: not every request finished")
+        check(counts[via]["moe_ffn"] == calls
+              and counts[via]["topk_router_stats"] == calls,
+              f"collective {via}: launches {counts[via]} != {calls}")
+        check(eng.placement_applied and len(eng.migration_records) == 1,
+              f"collective {via}: records {eng.migration_records}")
+        runs[via] = (eng, {r.uid: r.generated for r in done}, wall)
+    (coll, coll_tok, coll_s), (host, host_tok, host_s) = (
+        runs["collective"], runs["host"])
+    check(coll_tok == host_tok, "collective: tokens differ from host")
+    check(coll.migration_records == host.migration_records,
+          "collective: migration records differ from host")
+    check(all(r["via"] == "host" for r in coll.migration_records),
+          f"collective: records {coll.migration_records}")
+    for name in ("w_gate", "w_up", "w_down"):
+        check(same_bits(coll.params["blocks"]["moe"][name],
+                        host.params["blocks"]["moe"][name]),
+              f"collective: {name} rows differ after the swap")
+    check(torch.equal(coll.placements, host.placements),
+          "collective: router tables differ")
+    s2e = np.stack([p.slot_to_expert() for p in coll.current_placements])
+    check(bool((s2e != np.arange(cfg.num_virtual_experts)).any()),
+          "collective: the placement is identity")
+    check(coll.graph_capture_counts == {"decode": 1, "prefill": 0,
+                                        "migrate": 0},
+          f"collective: captures {coll.graph_capture_counts}")
+    emit({"phase": "collective", "config": ARCH, "layers": cfg.num_layers,
+          "records": coll.migration_records, "wall_s": coll_s,
+          "host_wall_s": host_s, "launches": counts["collective"],
+          "host_launches": counts["host"]})
+    emit({"phase": "collective", "ok": True, "tokens_equal": True,
+          "rows_equal": True, "records_equal": True,
+          "seconds": time.perf_counter() - start})
+    return counts["collective"]
 
 
 def main(argv=None) -> int:
@@ -2347,7 +2792,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     swa_launches = phase_swa()
     families_launches = phase_families()
-    train_launches = phase_train()
+    train_launches, train_step_ms = phase_train()
+    dryrun_launches = phase_dryrun(src, train_step_ms)
+    examples_launches = phase_examples()
+    collective_launches = phase_collective()
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -2369,6 +2817,9 @@ def main(argv=None) -> int:
             "swa_launches": swa_launches[name],
             "families_launches": families_launches[name],
             "train_launches": train_launches[name],
+            "dryrun_launches": dryrun_launches[name],
+            "examples_launches": examples_launches[name],
+            "collective_launches": collective_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,5 +1,5 @@
 """Architecture registry of the port: every config the JAX package serves,
-with its smoke reduction."""
+with its smoke reduction, and the dry run's shape table."""
 from __future__ import annotations
 
 from . import (
@@ -14,7 +14,7 @@ from . import (
     qwen3_32b,
     zamba2_1_2b,
 )
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeSpec, shape_applicable
 
 _MODULES = {
     "musicgen-medium": musicgen_medium,
@@ -42,4 +42,12 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _MODULES[name].smoke()
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "ModelConfig",
+    "ShapeSpec",
+    "get_config",
+    "get_smoke_config",
+    "shape_applicable",
+]

@@ -5,13 +5,15 @@ TPU-only knobs: there is no ``moe_backend`` (the tensor's device picks the
 hand-written kernel or its plain PyTorch version, see
 :mod:`repro_torch.kernels.ops`) and no Pallas tile sizes (the Hopper
 kernels choose their own tiles from the shapes they are given).
+:class:`ShapeSpec`, :data:`SHAPES` and :func:`shape_applicable` are the JAX
+package's dry-run shape table, copied as they are.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "shape_applicable"]
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
 
@@ -129,3 +131,26 @@ class ModelConfig:
             return (total + self.num_layers * (per_layer_ssm + D)
                     + attn + 3 * D * self.d_ff + 2 * D)
         return total + self.num_layers * (attn + ffn + 2 * D)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(config: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether an (arch × shape) cell runs, per the assignment rules."""
+    if shape.name == "long_500k" and not config.sub_quadratic:
+        return False, "skipped(full-attn): 500k decode needs sub-quadratic attention"
+    return True, ""

@@ -9,7 +9,10 @@ __all__ = ["resolve_device", "current_stream_handle"]
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → the CUDA device, and an error when there is none: the
-    port never carries on on the CPU unless ``device="cpu"`` is passed."""
+    port never carries on on the CPU unless ``device="cpu"`` is passed.
+    ``"meta"`` (shapes and dtypes only, nothing allocated, nothing
+    computed) is taken when asked for by name: the dry run
+    (:mod:`repro_torch.launch.dryrun`) runs the step functions there."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -20,7 +23,7 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

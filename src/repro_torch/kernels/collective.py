@@ -17,16 +17,76 @@ pre-batch rows, so swaps, cycles and one-to-many broadcasts are exact; an
 identity layer issues no copy.
 The extra memory is at most one layer's rows of one weight, and the caller
 keeps the same tensor objects. An online batch of ``k`` swaps thus moves
-``2k`` rows per weight instead of rewriting the pool. The collective path
-over a mesh (and with it ``CollectiveStats``) waits for the multi-device
-port.
+``2k`` rows per weight instead of rewriting the pool.
+
+:class:`CollectiveStats` and :func:`stats_for_dense_sources` are the JAX
+module's traffic accounting, copied as they are: what a batch's minimal
+row-level schedule (:func:`repro_torch.online.migration.lower_row_sources`)
+ships between shards. On one card nothing crosses an interconnect, so the
+serving engine only feeds them a measurement when rows are sharded over
+devices; the exchange itself over a mesh waits for the multi-card port.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-__all__ = ["MigrationExecutable"]
+from ..online.migration import lower_row_sources
+
+__all__ = ["CollectiveStats", "MigrationExecutable", "stats_for_dense_sources"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveStats:
+    """What one executed schedule actually moved (measured, not modeled)."""
+
+    rows_rewritten: int  # slots whose weight row changed
+    cross_rows: int  # rows shipped over the interconnect (ppermute payload)
+    local_rows: int  # rows copied within their own shard's HBM
+    rounds: int  # ppermute rounds (collective launches)
+    payload_bytes: int  # interconnect bytes across all weight arrays
+
+    def __add__(self, other: "CollectiveStats") -> "CollectiveStats":
+        return CollectiveStats(
+            self.rows_rewritten + other.rows_rewritten,
+            self.cross_rows + other.cross_rows,
+            self.local_rows + other.local_rows,
+            self.rounds + other.rounds,
+            self.payload_bytes + other.payload_bytes,
+        )
+
+    @staticmethod
+    def zero() -> "CollectiveStats":
+        return CollectiveStats(0, 0, 0, 0, 0)
+
+
+def stats_for_dense_sources(src, num_shards: int, row_bytes: int):
+    """Per-layer measured traffic for a dense (L, S) row-source operand.
+
+    The *accountable* traffic — what a row-level transport would ship, and
+    what the cost model prices — is the minimal schedule each layer's map
+    lowers to (the JAX package's dense ``all_to_all`` ships more on the
+    wire). Returns ``[(layer, CollectiveStats), …]`` for
+    layers whose map is not the identity (``row_bytes`` = one slot's
+    bytes summed over the weight arrays).
+    """
+    src = np.asarray(src)
+    out = []
+    for layer in range(src.shape[0]):
+        row = src[layer]
+        if np.array_equal(row, np.arange(row.shape[0])):
+            continue
+        sched = lower_row_sources(row, num_shards)
+        out.append((layer, CollectiveStats(
+            rows_rewritten=sched.cross_rows + sched.local_rows,
+            cross_rows=sched.cross_rows,
+            local_rows=sched.local_rows,
+            rounds=sched.num_rounds,
+            payload_bytes=sched.cross_rows * row_bytes,
+        )))
+    return out
 
 
 def _swap_tables(tables: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 A tensor on a CUDA device always reaches the hand-written kernel: the
 wrapper launches it or raises, and never falls back to the plain version.
 A tensor on the CPU takes the plain PyTorch version in
-:mod:`repro_torch.kernels.ref`, which is how the tests run here. This
+:mod:`repro_torch.kernels.ref`, which is how the tests run here; so does a
+tensor on the meta device (the dry run's shapes-only trace, where no
+kernel can launch and the plain version gives the same output shapes). This
 replaces ``repro/kernels/ops.py`` and the single-device branch of
 ``repro/kernels/sharded.py`` (no capacity or F padding: the kernels mask
 ragged shapes themselves). When an input requires a gradient, the call
@@ -33,9 +35,10 @@ __all__ = [
 
 
 def _on_cpu(t, what: str) -> bool:
+    """Whether ``t`` takes the plain version: on the CPU or on meta."""
     if t.is_cuda:
         return False
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return True
     raise ValueError(f"{what}: unsupported device {t.device}")
 

@@ -1,2 +1,3 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.train``."""
+"""Launchers of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` and the meta-device dry run
+``python -m repro_torch.launch.dryrun`` (with its ``specs`` and ``cost``)."""

@@ -9,9 +9,15 @@ from .model import (
     loss_fn,
     prefill,
 )
-from .moe import apply_placement, identity_placement, moe_layer
+from .moe import (
+    apply_layer_permutation,
+    apply_placement,
+    identity_placement,
+    moe_layer,
+)
 
 __all__ = [
+    "apply_layer_permutation",
     "apply_placement",
     "decode_step",
     "forward_train",

@@ -40,7 +40,11 @@ def normal_init(shape, scale: float, *, dtype, device,
     the ``dtype`` tensor, so no fp32 copy of the whole stack exists. On the
     CPU the two give the same values when a slice holds a multiple of 16
     elements; on the card the draws differ (the generator's offsets follow
-    each call's size)."""
+    each call's size). On the meta device nothing is drawn (no generator
+    can draw there): the result is an empty meta tensor of the shape and
+    ``dtype``, and ``generator`` may be None."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     numel = int(np.prod(shape))
     if numel * 4 <= WHOLE_DRAW_BYTES:
         w = torch.randn(shape, generator=generator, device=device,

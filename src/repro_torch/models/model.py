@@ -81,11 +81,14 @@ def _hybrid_split(config: ModelConfig) -> tuple[int, int]:
 def init_params(config: ModelConfig, *, seed: int = 0, device=None,
                 dtype=torch.bfloat16):
     """Random weights from a generator seeded with ``seed``, made on
-    ``device`` (the card unless ``device="cpu"``)."""
+    ``device`` (the card unless ``device="cpu"``). On ``device="meta"``
+    the tree holds shapes and dtypes only, and nothing is drawn."""
     L, D, V = config.num_layers, config.d_model, config.padded_vocab
     device = resolve_device(device)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
+    g = None
+    if device.type != "meta":
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
 
     def normal(shape, scale):
         return normal_init(shape, scale, dtype=dtype, device=device,

@@ -18,6 +18,8 @@ off the stacked weights, so one code path serves both pools.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -36,6 +38,7 @@ __all__ = [
     "init_moe",
     "moe_layer",
     "apply_placement",
+    "apply_layer_permutation",
     "identity_placement",
     "moe_layer_dense_ref",
     "MoEAux",
@@ -82,6 +85,50 @@ def apply_placement(moe_params, slot_to_expert):
         w = moe_params[name]
         s2e = torch.as_tensor(slot_to_expert, device=w.device).long()
         out[name] = torch.take_along_dim(w, s2e[:, :, None, None], dim=1)
+    return out
+
+
+_WARNED: set = set()
+
+
+def _warn_once(key, msg: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def apply_layer_permutation(moe_params, layer: int, perm, *,
+                            via: str = "host", stats_out: list | None = None):
+    """Apply one layer's row-source map to the stacked expert rows: row
+    ``s`` ← old row ``perm[s]`` (the online plane's partial placement
+    application, between decode steps). Returns a new dict whose three
+    expert weights are new tensors; ``moe_params`` is left as it was.
+
+    ``via``: ``"host"`` is one row gather per weight. ``"collective"`` asks
+    for the exchange over an interconnect; one card has no expert
+    sharding, so it warns once and takes the same gather, bit for bit,
+    and appends nothing to ``stats_out`` — what the JAX version does when
+    its policy has no live expert sharding. (The serving engine rewrites
+    its pool in place through
+    :class:`~repro_torch.kernels.collective.MigrationExecutable` instead.)
+    """
+    if via not in ("host", "collective"):
+        raise ValueError(f"via={via!r} not in ('host', 'collective')")
+    names = ("w_gate", "w_up", "w_down")
+    if via == "collective":
+        num_slots = int(moe_params[names[0]].shape[1])
+        _warn_once(
+            ("collective_fallback", num_slots),
+            "apply_layer_permutation(via='collective'): no live expert "
+            "sharding (one card) — falling back to the host row gather",
+        )
+    out = dict(moe_params)
+    for name in names:
+        w = moe_params[name]
+        rows = torch.as_tensor(np.asarray(perm), device=w.device).long()
+        new = w.clone()
+        new[layer] = w[layer].index_select(0, rows)
+        out[name] = new
     return out
 
 

@@ -174,9 +174,13 @@ def ssm_train(x, p, config: ModelConfig, *, return_cache: bool = False):
 
     cache = None
     if return_cache:
-        cw = config.ssm_conv
-        _, xs2, Bp2, Cp2, _ = _project(x[:, S - (cw - 1):], p)
-        cache = {"state": h, "conv_x": xs2, "conv_b": Bp2, "conv_c": Cp2}
+        # the conv inputs of the last cw − 1 tokens, projected again: only
+        # x, B and C (z and dt of those tokens are not kept)
+        tail = x[:, S - (config.ssm_conv - 1):]
+        cache = {"state": h,
+                 "conv_x": torch.matmul(tail, p["wx"]),
+                 "conv_b": torch.matmul(tail, p["wb"]),
+                 "conv_c": torch.matmul(tail, p["wc"])}
     return out, cache
 
 

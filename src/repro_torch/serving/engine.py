@@ -49,8 +49,12 @@ budgeted batches of at most ``migration.max_moves_per_step`` moved slots.
 Each batch is one dense (L, S) row-source map, identity but for its moved
 slots; the executable copies only those rows in place and the swapped
 tables are copied into the engine's one table tensor, so the captured
-decode step sees the new layout with no new capture. ``migration_via`` is
-``"host"``; ``"collective"`` raises until the multi-card path lands.
+decode step sees the new layout with no new capture. ``migration_via``
+``"host"`` and ``"collective"`` apply every batch the same way on one card,
+where no expert row crosses an interconnect: ``"collective"`` is the JAX
+engine without live expert sharding, and its records say ``"via":
+"host"``. ``set_true_interconnect`` injects the fabric that times a
+measured batch and the shed pass's transfer, as in the JAX engine.
 
 **Telemetry** (:mod:`repro_torch.telemetry`): the engine always holds a
 hub (``telemetry=None`` gives a disabled one, which records counters but
@@ -101,8 +105,8 @@ recaptures it.
 
 The GEM planes (replans, online, replication, shedding) need a MoE config
 and refuse the others, as the JAX engine does; a config without MoE
-layers serves with no control plane. Not here yet: the collective
-migration path.
+layers serves with no control plane. Not here yet: the row exchange over
+an interconnect between cards (the multi-card data plane).
 
 On a host without a GPU, ``tests/test_torch_online.py`` holds the online
 engine against the JAX engine in both decode modes
@@ -207,8 +211,10 @@ class EngineConfig:
     staggered_replan: bool = False  # load-drift replans re-search only the
     # layers the detector localises the shift to (OnlineConfig)
     # "host": batches apply as indexed row copies on the weights' device.
-    # "collective" (rows over an interconnect) raises NotImplementedError
-    # until the multi-card path lands
+    # "collective": rows over an interconnect between the cards that hold
+    # the expert shards; on one card there is no expert sharding, so it
+    # applies the same row copies (bit for bit) and its records say
+    # "via": "host", as the JAX engine's do without a live expert axis
     migration_via: str = "host"
     other_time_per_step: float = 0.0  # simulated non-MoE per-step latency
     # "auto" pages the KV cache on attention families without a sliding
@@ -259,12 +265,6 @@ class ServingEngine:
             raise ValueError(
                 f"migration_via={engine_config.migration_via!r} not in "
                 "('host', 'collective')"
-            )
-        if engine_config.migration_via == "collective":
-            raise NotImplementedError(
-                "migration_via='collective' is not ported yet: the row "
-                "exchange over an interconnect comes with the multi-card "
-                "path; 'host' applies every batch on the weights' device"
             )
         family_ok = (not (config.is_ssm or config.is_hybrid)
                      and config.sliding_window == 0)
@@ -380,6 +380,8 @@ class ServingEngine:
         self.profile = profile
         # ground truth, when a caller injects one that departs the profile
         self.true_profile: VariabilityProfile | None = None
+        # the injected ground-truth interconnect (set_true_interconnect)
+        self.true_interconnect: Any | None = None
         self.placement_applied = False
         # capacity-overflow shedding: (L,) int32 enables for the NEXT
         # step's shed pass; None when the plane is off, and the decode step
@@ -817,6 +819,32 @@ class ServingEngine:
         until the online plane's variability-drift detector repairs it."""
         self.true_profile = profile
 
+    def set_true_interconnect(self, bandwidth: float,
+                              base_overhead: float | None = None) -> None:
+        """Inject the *actual* interconnect when it departs the cost
+        model's configured assumption (a mis-specified fabric, a congested
+        link). Measured migration times and the shed pass's transfer then
+        come from this ground truth while the controller keeps pricing
+        with its believed bandwidth, until its bandwidth estimator learns
+        the real one from the measurements (with
+        ``MigrationConfig.calibrate_bandwidth``)."""
+        self.true_interconnect = dataclasses.replace(
+            self._cost_model,
+            bandwidth=float(bandwidth),
+            base_overhead=(self._cost_model.base_overhead
+                           if base_overhead is None
+                           else float(base_overhead)),
+        )
+
+    @property
+    def _measure_interconnect(self):
+        """The interconnect that times executed batches and shed
+        transfers: the injected ground truth, else the believed model."""
+        if self.true_interconnect is not None:
+            return self.true_interconnect
+        return (self.controller.cost_model
+                if self.controller is not None else self._cost_model)
+
     @property
     def _sim_profile(self) -> VariabilityProfile | None:
         return self.true_profile if self.true_profile is not None else self.profile
@@ -882,14 +910,13 @@ class ServingEngine:
                 tokens, shed_delta, prof, spd
             )
             # only rows that change device cross the interconnect, charged
-            # at the controller's (else the engine's) cost model: the port
-            # has no injected ground-truth interconnect
+            # at the measuring interconnect's bandwidth (the injected ground
+            # truth when there is one): the migration batches' rule
             cross_rows = float(
                 np.maximum(shed_device_deltas(shed_delta, spd), 0.0).sum()
             )
-            model = (self.controller.cost_model
-                     if self.controller is not None else self._cost_model)
-            transfer_s = cross_rows * self._shed_token_bytes / model.bandwidth
+            transfer_s = (cross_rows * self._shed_token_bytes
+                          / self._measure_interconnect.bandwidth)
             legacy = float(cost_mx.max(axis=1).sum())
             adjusted = float(adj_mx.max(axis=1).sum()) + transfer_s
             self._shed_total += total_shed
@@ -1032,7 +1059,7 @@ class ServingEngine:
         slot_to_expert = np.stack([p.slot_to_expert() for p in placements])
         self._apply_migration_sources(slot_to_expert.astype(np.int32),
                                       swap_tables=True)
-        # the swap moves weights: charge its modelled cost (the host path
+        # the swap moves weights: charge its modelled cost (one card
         # measures nothing) to the step that performs it
         moves = sum(
             len(cur.moved_slots(new))
@@ -1124,20 +1151,66 @@ class ServingEngine:
             self.placement_applied = True
         return decision.migration_cost
 
-    def _record_migration(self, moves: int, modeled_s: float) -> float:
-        """Record one applied batch on the telemetry hub; returns the charge
-        for the step. The host path measures nothing: the cost model's
-        charge stands."""
+    def _record_migration(self, moves: int, modeled_s: float, stats=(),
+                          cost_mx: np.ndarray | None = None) -> float:
+        """Record one applied batch's measured-vs-modeled cost on the
+        telemetry hub; returns the charge for the step.
+
+        ``stats`` are the batch's measured per-layer
+        :class:`~repro_torch.kernels.collective.CollectiveStats`. On one
+        card no row crosses an interconnect, so every caller here passes
+        none and the modelled cost is charged, as the JAX engine's host
+        path and its collective path without a live expert axis do. A
+        measured batch (the multi-card data plane's) is timed by the
+        (possibly injected) true interconnect on the payload its schedules
+        shipped; the double-buffered copy can hide
+        ``migration.overlap_fraction`` of its transfer behind this step's
+        MoE compute (``cost_mx``'s per-layer maxima), so only the rest is
+        charged, and the measurement feeds the controller's bandwidth
+        estimator. The JAX engine's ``_record_migration``."""
         record: dict[str, Any] = {
-            "step": self.step_count, "via": "host", "moves": int(moves),
-            "modeled_s": float(modeled_s), "sim_time": float(self.sim_time),
+            "step": self.step_count,
+            "via": self.ecfg.migration_via if stats else "host",
+            "moves": int(moves),
+            "modeled_s": float(modeled_s),
         }
+        charge = float(modeled_s)
         tel = self.telemetry
+        if stats:
+            total = stats[0]
+            for st in stats[1:]:
+                total = total + st
+            mi = self._measure_interconnect
+            measured_s = mi.cost_bytes(total.payload_bytes)
+            transfer_s = total.payload_bytes / mi.bandwidth
+            compute_s = (float(cost_mx.max(axis=1).sum())
+                         if cost_mx is not None else 0.0)
+            overlap_s = min(
+                self.ecfg.migration.overlap_fraction * transfer_s, compute_s)
+            charge = max(measured_s - overlap_s, 0.0)
+            record.update(
+                measured_s=float(measured_s),
+                charged_s=float(charge),
+                payload_bytes=int(total.payload_bytes),
+                cross_rows=int(total.cross_rows),
+                local_rows=int(total.local_rows),
+                rounds=int(total.rounds),
+                overlap_s=float(overlap_s),
+            )
+            tel.counter("migrate.payload_bytes").inc(
+                float(total.payload_bytes))
+            tel.counter("migrate.rounds").inc(float(total.rounds))
+            if self.controller is not None:
+                self.controller.observe_migration_measurement(
+                    total.payload_bytes, measured_s, modeled_s=modeled_s,
+                    step=self.step_count,
+                )
         tel.counter("migrate.applies").inc()
+        record["sim_time"] = float(self.sim_time)
         tel.record_migration(record)
-        tel.emit_span("migrate", self.sim_time, float(modeled_s),
-                      moves=record["moves"], via="host")
-        return float(modeled_s)
+        tel.emit_span("migrate", self.sim_time, charge,
+                      moves=record["moves"], via=record["via"])
+        return charge
 
     # ------------------------------------------------------------------
     def step(self) -> dict[str, Any]:
@@ -1322,8 +1395,9 @@ class ServingEngine:
         """Step-level latency stats (``mean_tpot`` etc. are *step*
         latencies) merged with the per-request SLO percentiles and the
         paged-pool counters, the online plane's replan and migration totals,
-        the shed totals, and the attribution and regret summaries: the JAX
-        engine's report without the collective plane's keys."""
+        the shed totals, the measured migration totals (when a batch was
+        measured), and the attribution and regret summaries: the JAX
+        engine's report."""
         lat = np.asarray(self.sim_step_latencies)
         lat = lat[lat > 0]
         e2e = np.asarray(
@@ -1352,6 +1426,18 @@ class ServingEngine:
                 shed_overflow_tokens=float(self._shed_overflow_total),
                 shed_saved_s=float(self._shed_saved_s),
                 shed_transfer_s=float(self._shed_transfer_s),
+            )
+        measured = [r for r in self.migration_records if "measured_s" in r]
+        if measured:
+            out.update(
+                migration_modeled_s=float(
+                    sum(r["modeled_s"] for r in measured)),
+                migration_measured_s=float(
+                    sum(r["measured_s"] for r in measured)),
+                migration_payload_bytes=float(
+                    sum(r["payload_bytes"] for r in measured)),
+                migration_overlap_s=float(
+                    sum(r["overlap_s"] for r in measured)),
             )
         if self.attribution is not None and self.attribution.steps > 0:
             # the per-device straggler tally (a list) stays on the

@@ -231,8 +231,6 @@ def test_telemetry_hub_leaves_tokens_alone(runs):
 REFUSALS = {
     "online-without-profile": (dict(online=True), False, ValueError,
                                "online=True"),
-    "collective": (dict(online=True, migration_via="collective"), True,
-                   NotImplementedError, "multi-card"),
     "unknown-via": (dict(migration_via="nvlink"), True, ValueError,
                     "migration_via"),
     # replication is ported; the JAX engine's refusal of it under a policy

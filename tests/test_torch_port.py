@@ -35,6 +35,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.training, repro_torch.checkpoint\n"
         "import repro_torch.kernels.autograd, repro_torch.tree\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.specs\n"
+        "import repro_torch.launch.cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -58,7 +60,8 @@ FORBIDDEN = [
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+    + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_port_source_has_no_jax_or_library_attention(path):
