@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs fourteen phases, each printing JSON lines:
+runs fifteen phases, each printing JSON lines:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -22,7 +22,9 @@ runs fourteen phases, each printing JSON lines:
    also held and timed at the replicated pool's S = 84 slots (decode C =
    3, prefill C = 2) and at Mixtral-8x7B's shapes, (16, 4, 4096)×(16,
    4096, 7168) at decode and C = 1,279 for the ``swa`` phase's longest
-   prompt, and K2 at Mixtral's (8, 8) and (4,090, 8), k 2.
+   prompt, and K2 at Mixtral's (8, 8) and (4,090, 8), k 2. K1 is also
+   held and timed at one rank's share of the ``mesh`` phase's (1, 4)
+   decode, (20, 4, 1536)×(20, 1536, 256).
 3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
    engine on the card (kernels) and on the CPU (plain versions), same
    seeded weights and placement, must give equal greedy tokens. Then the
@@ -176,6 +178,30 @@ runs fourteen phases, each printing JSON lines:
    and tables after the swap, equal migration records (``"via":
    "host"``: one card has no expert sharding), K1/K2 launched on every MoE
    layer call, one capture.
+15. ``mesh`` — the expert-parallel data plane across ranks
+   (``repro_torch.launch.mesh``, ``sharding``, ``kernels/sharded.py``):
+   full granite, bf16, the ``collective`` scenario at 32 layers (8
+   requests of 32 new tokens, GEM's one-shot replan at step 16 under
+   ``migration_via="collective"``), served by 4 ranks that share this card
+   over ``gloo`` (NCCL puts no two ranks on one GPU; the collectives stage
+   through pinned host buffers) in ``decode_mode="python"``, each rank
+   drawing its shard of the same seed-0 weights a layer at a time. At
+   (1, 4), GEM over the 4 emulated devices, each rank holding 20 of the 80
+   slots: tokens equal a one-process run on the card (dense cache, the
+   same draws), its logits' largest |Δ| is printed, each rank holds
+   558,173,184 + 1,509,949,440 parameter bytes, its slot rows after the
+   swap have the one-process rows' checksums, every rank's tables are the
+   one-process tables, the measured ``cross_rows`` and ``payload_bytes``
+   equal ``stats_for_dense_sources(src, 4, 2,359,296)`` and the ranks
+   shipped exactly those rows, K1/K2 launched 32 × (prefills + steps) a
+   rank with K1 on (20, C, 1536)×(20, 1536, 256), K2's counters are at 0,
+   and an engine in ``"scan"`` over gloo on the card raises
+   ``ValueError``. At (2, 2), GEM over 2 devices: the same checks against
+   a one-process run that dispatches the batch in 2 groups, each rank
+   holding 558,173,184 + 3,019,898,880 bytes. NCCL ``"scan"`` at (1, 4)
+   runs only with 4 cards (``"not run: N card(s)"`` otherwise). It prints
+   each run's decode-step medians, walls and staged bytes: times of 4
+   processes sharing one card, not of a multi-card fleet.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -412,6 +438,9 @@ def phase_kernels():
     # token rows) plus the fp32 path and a ragged F
     ffn_cases = [
         ("decode", S, 4, D, F, torch.bfloat16),
+        # one rank's expert shard of the ``mesh`` phase's (1, 4) decode:
+        # the shape every card of an expert-parallel deployment runs
+        ("decode_rank", S // MESH_MODEL, 4, D, F, torch.bfloat16),
         ("prefill", S, 32, D, F, torch.bfloat16),
         ("decode_fp32", S, 4, D, F, torch.float32),
         ("ragged_c1", S, 1, D, F, torch.bfloat16),
@@ -446,7 +475,8 @@ def phase_kernels():
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
                "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
-        if tag in ("decode", "prefill", "train", *c_rep, *m_cap):
+        if tag in ("decode", "decode_rank", "prefill", "train", *c_rep,
+                   *m_cap):
             x, wg, wu, wd = args
             n_kernel, n_plain, n_library = iters.get(tag, (50, 20, 50))
 
@@ -898,10 +928,13 @@ def _checksum(tree) -> int:
     return total
 
 
-def _parent_draw(cfg, seed, dtype):
+def _parent_draw(cfg, seed, dtype, *, experts_by_layer=False):
     """The weights as the parent commit drew them: each stacked weight
     whole in fp32 from one generator, scaled and cast, in
-    ``init_params``' order (embed, attention, MoE)."""
+    ``init_params``' order (embed, attention, MoE). ``experts_by_layer``
+    draws the expert stacks a layer at a time, as every rank of a mesh
+    that shards the pool draws them (keeping its slots): the whole tree
+    the ranks' shards are slices of."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -922,9 +955,15 @@ def _parent_draw(cfg, seed, dtype):
     attn = {"wq": normal((L, D, H * hd), s), "wk": normal((L, D, KV * hd), s),
             "wv": normal((L, D, KV * hd), s), "wo": normal((L, H * hd, D), so)}
     s_out = float(1.0 / np.sqrt(cfg.expert_d_ff))
+    def experts(shape, scale):
+        if not experts_by_layer:
+            return normal(shape, scale)
+        return torch.stack([normal(shape[1:], scale) for _ in range(shape[0])])
+
     moe = {"router": normal((L, D, cfg.num_experts), s),
-           "w_gate": normal((L, Ev, D, Fv), s), "w_up": normal((L, Ev, D, Fv), s),
-           "w_down": normal((L, Ev, Fv, D), s_out)}
+           "w_gate": experts((L, Ev, D, Fv), s),
+           "w_up": experts((L, Ev, D, Fv), s),
+           "w_down": experts((L, Ev, Fv, D), s_out)}
     return {"embed": embed, "final_norm": zeros(D),
             "blocks": {"ln1": zeros(L, D), "ln2": zeros(L, D), "attn": attn,
                        "moe": moe}}
@@ -2757,6 +2796,362 @@ def phase_collective():
     return counts["collective"]
 
 
+# --------------------------------------------------------------------- mesh
+# The expert-parallel data plane across ranks: full granite, bf16, served
+# by 4 ranks that share this one card over gloo (NCCL puts no two ranks on
+# one GPU), the exchange staged through the host; GEM's one-shot replan at
+# step 16 moves rows between ranks. Its times are those of 4 processes
+# sharing one card, not of a multi-card fleet.
+MESH_MODEL = 4
+MESH_REQUESTS, MESH_NEW = 8, 32
+MESH_TIMEOUT_S = 600.0
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def _mesh_engine(params, cfg, policy, nd, mode, device=None,
+                 kv_mode="auto"):
+    """The ``replan`` scenario's one-shot GEM engine (the emulated fleet
+    at high variability over ``nd`` devices, the replan at step 16) with
+    ``migration_via="collective"``, and its 8 requests."""
+    from repro_torch.core import GEMConfig
+    from repro_torch.launch.serve import emulated_profile
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    eng = ServingEngine(
+        params, cfg,
+        EngineConfig(max_batch=8, max_len=128,
+                     gem=GEMConfig(trace_length=16, num_restarts=10),
+                     placement_policy="gem", other_time_per_step=2e-4,
+                     migration_via="collective", decode_mode=mode,
+                     kv_mode=kv_mode),
+        policy=policy, profile=emulated_profile("high", nd), num_devices=nd,
+        device=device,
+    )
+    rng = np.random.default_rng(0)
+    for _ in range(MESH_REQUESTS):
+        eng.submit(rng.integers(0, cfg.vocab_size,
+                                size=int(rng.integers(8, 32))),
+                   max_new_tokens=MESH_NEW)
+    return eng
+
+
+def _mesh_drive(eng, logits=None):
+    """Run the engine with its decode steps timed on the host clock (each
+    step synchronised), each step's logits kept on the host when asked.
+    Returns (step ms, wall s)."""
+    inner, step_ms = eng._decode, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if logits is not None:
+            logits.append(out[0].float().cpu())
+        return out
+
+    eng._decode = timed
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == MESH_REQUESTS
+          and all(len(r.generated) == MESH_NEW for r in done),
+          "mesh: not every request finished")
+    return step_ms, wall
+
+
+def _param_bytes(params) -> dict:
+    moe = params["blocks"]["moe"]
+    expert = sum(moe[n].nelement() * moe[n].element_size()
+                 for n in _EXPERT_WEIGHTS)
+    return {"replicated": _tree_nbytes(params) - expert, "expert": expert}
+
+
+def _mesh_rank(mesh, sc):
+    """One rank of a ``mesh`` run: builds its shard of full granite (the
+    same seed-0 draws as one process, expert stacks a layer at a time),
+    checks the gloo + ``"scan"`` guard when asked, serves the scenario and
+    returns what the parent checks: tokens, tables, records, launches and
+    K1's shapes, its rows' checksums, staged bytes, step times, and the
+    largest |Δ| of its logits against the one-process run's."""
+    import repro_torch.kernels.sharded as sharded
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.sharding import ShardingPolicy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+    policy = ShardingPolicy(mesh=mesh)
+    params = init_params(cfg, seed=0, device=mesh.device,
+                         dtype=torch.bfloat16, policy=policy)
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "backend": mesh.backend, "param_bytes": _param_bytes(params)}
+    if sc["guard"]:
+        try:
+            _mesh_engine(params, cfg, policy, sc["nd"], "scan")
+            out["guard"] = "no error"
+        except ValueError as e:
+            out["guard"] = str(e)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shapes = set()
+    inner = sharded.moe_ffn
+
+    def recorded(x, wg, wu, wd):
+        shapes.add((tuple(x.shape), tuple(wg.shape)))
+        return inner(x, wg, wu, wd)
+
+    sharded.moe_ffn = recorded
+    eng = _mesh_engine(params, cfg, policy, sc["nd"], sc["mode"])
+    ops.reset_launch_counts()
+    mesh.staged_bytes = 0
+    logits = []
+    step_ms, wall = _mesh_drive(eng, logits)
+    sharded.moe_ffn = inner
+    ref = torch.load(sc["reference"]) if sc.get("reference") else None
+    moe = eng.params["blocks"]["moe"]
+    out.update(
+        tokens={r.uid: list(r.generated) for r in eng.finished},
+        tables=eng.placements.cpu().numpy(),
+        s2e=np.stack([p.slot_to_expert() for p in eng.current_placements]),
+        records=eng.migration_records,
+        launches=ops.launch_counts(),
+        calls=cfg.num_layers * (eng.prefill_count + eng.decode_count),
+        prefills=eng.prefill_count, decode_steps=eng.decode_count,
+        k1_shapes=sorted(shapes),
+        rows={n: _row_checksums(moe[n]).numpy() for n in _EXPERT_WEIGHTS},
+        staged_bytes=mesh.staged_bytes,
+        sent_rows=eng._migrate.sent_rows,
+        received_rows=eng._migrate.received_rows,
+        step_ms=step_ms, wall_s=wall,
+        captures=eng.graph_capture_counts,
+        counters_at_zero=_counters_at_zero(),
+        logits_max_abs_diff=(
+            max(float((a - b).abs().max()) for a, b in zip(logits, ref))
+            if ref is not None and len(ref) == len(logits) else None),
+    )
+    return out
+
+
+def _grouped_policy(groups: int):
+    """The one-process reference of a (d, m) run's dispatch: a policy
+    without a mesh whose data-axis size is d, so that one device
+    dispatches the batch in d groups, each with its own capacity."""
+    from repro_torch.sharding import ShardingPolicy
+
+    class Grouped(ShardingPolicy):
+        @property
+        def data_axis_size(self) -> int:
+            return groups
+
+    return Grouped(mesh=None)
+
+
+def _mesh_reference(cfg, nd, groups, store: Path):
+    """The scenario in one process on the card (``"python"``, the dense
+    cache the mesh run keeps): tokens, each step's logits (saved for the
+    ranks), each slot's row checksums and the tables after the swap."""
+    params = _parent_draw(cfg, 0, torch.bfloat16, experts_by_layer=True)
+    eng = _mesh_engine(params, cfg, _grouped_policy(groups), nd, "python",
+                       device="cuda", kv_mode="dense")
+    logits = []
+    step_ms, wall = _mesh_drive(eng, logits)
+    path = store / f"reference_{groups}.pt"
+    torch.save(logits, path)
+    moe = eng.params["blocks"]["moe"]
+    ref = {"tokens": {r.uid: list(r.generated) for r in eng.finished},
+           "tables": eng.placements.cpu().numpy(),
+           "rows": {n: _row_checksums(moe[n]).numpy() for n in _EXPERT_WEIGHTS},
+           "step_ms": step_ms, "wall_s": wall, "path": str(path),
+           "param_bytes": _param_bytes(params)}
+    del eng, params, moe, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _check_mesh_run(tag, res, ref, shape, row_bytes):
+    """What every rank of a mesh run must hold against the one-process
+    reference and the other ranks."""
+    from repro_torch.kernels.collective import stats_for_dense_sources
+
+    data, model = shape
+    first = res[0]
+    per = first["rows"]["w_gate"].shape[1]  # the slots a rank stores
+    for r in res:
+        check(r["tokens"] == ref["tokens"],
+              f"mesh {tag}: rank {r['rank']}'s tokens differ from one process")
+        check(np.array_equal(r["tables"], first["tables"])
+              and np.array_equal(r["tables"], ref["tables"]),
+              f"mesh {tag}: rank {r['rank']}'s tables differ")
+        mr = r["rank"] % model
+        for n in _EXPERT_WEIGHTS:
+            check(np.array_equal(r["rows"][n],
+                                 ref["rows"][n][:, mr * per:(mr + 1) * per]),
+                  f"mesh {tag}: rank {r['rank']}'s {n} rows differ from "
+                  "the one-process rows of its slots")
+        check(r["launches"]["moe_ffn"] == r["calls"]
+              and r["launches"]["topk_router_stats"] == r["calls"]
+              and r["launches"]["topk_router"] == 0,
+              f"mesh {tag}: rank {r['rank']} launches {r['launches']} != "
+              f"{r['calls']}")
+        # K1 is called once a dispatch group on the rank's slots
+        check(r["k1_shapes"] and all(x[0] == per and w[0] == per
+                                     for x, w in r["k1_shapes"]),
+              f"mesh {tag}: K1 shapes {r['k1_shapes']}")
+        check(r["counters_at_zero"], f"mesh {tag}: a K2 counter is not 0")
+        check(len(r["records"]) == 1 and r["records"][0]["step"] == 16
+              and r["records"][0]["via"] == "collective",
+              f"mesh {tag}: records {r['records']}")
+    check(bool((first["s2e"] != np.arange(first["s2e"].shape[1])).any()),
+          f"mesh {tag}: the placement is identity")
+    want = stats_for_dense_sources(first["s2e"], model, row_bytes)
+    cross = sum(st.cross_rows for _, st in want)
+    rec = first["records"][0]
+    check(rec["cross_rows"] == cross
+          and rec["payload_bytes"] == cross * row_bytes
+          and rec["payload_bytes"] == sum(st.payload_bytes for _, st in want),
+          f"mesh {tag}: measured {rec} != stats_for_dense_sources {cross}")
+    check(sum(r["sent_rows"] for r in res) == data * cross
+          and sum(r["received_rows"] for r in res) == data * cross,
+          f"mesh {tag}: the exchange shipped "
+          f"{sum(r['sent_rows'] for r in res)} rows, not {data} x {cross}")
+    return cross
+
+
+def phase_mesh(kernel_summary):
+    """The expert-parallel data plane across ranks: (1, 4) and (2, 2)
+    meshes of gloo ranks on this card in ``"python"`` against one-process
+    runs, the gloo + ``"scan"`` guard, and NCCL ``"scan"`` where 4 cards
+    exist."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    F = cfg.expert_d_ff // cfg.expert_tp
+    row_bytes = 3 * cfg.d_model * F * 2  # one slot's three bf16 rows
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    # every time below stands beside the cards it was taken on
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    launches = collections.Counter()
+    runs = {}
+    try:
+        for shape, nd in (((1, MESH_MODEL), MESH_MODEL), ((2, 2), 2)):
+            data, model = shape
+            tag = f"{data}x{model}"
+            t0 = time.perf_counter()
+            ref = _mesh_reference(cfg, nd, data, store)
+            ref_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = spawn(_mesh_rank, data, model, backend="gloo",
+                        device="cuda", store_dir=store / tag,
+                        args=({"nd": nd, "mode": "python",
+                               "guard": shape == (1, MESH_MODEL),
+                               "reference": ref["path"]},),
+                        timeout=MESH_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+            cross = _check_mesh_run(tag, res, ref, shape, row_bytes)
+            Ev = cfg.num_virtual_experts
+            want_bytes = {"replicated": 558_173_184,
+                          "expert": 6_039_797_760 // model}
+            for r in res:
+                check(r["param_bytes"] == want_bytes,
+                      f"mesh {tag}: rank {r['rank']} holds {r['param_bytes']}"
+                      f", not {want_bytes}")
+                launches.update(r["launches"])
+            check(ref["param_bytes"]["expert"] == 6_039_797_760,
+                  f"mesh {tag}: one process holds {ref['param_bytes']}")
+            check(all(x[2] == cfg.d_model and w == (Ev // model, cfg.d_model, F)
+                      for r in res for x, w in r["k1_shapes"]),
+                  f"mesh {tag}: K1 shapes {res[0]['k1_shapes']}")
+            if shape == (1, MESH_MODEL):
+                check(all("gloo" in r["guard"] for r in res),
+                      f"mesh {tag}: gloo + scan did not raise: "
+                      f"{[r['guard'] for r in res]}")
+            steps = [statistics.median(r["step_ms"]) for r in res]
+            runs[tag] = {
+                "shape": list(shape), "placement_devices": nd, "cards": cards,
+                "ranks": len(res), "decode_mode": "python",
+                "backend": "gloo", "transport": "4 processes sharing one "
+                "card, collectives staged through pinned host buffers",
+                "tokens_equal_one_process": True,
+                "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
+                "param_bytes_per_rank": res[0]["param_bytes"],
+                "tables_equal_all_ranks": True, "rows_equal": True,
+                "record": res[0]["records"][0], "cross_rows": cross,
+                "sent_rows": [r["sent_rows"] for r in res],
+                "staged_bytes": [r["staged_bytes"] for r in res],
+                "launches_per_rank": [r["launches"] for r in res],
+                "calls_per_rank": res[0]["calls"],
+                "prefills": res[0]["prefills"],
+                "decode_steps": res[0]["decode_steps"],
+                "k1_shapes": [[list(x), list(w)] for x, w in res[0]["k1_shapes"]],
+                "decode_step_ms_median_per_rank": steps,
+                "wall_s_per_rank": [r["wall_s"] for r in res],
+                "spawn_s": spawn_s,
+                "one_process_decode_step_ms_median":
+                    statistics.median(ref["step_ms"]),
+                "one_process_wall_s": ref["wall_s"], "one_process_s": ref_s,
+            }
+            if shape == (1, MESH_MODEL):
+                runs[tag]["gloo_scan_guard"] = res[0]["guard"]
+                ref_1x4 = ref
+            emit({"phase": "mesh", "run": tag, **runs[tag]})
+            del res
+            gc.collect()
+        n_cards = torch.cuda.device_count()
+        if n_cards >= MESH_MODEL:
+            res = spawn(_mesh_rank, 1, MESH_MODEL, backend="nccl",
+                        device="cuda", store_dir=store / "nccl",
+                        args=({"nd": MESH_MODEL, "mode": "scan",
+                               "guard": False,
+                               "reference": ref_1x4["path"]},),
+                        timeout=MESH_TIMEOUT_S)
+            _check_mesh_run("nccl_scan", res, ref_1x4, (1, MESH_MODEL),
+                            row_bytes)
+            check(all(r["captures"] == {"decode": 1, "prefill": 0,
+                                        "migrate": 0} for r in res),
+                  f"mesh nccl scan: captures {[r['captures'] for r in res]}")
+            runs["nccl_scan"] = {
+                "ranks": len(res), "cards": cards,
+                "devices": [r["device"] for r in res],
+                "captures_per_rank": 1, "tokens_equal_one_process": True,
+                "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
+                "launches_per_rank": [r["launches"] for r in res],
+                "decode_step_ms_median_per_rank": [
+                    statistics.median(r["step_ms"]) for r in res],
+                "wall_s_per_rank": [r["wall_s"] for r in res]}
+            for r in res:
+                launches.update(r["launches"])
+        else:
+            runs["nccl_scan"] = f"not run: {n_cards} card(s)"
+        emit({"phase": "mesh", "nccl_scan": runs["nccl_scan"]})
+    finally:
+        import shutil
+
+        shutil.rmtree(store, ignore_errors=True)
+    row = kernel_summary["moe_ffn/decode_rank"]
+    emit({"phase": "mesh", "ok": True,
+          "k1_per_rank_decode": {k: row[k] for k in (
+              "shape", "ms", "device_us", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "bound_share")},
+          "seconds": time.perf_counter() - start})
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2796,6 +3191,7 @@ def main(argv=None) -> int:
     dryrun_launches = phase_dryrun(src, train_step_ms)
     examples_launches = phase_examples()
     collective_launches = phase_collective()
+    mesh_launches = phase_mesh(summary)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -2820,12 +3216,19 @@ def main(argv=None) -> int:
             "dryrun_launches": dryrun_launches[name],
             "examples_launches": examples_launches[name],
             "collective_launches": collective_launches[name],
+            # summed over the ranks of every mesh run
+            "mesh_launches": mesh_launches.get(name, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_us": row["device_us"], "bound_share": row["bound_share"],
             "shape": row["shape"],
         })
+    rank_row = summary["moe_ffn/decode_rank"]
+    kernels[0]["decode_rank"] = {
+        k: rank_row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by",
+                                 "device_us", "bound_share")}
     s84 = summary["moe_ffn/decode_s84"]
     kernels[0]["replicated_pool"] = {
         k: s84[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",

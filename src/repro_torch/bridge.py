@@ -25,19 +25,38 @@ __all__ = ["params_from_numpy", "state_to_numpy", "state_from_numpy"]
 _EXPECTED = ("embed", "final_norm", "blocks")
 
 
-def _convert(tree, device, dtype):
-    if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
-    arr = np.asarray(tree)
+def _leaf(arr, device, dtype):
+    arr = np.asarray(arr)
     # bfloat16 has no numpy type here: go through float32
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
     return torch.tensor(arr, device=device, dtype=dtype)
 
 
+def _convert(tree, specs, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _convert(v, specs.get(k) if specs else None, device, dtype)
+                for k, v in tree.items()}
+    if specs is None:
+        return _leaf(tree, device, dtype)
+    # an expert stack (L, S, …) sharded on its slot dim: this rank's rows,
+    # converted a layer at a time
+    rows = specs
+    out = torch.empty((tree.shape[0], rows.stop - rows.start, *tree.shape[2:]),
+                      dtype=dtype, device=device)
+    for layer in range(tree.shape[0]):
+        out[layer] = _leaf(np.asarray(tree[layer][rows]), device, dtype)
+    return out
+
+
 def params_from_numpy(tree: dict[str, Any], config: ModelConfig, device,
-                      dtype=torch.float32):
-    """Nested dict of numpy arrays (the JAX layout) → the port's params."""
+                      dtype=torch.float32, *, policy=None):
+    """Nested dict of numpy arrays (the JAX layout) → the port's params.
+
+    Under a ``policy`` whose mesh shards the expert pool
+    (:func:`~repro_torch.sharding.local_expert_slots`) each rank gets
+    exactly its shard: the expert stacks' ``[L, slots of this model rank,
+    …]`` rows, converted a layer at a time, and every other leaf whole."""
     missing = [k for k in _EXPECTED if k not in tree]
     if missing:
         raise KeyError(f"params tree lacks {missing}")
@@ -49,7 +68,16 @@ def params_from_numpy(tree: dict[str, Any], config: ModelConfig, device,
             f"embed {(V, D)} does not match {config.name}: "
             f"({config.padded_vocab}, {config.d_model})"
         )
-    return _convert(tree, torch.device(device), dtype)
+    specs = None
+    if policy is not None and config.is_moe:
+        from .sharding.policy import local_expert_slots
+
+        moe = tree["blocks"]["moe"]
+        rows = local_expert_slots(policy, int(np.shape(moe["w_gate"])[1]))
+        if rows is not None:
+            specs = {"blocks": {"moe": {n: rows for n in
+                                        ("w_gate", "w_up", "w_down")}}}
+    return _convert(tree, specs, torch.device(device), dtype)
 
 
 def _leaf_to_numpy(t) -> np.ndarray:

@@ -20,9 +20,10 @@ array JAX's ``np.savez`` writes for it (``|V2``), and read back through a
 The directory is written as ``step_XXXXXXXX.tmp`` and renamed once
 ``COMMIT`` is in it; a kill at any point leaves the last committed step
 intact. The manifest's ``extra`` carries opaque user state (the data
-stream's position), so that a restart reproduces the batch sequence. The
-JAX manager's ``restore_sharded`` places a restore onto a TPU mesh; it has
-no single-card meaning and is not ported.
+stream's position), so that a restart reproduces the batch sequence.
+:meth:`CheckpointManager.restore_sharded` restores onto a mesh of ranks:
+arrays are stored unsharded, so a checkpoint written by either package on
+any mesh (or one device) restores onto any mesh shape.
 """
 from __future__ import annotations
 
@@ -147,6 +148,44 @@ class CheckpointManager:
         with np.load(os.path.join(d, "arrays.npz")) as z:
             flat = {k: _from_numpy(z[k], manifest["paths"][k]["dtype"])
                     for k in z.files}
+        state = _unflatten_into(skeleton, flat)
+        return state, manifest["extra"], step
+
+    def restore_sharded(self, skeleton, shardings, *, mesh,
+                        step: int | None = None):
+        """Restore and keep, on this rank, its shard of every leaf: the JAX
+        manager's elastic re-mesh path.
+
+        ``shardings`` mirrors ``skeleton`` with a spec for each leaf (a
+        tuple of one axis name, tuple of names or None a dim, as
+        :func:`repro_torch.sharding.param_specs` gives them) or None for a
+        whole leaf; ``skeleton``'s tensors have this rank's shapes and
+        devices. A dim sharded over axes of extent n keeps block ``i`` of n,
+        i being the rank's position along them. Returns (state, extra,
+        step), as :meth:`restore`."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no committed checkpoint in {self.root}")
+        d = self._step_dir(step)
+        if not os.path.exists(os.path.join(d, "COMMIT")):
+            raise FileNotFoundError(f"step {step} is not committed")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        specs = _flatten(shardings) if shardings is not None else {}
+        flat = {}
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            for k in z.files:
+                arr = z[k]
+                spec = specs.get(k)
+                for dim, axes in enumerate(spec or ()):
+                    if axes is None:
+                        continue
+                    n = mesh.size(axes)
+                    block = arr.shape[dim] // n
+                    lo = mesh.index(axes) * block
+                    arr = arr.take(np.arange(lo, lo + block), axis=dim)
+                flat[k] = _from_numpy(arr, manifest["paths"][k]["dtype"])
         state = _unflatten_into(skeleton, flat)
         return state, manifest["extra"], step
 

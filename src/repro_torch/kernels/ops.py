@@ -8,7 +8,8 @@ tensor on the meta device (the dry run's shapes-only trace, where no
 kernel can launch and the plain version gives the same output shapes). This
 replaces ``repro/kernels/ops.py`` and the single-device branch of
 ``repro/kernels/sharded.py`` (no capacity or F padding: the kernels mask
-ragged shapes themselves). When an input requires a gradient, the call
+ragged shapes themselves); the per-rank branch is
+:mod:`repro_torch.kernels.sharded`. When an input requires a gradient, the call
 goes through the ``torch.autograd.Function``s of
 :mod:`repro_torch.kernels.autograd`, which run the same kernel forward and
 the reference's backward; otherwise (serving) the wrapper is called

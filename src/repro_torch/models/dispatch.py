@@ -1,7 +1,7 @@
 """Staged MoE dispatch plane: route → build_dispatch → expert_compute → combine.
 
-The port of ``repro/models/dispatch.py`` for one device. The stages pass
-small dataclasses of tensors, as in the JAX package:
+The port of ``repro/models/dispatch.py``. The stages pass small dataclasses
+of tensors, as in the JAX package:
 
 * :func:`route` → :class:`RouterOutput` — router logits (model dtype, cast
   to fp32) → top-k gates/ids plus the statistics GEM's control plane reads
@@ -26,16 +26,31 @@ small dataclasses of tensors, as in the JAX package:
 ``dense_mix`` is the capacity-free oracle. Dropped assignments never use
 out-of-range indices (torch raises where JAX drops): they scatter into a
 sink slot that is sliced off, which changes no count.
+
+**Under a policy with a mesh** (:mod:`repro_torch.sharding`) each rank
+holds the dispatch groups of its data shard: ``groups`` (keyword) is the
+group count Gd over all data ranks, and ``xg`` holds this rank's ``Gd/d`` of them
+when the policy's ``moe_shard_spec`` shards the groups, or all of them
+when it does not (the batch collapsed to one group). :func:`route` runs
+K2 through :func:`~repro_torch.kernels.sharded.topk_router_sharded`, so its
+statistics are global; :func:`build_dispatch` sums its drop, overflow and
+shed counts over the data ranks, so they are the JAX plan's totals;
+:func:`expert_compute` runs K1 on the rank's slice of the expert dim
+through :func:`~repro_torch.kernels.sharded.moe_ffn_sharded`, which
+gathers the outputs over the model axis, so :func:`combine` is unchanged.
+Capacity is per group, so drops and sheds depend on ``d`` exactly as in
+JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.ops import moe_ffn, topk_router
+from ..kernels.sharded import moe_ffn_sharded, topk_router_sharded
 
 __all__ = [
     "RouterOutput",
@@ -133,23 +148,39 @@ class MoEAux:
         return getattr(self, key)
 
 
-def route(xg, router_w, config: ModelConfig) -> RouterOutput:
-    """xg (Gd, Ng, D) grouped tokens → :class:`RouterOutput`."""
-    Gd, Ng, _ = xg.shape
+_WARNED: set = set()
+
+
+def _warn_once(key, msg: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _mesh(policy):
+    return None if policy is None else policy.mesh
+
+
+def route(xg, router_w, config: ModelConfig, policy=None, *,
+          groups: int | None = None) -> RouterOutput:
+    """xg (G, Ng, D) grouped tokens → :class:`RouterOutput`: gates and ids
+    of these groups, statistics over all ``groups`` (default G)."""
+    G, Ng, _ = xg.shape
+    Gd = G if groups is None else groups
     E = config.num_experts
     k = config.experts_per_token
     N = Gd * Ng
     logits = torch.matmul(xg, router_w).float()
-    gates, ids, probs_sum, counts = topk_router(
-        logits.reshape(N, E), k, with_stats=True
-    )
+    data_spec = (policy.moe_shard_spec(Gd, config.num_virtual_experts)[0]
+                 if policy is not None else None)
+    gates, ids, probs_sum, counts = topk_router_sharded(
+        logits, k, mesh=_mesh(policy), data_spec=data_spec)
     probs_mean = probs_sum / N
     density = counts.float() / N
     aux_loss = E * torch.sum(density * probs_mean)
     return RouterOutput(
-        gates=gates.reshape(Gd, Ng, k), ids=ids.reshape(Gd, Ng, k),
-        expert_counts=counts, density=density, probs_mean=probs_mean,
-        aux_loss=aux_loss,
+        gates=gates, ids=ids, expert_counts=counts, density=density,
+        probs_mean=probs_mean, aux_loss=aux_loss,
     )
 
 
@@ -171,8 +202,9 @@ def _rank_in_group(slots, num_slots: int):
 
 
 def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
-                   *, capacity_factor: float, num_slots: int | None = None,
-                   shed_enable=None) -> DispatchPlan:
+                   policy=None, *, capacity_factor: float,
+                   num_slots: int | None = None, shed_enable=None,
+                   groups: int | None = None) -> DispatchPlan:
     """Routing decision → gather plan.
 
     Virtual assignments ``vid = id · tp + j`` map through the placement
@@ -196,11 +228,18 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
     ``shed_enable=0`` gives the plan of the pass being absent bit for bit;
     ``None`` leaves the pass out. Nothing here reads a value back to the
     host, so the pass runs inside the captured decode step.
+
+    With data-sharded groups (``groups`` over all ranks, the router
+    holding this rank's) the plan's indices and gates are this rank's groups', and
+    its counts (``dropped_tokens``, ``overflow_tokens``, ``shed_tokens``,
+    ``shed_delta``, ``dropped``) are summed over the data ranks in rank
+    order: the totals of JAX's plan over all groups.
     """
     dev = router.ids.device
     table = torch.as_tensor(expert_to_slot, device=dev).long()
     replicated = table.dim() == 2
-    Gd, Ng, k = router.ids.shape
+    Gd, Ng, k = router.ids.shape  # this rank's groups
+    Gt = Gd if groups is None else groups  # every data rank's
     E = config.num_experts
     tp = config.expert_tp
     Ev = E * tp
@@ -299,12 +338,26 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
         shed_tokens = shed_ones.sum().to(torch.int32)
         kept = kept + shed_tokens
 
+    data_spec = (policy.moe_shard_spec(Gt, S)[0]
+                 if policy is not None else None)
+    if data_spec is not None and policy.mesh.size(data_spec) > 1:
+        # the data ranks' counts, summed in rank order: one gather of
+        # (kept, overflow, shed, shed_delta)
+        mine = torch.cat([torch.stack([kept, overflow_tokens, shed_tokens]),
+                          shed_delta])
+        parts = policy.mesh.all_gather(mine, data_spec)
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        kept, overflow_tokens, shed_tokens = acc[0], acc[1], acc[2]
+        shed_delta = acc[3:]
+    total = torch.full((), Gt * Ag, dtype=torch.int32, device=dev)
     dropped_tokens = total - kept
     return DispatchPlan(
         dispatch_idx=dispatch_idx[:, :S].contiguous(),
         dispatch_gate=dispatch_gate[:, :S].contiguous(),
         assign_row=assign_row,
-        dropped=1.0 - kept.float() / (Gd * Ag),
+        dropped=1.0 - kept.float() / (Gt * Ag),
         dropped_tokens=dropped_tokens,
         overflow_tokens=overflow_tokens,
         shed_tokens=shed_tokens,
@@ -312,20 +365,40 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
     )
 
 
-def expert_compute(xg, plan: DispatchPlan, p, config: ModelConfig):
-    """Gather per-plan into (Gd, S, C, D) buffers, run the FFN, apply the
-    gates. Returns the gate-weighted (Gd, S, C, D) outputs."""
+def expert_compute(xg, plan: DispatchPlan, p, config: ModelConfig,
+                   policy=None, *, groups: int | None = None):
+    """Gather per-plan into (G, S, C, D) buffers, run the FFN, apply the
+    gates. Returns the gate-weighted (G, S, C, D) outputs.
+
+    Under a mesh the FFN is K1 on this rank's slice of the expert dim
+    (:func:`~repro_torch.kernels.sharded.moe_ffn_sharded`, outputs gathered
+    over the model axis); a slot count the model axis does not divide pads
+    the expert dim with dead slots so every rank still computes only its
+    share (warned once)."""
     del config
-    Gd, Ng, D = xg.shape
+    G, Ng, D = xg.shape
     S, C = plan.num_slots, plan.capacity
-    x_pad = torch.cat([xg, xg.new_zeros((Gd, 1, D))], dim=1)
+    x_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
     idx = plan.flat_idx.long()
-    x_e = torch.gather(x_pad, 1, idx[:, :, None].expand(Gd, S * C, D))
-    x_e = x_e.reshape(Gd, S, C, D)
-    y_e = torch.stack([
-        moe_ffn(x_e[g], p["w_gate"], p["w_up"], p["w_down"])
-        for g in range(Gd)
-    ])
+    x_e = torch.gather(x_pad, 1, idx[:, :, None].expand(G, S * C, D))
+    x_e = x_e.reshape(G, S, C, D)
+    mesh = _mesh(policy)
+    data_spec = expert_spec = pad_to = None
+    if mesh is not None:
+        data_spec, expert_spec = policy.moe_shard_spec(
+            G if groups is None else groups, S)
+        if expert_spec is None and policy.model_axis_size > 1:
+            pad_to, expert_spec = policy.moe_expert_pad(S)
+            _warn_once(
+                ("moe_expert_padded", S, policy.model_axis_size),
+                f"moe_layer: E_v={S} does not divide the model-axis size "
+                f"{policy.model_axis_size}; padding the expert dim to "
+                f"{pad_to} with dead slots so the per-rank kernels stay "
+                "sharded (pad rows compute zeros and are sliced off)",
+            )
+    y_e = moe_ffn_sharded(x_e, p["w_gate"], p["w_up"], p["w_down"], mesh=mesh,
+                          data_spec=data_spec, expert_spec=expert_spec,
+                          pad_expert_to=pad_to)
     return y_e * plan.dispatch_gate[..., None].to(y_e.dtype)
 
 

@@ -31,7 +31,7 @@ WHOLE_DRAW_BYTES = 8 << 30
 
 
 def normal_init(shape, scale: float, *, dtype, device,
-                generator: torch.Generator):
+                generator: torch.Generator, keep: slice | None = None):
     """``N(0, 1) · scale`` in ``dtype``, drawn in fp32 from ``generator``.
 
     A weight whose fp32 draw fits in :data:`WHOLE_DRAW_BYTES` is drawn
@@ -40,21 +40,27 @@ def normal_init(shape, scale: float, *, dtype, device,
     the ``dtype`` tensor, so no fp32 copy of the whole stack exists. On the
     CPU the two give the same values when a slice holds a multiple of 16
     elements; on the card the draws differ (the generator's offsets follow
-    each call's size). On the meta device nothing is drawn (no generator
-    can draw there): the result is an empty meta tensor of the shape and
-    ``dtype``, and ``generator`` may be None."""
+    each call's size). ``keep``, a slice of dim 1, keeps only those rows
+    of the same draw (a rank's expert slots), drawn a leading slice at a
+    time whatever the size, so that no rank holds a whole stack. On the
+    meta device nothing is drawn (no generator can draw there): the result
+    is an empty meta tensor of the shape (after ``keep``) and ``dtype``,
+    and ``generator`` may be None."""
+    kept = tuple(shape)
+    if keep is not None:
+        kept = (shape[0], len(range(shape[1])[keep]), *shape[2:])
     if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+        return torch.empty(kept, dtype=dtype, device=device)
     numel = int(np.prod(shape))
-    if numel * 4 <= WHOLE_DRAW_BYTES:
+    if keep is None and numel * 4 <= WHOLE_DRAW_BYTES:
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         return w.mul_(scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=device)
+    out = torch.empty(kept, dtype=dtype, device=device)
     for i in range(shape[0]):
         w = torch.randn(shape[1:], generator=generator, device=device,
                         dtype=torch.float32)
-        out[i].copy_(w.mul_(scale))
+        out[i].copy_((w if keep is None else w[keep]).mul_(scale))
     return out
 
 

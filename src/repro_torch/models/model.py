@@ -60,6 +60,7 @@ from .moe import MoEAux, identity_placement, init_moe, moe_layer
 from .ssm import init_ssm, ssm_cache_zeros, ssm_decode, ssm_train
 
 __all__ = [
+    "data_rows",
     "init_params",
     "forward_train",
     "loss_fn",
@@ -79,10 +80,15 @@ def _hybrid_split(config: ModelConfig) -> tuple[int, int]:
 
 
 def init_params(config: ModelConfig, *, seed: int = 0, device=None,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, policy=None):
     """Random weights from a generator seeded with ``seed``, made on
     ``device`` (the card unless ``device="cpu"``). On ``device="meta"``
-    the tree holds shapes and dtypes only, and nothing is drawn."""
+    the tree holds shapes and dtypes only, and nothing is drawn.
+
+    Under a ``policy`` whose mesh shards the expert pool, every rank makes
+    the same draws and keeps its own slots of each expert stack
+    (:func:`~repro_torch.models.moe.init_moe`), drawing the stacks a
+    layer at a time; every other weight is whole on every rank."""
     L, D, V = config.num_layers, config.d_model, config.padded_vocab
     device = resolve_device(device)
     g = None
@@ -114,7 +120,8 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
         }
         if config.is_moe:
             blocks["moe"] = init_moe(config, num_layers=L, dtype=dtype,
-                                     device=device, generator=g)
+                                     device=device, generator=g,
+                                     policy=policy)
         else:
             blocks["mlp"] = init_gated_mlp(D, config.d_ff, num_layers=L,
                                            dtype=dtype, device=device,
@@ -192,7 +199,7 @@ def _ssm_block_train(x, lp, config: ModelConfig, *, return_cache: bool):
 
 
 def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
-                      return_cache: bool):
+                      return_cache: bool, policy=None, num_slots=None):
     """ln → attention → ln → MoE layer (a MoE config's blocks, under the
     layer's (E_v,) table ``placement_l``) or gated MLP (the dense blocks
     and zamba2's shared block); returns (x, {"k", "v"} | None, MoEAux |
@@ -204,14 +211,16 @@ def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
     h2 = rms_norm(x, lp["ln2"], config.norm_eps)
     aux = None
     if "moe" in lp:
-        y, aux = moe_layer(h2, lp["moe"], placement_l, config)
+        y, aux = moe_layer(h2, lp["moe"], placement_l, config, policy,
+                           num_slots=num_slots)
     else:
         y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation)
     return x + y, cache, aux
 
 
 def _stack_forward(x, params, placements, config: ModelConfig, *,
-                   return_cache: bool, remat: bool):
+                   return_cache: bool, remat: bool, policy=None,
+                   num_slots=None):
     """The whole layer stack over a full sequence, as the JAX
     ``_stack_forward``: (x, caches | None, [MoEAux per layer] | None).
 
@@ -220,7 +229,10 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
     the attention families' whole layer, and each mamba block and the
     shared block of the hybrid. The MoE layers run under the (L, E_v)
     expert→slot tables ``placements`` (identity when None) over weights
-    already in slot order; the capacity factor is the config's."""
+    already in slot order; the capacity factor is the config's. Under a
+    ``policy`` with a mesh the MoE layers run their sharded data plane
+    over the whole batch ``x`` (:func:`~repro_torch.models.moe.moe_layer`
+    with ``global_batch=None``) over a pool of ``num_slots`` slots."""
     L = config.num_layers
     blocks = _unbind(params["blocks"])
 
@@ -229,7 +241,8 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
 
     def attn_block(xc, lp, placement_l):
         return _attn_block_train(xc, lp, placement_l, config,
-                                 return_cache=return_cache)
+                                 return_cache=return_cache, policy=policy,
+                                 num_slots=num_slots)
 
     ssm_block, attn_block = _remat(ssm_block, remat), _remat(attn_block, remat)
     if config.is_hybrid:
@@ -313,7 +326,7 @@ def loss_fn(params, batch, config: ModelConfig, placements=None, *,
 
 
 def prefill(params, tokens, config: ModelConfig, placements=None, *,
-            patches=None):
+            patches=None, policy=None, num_slots=None):
     """tokens (B, S) (and, for the vision frontend, ``patches`` (B, P, D))
     → (last-position logits (B, V_pad) fp32, caches).
 
@@ -324,10 +337,18 @@ def prefill(params, tokens, config: ModelConfig, placements=None, *,
     "conv_b", "conv_c": (L, B, …)}}`` for ssm, and for hybrid
     ``{"ssm_staged": (n_stages, attn_every, B, …), "attn": (n_stages, B, S,
     KV, hd), "ssm_tail": (leftover, B, …) or None}``.
+
+    Under a ``policy`` with a mesh every rank runs the whole batch (the
+    engine prefills one request, which no data axis divides: its MoE layers
+    collapse to one dispatch group, as in JAX) through the sharded MoE
+    layers, and every rank returns the same logits and caches.
+    ``num_slots``: the expert pool's global slot count, which
+    :func:`~repro_torch.models.moe.moe_layer` needs under a model axis.
     """
     x = _embed_input(params, tokens, config, patches)
     x, caches, _ = _stack_forward(x, params, placements, config,
-                                  return_cache=True, remat=False)
+                                  return_cache=True, remat=False,
+                                  policy=policy, num_slots=num_slots)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = lm_logits(x[:, -1:], params, config)
     return logits[:, 0], caches
@@ -387,8 +408,24 @@ def _ssm_block_decode(x, lp, cache, config: ModelConfig):
     return x + ssm_decode(h, lp["ssm"], cache, config)
 
 
+def data_rows(policy, batch: int) -> slice | None:
+    """The rows of a ``batch``-row decode step that this rank runs, or None
+    when every rank runs them all: the batch shards over the policy's data
+    axes when their extent (> 1) divides it, the condition under which
+    JAX's MoE layers shard their dispatch groups."""
+    if policy is None or policy.mesh is None:
+        return None
+    d = policy.data_axis_size
+    if d <= 1 or batch % d:
+        return None
+    rows = batch // d
+    lo = policy.mesh.index(policy.batch) * rows
+    return slice(lo, lo + rows)
+
+
 def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
-                placements=None, *, block_tables=None, shed_enables=None):
+                placements=None, *, block_tables=None, shed_enables=None,
+                policy=None, num_slots=None):
     """One serving step: tokens (B, 1) int32.
 
     Dense mode (``block_tables=None``): ``cur_len`` is a 0-d int32 tensor
@@ -402,11 +439,25 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
     Returns (logits (B, V_pad) fp32, caches, moe aux with (L, …) fields or
     None for a config without MoE layers). The caches are updated in place
     and returned, where the JAX version returns new ones.
+
+    Under a ``policy`` with a mesh whose data axes divide the batch
+    (:func:`data_rows`) each data rank runs its ``B/d`` rows: ``caches``
+    hold only those rows (the dense cache; the paged pools are indexed by
+    the rows' own block tables), the MoE layers dispatch them as the
+    rank's group, and the logits are all-gathered over the data axes, so
+    every rank returns all ``B`` rows and the same aux. ``num_slots`` is
+    the expert pool's global slot count, as :func:`prefill` takes it.
     """
     if block_tables is not None and (config.is_ssm or config.is_hybrid):
         raise ValueError("paged decode requires an attention-family arch")
     L = config.num_layers
+    B = tokens.shape[0]
     blocks = params["blocks"]
+    rows = data_rows(policy, B)
+    if rows is not None:
+        tokens = tokens[rows]
+        if block_tables is not None:
+            block_tables, cur_len = block_tables[rows], cur_len[rows]
     x = embed_tokens(tokens, params["embed"], config)
     moe_aux = None
     if config.is_hybrid:
@@ -451,10 +502,11 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
             h2 = rms_norm(x, lp["ln2"], config.norm_eps)
             if config.is_moe:
                 y, aux = moe_layer(
-                    h2, lp["moe"], placements[i], config,
+                    h2, lp["moe"], placements[i], config, policy,
                     capacity_factor=config.decode_capacity_factor,
                     shed_enable=(None if shed_enables is None
                                  else shed_enables[i]),
+                    global_batch=B, num_slots=num_slots,
                 )
                 auxes.append(aux)
             else:
@@ -463,8 +515,10 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
         if auxes:
             moe_aux = _stack_aux(auxes)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = lm_logits(x, params, config)
-    return logits[:, 0], caches, moe_aux
+    logits = lm_logits(x, params, config)[:, 0]
+    if rows is not None:
+        logits = policy.mesh.all_gather(logits, policy.batch).reshape(B, -1)
+    return logits, caches, moe_aux
 
 
 def _leaves(tree):
@@ -534,14 +588,32 @@ class DecodeGraph:
     again and counts it, so a graph never reads stale pointers.
     :attr:`pool_bytes` is the device memory the capture reserved for its
     private pool (the step's intermediates and outputs).
+
+    Under a ``policy`` with a mesh the body is :func:`decode_step` with the
+    policy and ``num_slots``, whose collectives the capture records: NCCL's run inside a
+    CUDA graph. A ``gloo`` mesh on a CUDA device stages its collectives
+    through host buffers, which no graph can hold, so that pairing raises
+    ``ValueError`` here (the eager ``"python"`` mode serves it); on the
+    CPU the body runs eagerly with any backend. A graph that holds NCCL's
+    kernels must be freed before its process groups are destroyed
+    (:func:`repro_torch.launch.mesh.spawn` collects it first): NCCL's
+    teardown waits on it.
     """
 
     def __init__(self, params, caches, placements, config: ModelConfig, *,
-                 batch: int, n_max: int | None, device, shed: bool = False):
+                 batch: int, n_max: int | None, device, shed: bool = False,
+                 policy=None, num_slots: int | None = None):
         self.config = config
         self.device = torch.device(device)
         self.batch, self.n_max = batch, n_max
+        self.policy, self.num_slots = policy, num_slots
         cuda = self.device.type == "cuda"
+        mesh = None if policy is None else policy.mesh
+        if cuda and mesh is not None and mesh.backend == "gloo":
+            raise ValueError(
+                "decode_mode='scan' on a CUDA device needs backend='nccl': a "
+                "gloo collective stages through the host and cannot be "
+                "captured in a CUDA graph (use decode_mode='python')")
         paged = n_max is not None
         self._cur_end = 2 * batch if paged else batch + 1
         self._rows = self._cur_end + (batch * n_max if paged else 0)
@@ -573,7 +645,8 @@ class DecodeGraph:
         return decode_step(
             self._params, self._caches, self.cur_len, self.tokens,
             self.config, self._placements, block_tables=self.block_tables,
-            shed_enables=self.shed_enables,
+            shed_enables=self.shed_enables, policy=self.policy,
+            num_slots=self.num_slots,
         )
 
     def _bind(self, params, caches, placements) -> None:

@@ -15,6 +15,14 @@ off the stacked weights, so one code path serves both pools.
 
 :func:`moe_layer` composes the four stages of
 :mod:`repro_torch.models.dispatch`.
+
+**Under a policy with a mesh** (:mod:`repro_torch.sharding`): each rank
+stores the slots ``[d·S/m, (d+1)·S/m)`` of the pool, d its model-axis
+position (:func:`~repro_torch.sharding.local_expert_slots`; a pool the
+axis does not divide is stored whole), and the router tables name global
+slots. The dispatch groups shard over the data axes, and
+:func:`apply_layer_permutation` moves rows between ranks as collectives
+(:mod:`repro_torch.kernels.collective`).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding.policy import local_expert_slots
 from .dispatch import (
     MoEAux,
     build_dispatch,
@@ -46,7 +55,11 @@ __all__ = [
 
 
 def init_moe(config: ModelConfig, *, num_layers: int, dtype, device,
-             generator: torch.Generator):
+             generator: torch.Generator, policy=None):
+    """Random MoE weights. Under a policy that shards the pool each
+    expert stack keeps only this rank's slots of each layer's draw
+    (:func:`~repro_torch.models.layers.normal_init` with ``keep``: a
+    layer at a time, so no rank holds a whole stack)."""
     D = config.d_model
     E = config.num_experts
     Ev = config.num_virtual_experts
@@ -54,15 +67,17 @@ def init_moe(config: ModelConfig, *, num_layers: int, dtype, device,
     s_in = float(1.0 / np.sqrt(D))
     s_out = float(1.0 / np.sqrt(config.expert_d_ff))
 
-    def normal(shape, scale):
+    rows = local_expert_slots(policy, Ev)
+
+    def normal(shape, scale, keep=None):
         return normal_init(shape, scale, dtype=dtype, device=device,
-                           generator=generator)
+                           generator=generator, keep=keep)
 
     return {
         "router": normal((num_layers, D, E), s_in),
-        "w_gate": normal((num_layers, Ev, D, Fv), s_in),
-        "w_up": normal((num_layers, Ev, D, Fv), s_in),
-        "w_down": normal((num_layers, Ev, Fv, D), s_out),
+        "w_gate": normal((num_layers, Ev, D, Fv), s_in, rows),
+        "w_up": normal((num_layers, Ev, D, Fv), s_in, rows),
+        "w_down": normal((num_layers, Ev, Fv, D), s_out, rows),
     }
 
 
@@ -98,31 +113,53 @@ def _warn_once(key, msg: str) -> None:
 
 
 def apply_layer_permutation(moe_params, layer: int, perm, *,
-                            via: str = "host", stats_out: list | None = None):
+                            via: str = "host", policy=None,
+                            stats_out: list | None = None):
     """Apply one layer's row-source map to the stacked expert rows: row
     ``s`` ← old row ``perm[s]`` (the online plane's partial placement
     application, between decode steps). Returns a new dict whose three
     expert weights are new tensors; ``moe_params`` is left as it was.
 
-    ``via``: ``"host"`` is one row gather per weight. ``"collective"`` asks
-    for the exchange over an interconnect; one card has no expert
-    sharding, so it warns once and takes the same gather, bit for bit,
-    and appends nothing to ``stats_out`` — what the JAX version does when
-    its policy has no live expert sharding. (The serving engine rewrites
-    its pool in place through
-    :class:`~repro_torch.kernels.collective.MigrationExecutable` instead.)
+    ``via``: ``"host"`` is one row gather per weight. ``"collective"``
+    moves the rows over the policy's model axis
+    (:func:`~repro_torch.kernels.collective.apply_row_sources`: a local
+    pre-batch gather, then the schedule's rounds as paired send/recv) and
+    appends the executed schedule's
+    :class:`~repro_torch.kernels.collective.CollectiveStats` to
+    ``stats_out``. Without a live expert sharding (no mesh, a 1-wide model
+    axis, an indivisible slot count) it warns once and takes the host
+    gather, bit for bit, appending nothing, as the JAX version does. A
+    pool sharded over ranks moves over the axis under either ``via``
+    (no rank holds the rows another needs); only ``"collective"``
+    reports what crossed.
     """
     if via not in ("host", "collective"):
         raise ValueError(f"via={via!r} not in ('host', 'collective')")
     names = ("w_gate", "w_up", "w_down")
-    if via == "collective":
-        num_slots = int(moe_params[names[0]].shape[1])
+    num_slots = len(np.asarray(perm))  # the map names global slots
+    axis = None if policy is None else policy.expert_collective_axis(num_slots)
+    if via == "collective" and axis is None:
         _warn_once(
             ("collective_fallback", num_slots),
             "apply_layer_permutation(via='collective'): no live expert "
-            "sharding (one card) — falling back to the host row gather",
+            "sharding (mesh absent, 1-wide model axis, or slot count "
+            f"{num_slots} not divisible) — falling back to the host row "
+            "gather",
         )
     out = dict(moe_params)
+    if axis is not None:
+        from ..kernels.collective import apply_row_sources
+
+        arrays = tuple(moe_params[n][layer] for n in names)
+        new_arrays, stats = apply_row_sources(arrays, perm, mesh=policy.mesh,
+                                              axis=axis)
+        if via == "collective" and stats_out is not None:
+            stats_out.append(stats)
+        for name, a in zip(names, new_arrays):
+            new = moe_params[name].clone()
+            new[layer] = a
+            out[name] = new
+        return out
     for name in names:
         w = moe_params[name]
         rows = torch.as_tensor(np.asarray(perm), device=w.device).long()
@@ -132,24 +169,70 @@ def apply_layer_permutation(moe_params, layer: int, perm, *,
     return out
 
 
-def moe_layer(x, p, expert_to_slot, config: ModelConfig, *,
-              capacity_factor: float | None = None, shed_enable=None):
+def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
+              capacity_factor: float | None = None, shed_enable=None,
+              global_batch: int | None = None, num_slots: int | None = None):
     """x (B, T, D) → (y (B, T, D), :class:`MoEAux`) for one layer's params
     ``p`` and its (E_v,) ``expert_to_slot`` table or (E_v, P) replica-split
-    table. One dispatch group (a single device), so Gd = 1.
-    ``shed_enable`` (a 0/1 scalar tensor, or None to leave the pass out)
-    turns on the shed pass of :func:`build_dispatch`."""
+    table. ``shed_enable`` (a 0/1 scalar tensor, or None to leave the pass
+    out) turns on the shed pass of :func:`build_dispatch`.
+
+    Dispatch is grouped by data shard, as in JAX: ``Gd`` is the policy's
+    data-axis size when it divides the batch, else 1 (warned once under a
+    mesh). ``global_batch`` is the batch over all data ranks when ``x``
+    holds only this rank's rows (the model's decode step passes its
+    ``B/d`` rows); with None, ``x`` is the whole batch and, when the groups
+    shard, the layer computes its own group's rows and all-gathers ``y``
+    over the data axes. Either way the aux counts are the totals over all
+    groups, the same on every rank.
+
+    ``num_slots`` is the pool's global slot count S. With None it is the
+    rows ``p`` holds, which is S wherever the pool is whole; under a
+    model axis wider than 1 it must be given, since a rank's S/m rows of a
+    sharded pool cannot be told from a whole pool by their count."""
     B, T, D = x.shape
     # `is None`, not falsy-or: an explicit 0.0 means "minimum capacity"
     cf = capacity_factor if capacity_factor is not None else config.capacity_factor
-    xg = x.reshape(1, B * T, D)
-    router = route(xg, p["router"], config)
+    mesh = None if policy is None else policy.mesh
+    B_all = B if global_batch is None else global_batch
+    Gd = 1 if policy is None else policy.data_axis_size
+    if B_all % Gd:
+        _warn_once(
+            ("gd_collapse", B_all, Gd),
+            f"moe_layer: batch B={B_all} does not divide the data-axis "
+            f"size Gd={Gd}; collapsing to Gd=1 — data-parallel dispatch "
+            "grouping is lost and every data rank computes the whole batch",
+        )
+        Gd = 1
+    Ev = config.num_virtual_experts
+    data_spec = None if mesh is None else policy.moe_shard_spec(Gd, Ev)[0]
+    gather_out = False
+    G = Gd
+    if data_spec is not None:
+        G = 1  # Gd groups over Gd = d data ranks
+        if global_batch is None:  # the whole batch: keep this group's rows
+            rows = B // Gd
+            lo = mesh.index(data_spec) * rows
+            x = x[lo:lo + rows]
+            gather_out = True
+    xg = x.reshape(G, -1, D)
+    router = route(xg, p["router"], config, policy, groups=Gd)
+    S = num_slots
+    if S is None:
+        if mesh is not None and policy.model_axis_size > 1:
+            raise ValueError(
+                "moe_layer: num_slots must be given under a model axis of "
+                f"size {policy.model_axis_size} (a rank stores S/m rows of "
+                "a pool the axis divides, all S of one it does not)")
+        S = int(p["w_gate"].shape[0])
     plan = build_dispatch(
-        router, expert_to_slot, config, capacity_factor=cf,
-        num_slots=int(p["w_gate"].shape[0]), shed_enable=shed_enable,
+        router, expert_to_slot, config, policy, capacity_factor=cf,
+        num_slots=S, shed_enable=shed_enable, groups=Gd,
     )
-    y_e = expert_compute(xg, plan, p, config)
-    y = combine(y_e, plan, (B, T, D))
+    y_e = expert_compute(xg, plan, p, config, policy, groups=Gd)
+    y = combine(y_e, plan, tuple(x.shape))
+    if gather_out:
+        y = mesh.all_gather(y, data_spec).reshape(B, T, D)
     return y, MoEAux(
         expert_counts=router.expert_counts,
         aux_loss=router.aux_loss,

@@ -20,8 +20,8 @@ the batch, the longest row's, so a shorter row attends over the zero
 panels past its prompt and takes its RoPE position and write index from
 that maximum (the JAX engine's dense approximation, kept as it is). A
 prompt longer than the ring raises ``ValueError``. ``"auto"`` (the
-default) is paged exactly when the family qualifies: the port has no
-mesh, so the JAX engine's mesh condition never holds.
+default) is paged exactly when the family qualifies and the policy has no
+mesh, as in the JAX engine.
 
 The GEM control plane (:mod:`repro_torch.core`):
 
@@ -50,11 +50,36 @@ Each batch is one dense (L, S) row-source map, identity but for its moved
 slots; the executable copies only those rows in place and the swapped
 tables are copied into the engine's one table tensor, so the captured
 decode step sees the new layout with no new capture. ``migration_via``
-``"host"`` and ``"collective"`` apply every batch the same way on one card,
-where no expert row crosses an interconnect: ``"collective"`` is the JAX
-engine without live expert sharding, and its records say ``"via":
-"host"``. ``set_true_interconnect`` injects the fabric that times a
-measured batch and the shed pass's transfer, as in the JAX engine.
+``"host"`` and ``"collective"`` apply every batch the same way on one
+device, where no expert row crosses an interconnect: ``"collective"`` is
+then the JAX engine without live expert sharding, and its records say
+``"via": "host"``. ``set_true_interconnect`` injects the fabric that times
+a measured batch and the shed pass's transfer, as in the JAX engine.
+
+**A mesh** (``ServingEngine(params, config, EngineConfig(…),
+policy=policy)`` with a :class:`~repro_torch.sharding.ShardingPolicy` over a
+:mod:`repro_torch.launch.mesh` of ranks, each rank running this engine on
+its own shard of the parameters, :func:`repro_torch.models.init_params` or
+:func:`repro_torch.bridge.params_from_numpy` with the policy). The expert
+pool's slots shard over ``model`` (placement device d is model rank d),
+the decode batch and the dispatch groups over ``data``, and every other
+parameter is whole on every rank. The KV cache is dense and holds the
+rank's rows; every rank prefills every request (its MoE layers collapse
+to one group) and keeps the rows it decodes. Every rank runs the same host
+control plane — scheduler, planner, online controller, shed gate — on the
+same inputs (K2's counts summed over the data ranks, the logits gathered
+over them), so their decisions, tables and tokens stay identical; their
+telemetry hubs hold the same records, and a caller exports one rank's (the
+first). Migrations move rows between the ranks of each model row
+(:class:`~repro_torch.kernels.collective.MigrationExecutable` with the
+mesh) whichever ``migration_via``; under ``"collective"`` each record
+carries the traffic its minimal schedule ships
+(:func:`~repro_torch.kernels.collective.stats_for_dense_sources`) and is
+charged by it, as the JAX engine's are. A replicated pool's retarget
+under ``"collective"`` is fig21's two-phase install (one fetch a device
+and new expert, then the local fan-out). ``decode_mode="scan"`` needs
+NCCL on the card (a gloo collective cannot be captured: ``ValueError``);
+on the CPU every mode runs eagerly.
 
 **Telemetry** (:mod:`repro_torch.telemetry`): the engine always holds a
 hub (``telemetry=None`` gives a disabled one, which records counters but
@@ -105,8 +130,7 @@ recaptures it.
 
 The GEM planes (replans, online, replication, shedding) need a MoE config
 and refuse the others, as the JAX engine does; a config without MoE
-layers serves with no control plane. Not here yet: the row exchange over
-an interconnect between cards (the multi-card data plane).
+layers serves with no control plane.
 
 On a host without a GPU, ``tests/test_torch_online.py`` holds the online
 engine against the JAX engine in both decode modes
@@ -118,6 +142,8 @@ after every batch has landed.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import warnings
 from collections import deque
 from typing import Any, Iterable
 
@@ -130,10 +156,15 @@ from ..core.gem import GEMPlanner
 from ..core.score import step_cost_matrix, step_token_matrix
 from ..core.types import GEMConfig, Placement, VariabilityProfile
 from ..device import resolve_device
-from ..kernels.collective import MigrationExecutable
+from ..kernels.collective import (
+    MigrationExecutable,
+    gather_rows,
+    stats_for_dense_sources,
+)
 from ..models.dispatch import slot_capacity
 from ..models.model import (
     DecodeGraph,
+    data_rows,
     decode_step,
     init_decode_cache,
     init_paged_decode_cache,
@@ -146,7 +177,10 @@ from ..online import (
     OnlineConfig,
     OnlineController,
 )
-from ..online.migration import replica_source_permutation
+from ..online.migration import (
+    replica_install_phases,
+    replica_source_permutation,
+)
 from ..replication import (
     ReplicatedPlacement,
     ReplicationConfig,
@@ -171,6 +205,11 @@ from .kv_cache import (
     PagedKVPool,
     kv_pool_bytes,
     replica_slots_for_headroom,
+)
+from ..sharding.policy import (
+    ShardingPolicy,
+    host_policy,
+    local_expert_slots,
 )
 from .sampling import sample
 from .scheduler import Request, Scheduler
@@ -211,14 +250,15 @@ class EngineConfig:
     staggered_replan: bool = False  # load-drift replans re-search only the
     # layers the detector localises the shift to (OnlineConfig)
     # "host": batches apply as indexed row copies on the weights' device.
-    # "collective": rows over an interconnect between the cards that hold
-    # the expert shards; on one card there is no expert sharding, so it
-    # applies the same row copies (bit for bit) and its records say
-    # "via": "host", as the JAX engine's do without a live expert axis
+    # "collective": rows over the mesh's model axis between the ranks that
+    # hold the expert shards, and the records carry the measured traffic;
+    # without a sharded pool (one device) it applies the same row copies
+    # (bit for bit) and its records say "via": "host", as the JAX
+    # engine's do without a live expert axis
     migration_via: str = "host"
     other_time_per_step: float = 0.0  # simulated non-MoE per-step latency
     # "auto" pages the KV cache on attention families without a sliding
-    # window (the port has no mesh); "paged" / "dense" force
+    # window when the policy has no mesh; "paged" / "dense" force
     kv_mode: str = "auto"  # auto | paged | dense
     kv: PagedKVConfig = PagedKVConfig()
     # chunked prefill: >0 spreads a prompt's *simulated* prefill time over
@@ -241,10 +281,18 @@ class EngineConfig:
 class ServingEngine:
     def __init__(self, params, config: ModelConfig,
                  engine_config: EngineConfig = EngineConfig(), *,
+                 policy: ShardingPolicy | None = None,
                  profile: VariabilityProfile | None = None,
                  num_devices: int | None = None,
                  telemetry: Telemetry | None = None,
                  device=None):
+        """``policy`` (keyword-only; the host policy, one device, when
+        None) places the engine on a mesh of ranks; with a mesh,
+        ``device`` defaults to the rank's own."""
+        policy = policy if policy is not None else host_policy()
+        self.policy = policy
+        if device is None and policy.mesh is not None:
+            device = policy.mesh.device
         self.device = resolve_device(device)
         embed = params["embed"]
         if embed.device.type != self.device.type:
@@ -269,7 +317,8 @@ class ServingEngine:
         family_ok = (not (config.is_ssm or config.is_hybrid)
                      and config.sliding_window == 0)
         if engine_config.kv_mode == "auto":
-            self.paged = family_ok
+            # the paged pool is not sharded: a mesh keeps the dense layout
+            self.paged = family_ok and policy.mesh is None
         elif engine_config.kv_mode == "paged":
             if not family_ok:
                 raise ValueError(
@@ -351,6 +400,8 @@ class ServingEngine:
         self.params = params
         self.config = config
         self.ecfg = engine_config
+        # the decode rows this rank runs (None: all of them)
+        self._rows = data_rows(policy, engine_config.max_batch)
         # the telemetry hub, always built (disabled when none is passed):
         # its registry holds the migration records. The clock binds to the
         # simulated time before the online controller is built, whose
@@ -406,6 +457,9 @@ class ServingEngine:
         self.current_placements: list[Placement] | None = None
         # the live replicated layouts; None without a replicated pool
         self.current_rplacements: list[ReplicatedPlacement] | None = None
+        # the expert pool's global slot count S (each rank stores S/m rows
+        # when the model axis divides S); None without MoE layers
+        self._num_slots: int | None = None
         if config.is_moe:
             self._init_control_plane(profile, num_devices, replica_slots,
                                      dtype_bytes)
@@ -421,9 +475,13 @@ class ServingEngine:
                 dtype=embed.dtype,
             )
         else:
+            # under a data-sharded batch, the rank's rows only
+            rows = self._rows
             self.caches = init_decode_cache(
-                config, engine_config.max_batch, engine_config.max_len,
-                device=self.device, dtype=embed.dtype,
+                config,
+                engine_config.max_batch if rows is None
+                else rows.stop - rows.start,
+                engine_config.max_len, device=self.device, dtype=embed.dtype,
             )
         self.cur_len = np.zeros(engine_config.max_batch, dtype=np.int32)
         self.last_token = np.zeros(engine_config.max_batch, dtype=np.int32)
@@ -434,13 +492,15 @@ class ServingEngine:
             if self.paged else None
         )
         self.decode_graph: DecodeGraph | None = None
-        self._decode = decode_step
+        self._decode = functools.partial(decode_step, policy=policy,
+                                         num_slots=self._num_slots)
         if engine_config.decode_mode == "scan":
             self.decode_graph = DecodeGraph(
                 self.params, self.caches, self._placements, config,
                 batch=engine_config.max_batch,
                 n_max=self._n_max if self.paged else None,
                 device=self.device, shed=self._shed_enables is not None,
+                policy=policy, num_slots=self._num_slots,
             )
             self._decode = self.decode_graph
 
@@ -460,6 +520,22 @@ class ServingEngine:
         )
         nd = num_devices or (profile.num_devices if profile else 4)
         Ev = config.num_virtual_experts
+        self._num_slots = Ev
+        policy = self.policy
+        if (engine_config.migration_via == "collective"
+                and policy.mesh is not None and policy.model_axis_size > 1
+                and nd != policy.model_axis_size):
+            # the collective plane shards rows over the model axis, the
+            # cost model prices locality by placement device: when the two
+            # disagree a "cross-device" move can be a same-rank copy (or
+            # the reverse), and measured traffic stops matching the model
+            warnings.warn(
+                f"migration_via='collective': placement device count {nd} "
+                f"!= model-axis size {policy.model_axis_size}; measured "
+                "migration traffic will not match the cost model's "
+                "cross-device accounting",
+                RuntimeWarning, stacklevel=3,
+            )
         self.planner = GEMPlanner(
             Ev, nd, config.num_layers, engine_config.gem
         )
@@ -485,7 +561,15 @@ class ServingEngine:
                 for _ in range(config.num_layers)
             ]
             self._install_replicated_pool(self.current_rplacements)
-        self._migrate = MigrationExecutable()
+        # a pool sharded over ranks moves over the model axis under either
+        # data plane; "collective" also measures what crossed
+        shard_axis = policy.expert_collective_axis(self._num_slots)
+        self._collective_axis = (
+            shard_axis if engine_config.migration_via == "collective"
+            else None)
+        self._migrate = MigrationExecutable(
+            mesh=policy.mesh if shard_axis is not None else None,
+            axis=shard_axis or "model")
         # one cost model for both replan paths: the online plane prices its
         # batches with it and the one-shot swap is charged the same way
         self._cost_model = engine_config.migration.cost_model_for_dims(
@@ -501,12 +585,12 @@ class ServingEngine:
                 else default_token_bytes(config.d_model, dtype_bytes)
             )
             # the decode capacity the gate must predict: build_dispatch's
-            # own formula for one dispatch group
+            # own formula, per data group
+            gd = policy.data_axis_size if policy.mesh is not None else 1
             self._shed_capacity = slot_capacity(
-                max(engine_config.max_batch, 1), config,
+                max(engine_config.max_batch // max(gd, 1), 1), config,
                 capacity_factor=config.decode_capacity_factor,
-                num_slots=int(self.params["blocks"]["moe"]["w_gate"].shape[1]),
-                replicated=True,
+                num_slots=self._num_slots, replicated=True,
             )
         if engine_config.online:
             self.controller = OnlineController(
@@ -618,21 +702,30 @@ class ServingEngine:
         ``ValueError``, where the JAX engine's pad by ``pool − new`` does."""
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         logits, caches = prefill(
-            self.params, tokens, self.config, self.placements
+            self.params, tokens, self.config, self.placements,
+            policy=self.policy, num_slots=self._num_slots,
         )
         self.prefill_count += 1
         c = self.caches
+        local = slot
+        rows = self._rows
+        if rows is not None:  # the rank holds only the rows it decodes
+            local = slot - rows.start
+        if "attn" in c:
+            P, S_pool = caches["attn"]["k"].shape[-3], c["attn"]["k"].shape[-3]
+            if P > S_pool:
+                raise ValueError(
+                    f"prompt of {P} tokens does not fit the dense KV "
+                    f"cache's {S_pool} positions a slot (the ring under "
+                    "a sliding window: min(window, max_len))"
+                )
+        if rows is not None and not rows.start <= slot < rows.stop:
+            c = {}  # another data rank decodes this row
         if "attn" in c:
             for name in ("k", "v"):
                 pool, new = c["attn"][name], caches["attn"][name]
-                P, S_pool = new.shape[-3], pool.shape[-3]
-                if P > S_pool:
-                    raise ValueError(
-                        f"prompt of {P} tokens does not fit the dense KV "
-                        f"cache's {S_pool} positions a slot (the ring under "
-                        "a sliding window: min(window, max_len))"
-                    )
-                panel = pool[..., slot, :, :, :]
+                P = new.shape[-3]
+                panel = pool[..., local, :, :, :]
                 panel[..., :P, :, :].copy_(new[..., 0, :, :, :])
                 panel[..., P:, :, :].zero_()
         for key in ("ssm", "ssm_staged", "ssm_tail"):
@@ -641,7 +734,7 @@ class ServingEngine:
                     # batch axis: state (…, B, nh, hd, N), conv (…, B, cw-1, C)
                     new = caches[key][part]
                     pool.select(pool.dim() - 4 if part == "state"
-                                else pool.dim() - 3, slot).copy_(
+                                else pool.dim() - 3, local).copy_(
                         new.select(new.dim() - 4 if part == "state"
                                    else new.dim() - 3, 0))
         self.cur_len[slot] = req.prompt_len
@@ -652,7 +745,8 @@ class ServingEngine:
         """Prefill one request and write its K/V into its owned blocks."""
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         logits, caches = prefill(
-            self.params, tokens, self.config, self.placements
+            self.params, tokens, self.config, self.placements,
+            policy=self.policy, num_slots=self._num_slots,
         )
         self.prefill_count += 1
         table = self.kv_pool.block_table(req.uid)
@@ -763,20 +857,29 @@ class ServingEngine:
         return self.telemetry.migration_records
 
     def _apply_migration_sources(self, src: np.ndarray, *,
-                                 swap_tables: bool) -> None:
+                                 swap_tables: bool) -> list:
         """Rewrite the expert pool in place to ``new[l] = old[l][src[l]]``
-        (only the moved rows are copied). With ``swap_tables`` (permutation
-        batches) the swapped (L, E_v) tables are copied into the engine's
-        one table tensor; replica batches leave the tables to the caller,
-        which rebuilds them from the live layouts' shares. Nothing the
-        captured decode step reads is rebound."""
+        (only the moved rows are copied; over the mesh's model axis when
+        the pool is sharded). With ``swap_tables`` (permutation batches)
+        the swapped (L, E_v) tables are copied into the engine's one table
+        tensor; replica batches leave the tables to the caller, which
+        rebuilds them from the live layouts' shares. Nothing the captured
+        decode step reads is rebound. Returns the per-layer
+        :class:`~repro_torch.kernels.collective.CollectiveStats` of the
+        batch under ``migration_via="collective"`` on a sharded pool, else
+        an empty list (no measurement)."""
         moe = self.params["blocks"]["moe"]
         tables = self.placements if swap_tables else None
-        _, new_tables = self._migrate(
-            src, tables, moe["w_gate"], moe["w_up"], moe["w_down"]
-        )
+        ws = (moe["w_gate"], moe["w_up"], moe["w_down"])
+        _, new_tables = self._migrate(src, tables, *ws)
         if swap_tables:
             self.placements = new_tables  # copied in place (setter)
+        if self._collective_axis is None:
+            return []
+        row_bytes = sum(int(np.prod(w.shape[2:])) * w.element_size()
+                        for w in ws)
+        return [st for _, st in stats_for_dense_sources(
+            src, self.policy.model_axis_size, row_bytes)]
 
     def _replica_tables(self, rplacements) -> np.ndarray:
         """(L, E_v, P) replica-split router tables of the layouts."""
@@ -789,28 +892,66 @@ class ServingEngine:
         valid while the pool is in virtual order, at construction before
         the decode step is captured: the expanded weights and the (L, E_v,
         P) table tensor are new tensors, which the capture then binds."""
-        s2e = torch.as_tensor(
-            np.stack([rp.slot_to_expert for rp in rplacements]),
-            device=self.device,
-        )
+        s2e = np.stack([rp.slot_to_expert for rp in rplacements])
+        self._num_slots = s2e.shape[1]
         blocks = dict(self.params["blocks"])
-        blocks["moe"] = apply_placement(blocks["moe"], s2e)
+        moe = blocks["moe"]
+        policy, Ev = self.policy, self.config.num_virtual_experts
+        if local_expert_slots(policy, Ev) is None:
+            # the virtual pool is whole here: gather, and keep this rank's
+            # slots of the new pool if the model axis divides it
+            new = apply_placement(moe, torch.as_tensor(s2e, device=self.device))
+            keep = local_expert_slots(policy, s2e.shape[1])
+            if keep is not None:
+                new = {k: (v[:, keep].contiguous()
+                           if k in ("w_gate", "w_up", "w_down") else v)
+                       for k, v in new.items()}
+        else:
+            # rows cross ranks: each new slot fetches its expert from the
+            # rank that holds it
+            keep = local_expert_slots(policy, s2e.shape[1])
+            rows = s2e.shape[1] if keep is None else keep.stop - keep.start
+            names = ("w_gate", "w_up", "w_down")
+            outs = [moe[n].new_empty((moe[n].shape[0], rows,
+                                      *moe[n].shape[2:])) for n in names]
+            gather_rows(policy.mesh, policy.model_axis, s2e,
+                        [moe[n] for n in names], outs)
+            new = {**moe, **dict(zip(names, outs))}
+        blocks["moe"] = new
         self.params = {**self.params, "blocks": blocks}
         self._placements = torch.as_tensor(
             self._replica_tables(rplacements), device=self.device
         )
 
-    def _retarget_replicated_pool(self, rplacements) -> None:
+    def _retarget_replicated_pool(self, rplacements) -> list:
         """Move the live replicated pool to new layouts in one row gather
         per layer (each target slot reads a current copy of its expert),
-        in place, and copy the new layouts' tables into the table tensor."""
-        srcs = np.stack([
-            replica_source_permutation(cur.slot_layout(), new.slot_layout())
-            for cur, new in zip(self.current_rplacements, rplacements)
-        ])
-        self._apply_migration_sources(srcs.astype(np.int32),
-                                      swap_tables=False)
+        in place, and copy the new layouts' tables into the table tensor.
+        Under ``migration_via="collective"`` on a sharded pool it is the
+        two-phase install: one fetch a (device, new expert) over the
+        axis, then the fan-out within each rank, each phase one dense map;
+        returns their measured stats (empty otherwise)."""
+        if self._collective_axis is not None:
+            spd = rplacements[0].slots_per_device
+            phases = [replica_install_phases(cur.slot_layout(),
+                                             new.slot_layout(), spd)
+                      for cur, new in zip(self.current_rplacements,
+                                          rplacements)]
+            stats = []
+            for phase in (0, 1):
+                stats += self._apply_migration_sources(
+                    np.stack([p[phase] for p in phases]).astype(np.int32),
+                    swap_tables=False)
+        else:
+            srcs = np.stack([
+                replica_source_permutation(cur.slot_layout(),
+                                           new.slot_layout())
+                for cur, new in zip(self.current_rplacements, rplacements)
+            ])
+            stats = self._apply_migration_sources(srcs.astype(np.int32),
+                                                  swap_tables=False)
         self.placements = self._replica_tables(rplacements)
+        return stats
 
     def set_true_profile(self, profile: VariabilityProfile | None) -> None:
         """Inject the *actual* fleet behaviour when it departs the believed
@@ -1057,15 +1198,16 @@ class ServingEngine:
         # row-source map is its slot_to_expert table, and the table swap
         # inverts it into expert_to_slot; the pool is rewritten in place
         slot_to_expert = np.stack([p.slot_to_expert() for p in placements])
-        self._apply_migration_sources(slot_to_expert.astype(np.int32),
-                                      swap_tables=True)
-        # the swap moves weights: charge its modelled cost (one card
-        # measures nothing) to the step that performs it
+        stats = self._apply_migration_sources(
+            slot_to_expert.astype(np.int32), swap_tables=True)
+        # the swap moves weights: charge its cost (modelled, or measured
+        # over the mesh) to the step that performs it
         moves = sum(
             len(cur.moved_slots(new))
             for cur, new in zip(self.current_placements, placements)
         )
-        swap_cost = self._record_migration(moves, self._cost_model.cost(moves))
+        swap_cost = self._record_migration(moves, self._cost_model.cost(moves),
+                                           stats)
         if self.sim_step_latencies:
             self.sim_step_latencies[-1] += swap_cost
         self.sim_time += swap_cost
@@ -1100,8 +1242,9 @@ class ServingEngine:
             moves=int(moves),
             modeled_s=float(self._cost_model.cost(moves)),
         )
-        self._retarget_replicated_pool(rplacements)
-        swap_cost = self._record_migration(moves, self._cost_model.cost(moves))
+        stats = self._retarget_replicated_pool(rplacements)
+        swap_cost = self._record_migration(moves, self._cost_model.cost(moves),
+                                           stats)
         if self.sim_step_latencies:
             self.sim_step_latencies[-1] += swap_cost
         self.sim_time += swap_cost
@@ -1121,12 +1264,14 @@ class ServingEngine:
         controller's tables, rebuilt from the new layouts' shares."""
         ctrl = self.controller
         decision = ctrl.observe_step(counts_virt, cost_mx.sum(axis=0))
+        charge = decision.migration_cost
         if decision.migration_step is not None:
             src = ctrl.dense_migration_sources(decision.migration_step)
-            self._apply_migration_sources(src,
-                                          swap_tables=not ctrl.replicated)
-            self._record_migration(
-                decision.migration_step.num_moves, decision.migration_cost
+            stats = self._apply_migration_sources(
+                src, swap_tables=not ctrl.replicated)
+            charge = self._record_migration(
+                decision.migration_step.num_moves, decision.migration_cost,
+                stats, cost_mx,
             )
             if ctrl.replicated:
                 self.placements = ctrl.expert_to_slot_tables()
@@ -1149,7 +1294,7 @@ class ServingEngine:
             r["applied"] for r in self.controller.replans
         ):
             self.placement_applied = True
-        return decision.migration_cost
+        return charge
 
     def _record_migration(self, moves: int, modeled_s: float, stats=(),
                           cost_mx: np.ndarray | None = None) -> float:
@@ -1157,11 +1302,11 @@ class ServingEngine:
         telemetry hub; returns the charge for the step.
 
         ``stats`` are the batch's measured per-layer
-        :class:`~repro_torch.kernels.collective.CollectiveStats`. On one
-        card no row crosses an interconnect, so every caller here passes
-        none and the modelled cost is charged, as the JAX engine's host
-        path and its collective path without a live expert axis do. A
-        measured batch (the multi-card data plane's) is timed by the
+        :class:`~repro_torch.kernels.collective.CollectiveStats`: none on
+        one device or under ``migration_via="host"``, and the modelled
+        cost is charged, as the JAX engine's host path and its collective
+        path without a live expert axis do. A measured batch (the
+        collective plane's over a mesh) is timed by the
         (possibly injected) true interconnect on the payload its schedules
         shipped; the double-buffered copy can hide
         ``migration.overlap_fraction`` of its transfer behind this step's

@@ -1,0 +1,248 @@
+"""Sharding policy: one object that owns every partition decision (port of
+``repro/sharding/policy.py``).
+
+* Mesh axes: ``("data", "model")`` single-pod, ``("pod", "data", "model")``
+  multi-pod (:mod:`repro_torch.launch.mesh`); ``pod`` folds into the batch
+  axes.
+* A spec is a plain tuple with one entry per dimension: an axis name, a
+  tuple of axis names, or None (replicated), where JAX builds a
+  ``PartitionSpec`` from the same entries. Every spec method returns what
+  JAX's returns.
+* What the port honours: the expert dim of the stacked expert weights over
+  ``model`` (:func:`local_expert_slots`, :func:`param_specs`), and the batch
+  and the MoE dispatch groups over the batch axes
+  (:meth:`ShardingPolicy.moe_shard_spec`). Every other parameter and the KV
+  cache's sequence are replicated on every rank, where GSPMD would shard
+  them (``w_col``/``w_row``, ``kv_seq``, FSDP); the specs still answer as
+  JAX's do.
+* PyTorch runs eagerly: there is no compiler to hand a layout to, so
+  :meth:`ShardingPolicy.constrain` and the ``act_*``/``kv_cache`` helpers
+  return their input. The data plane moves data between ranks itself, in
+  :mod:`repro_torch.kernels.sharded` and :mod:`repro_torch.models.moe`.
+
+The policy is mesh-optional: with ``mesh=None`` there is one rank and the
+same model code runs on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+__all__ = ["ShardingPolicy", "host_policy", "local_expert_slots",
+           "param_specs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    mesh: Any = None  # repro_torch.launch.mesh.Mesh, or anything with
+    # ``shape`` and ``axis_names`` for the spec methods alone
+    batch_axes: tuple[str, ...] = ("data",)  # ("pod","data") on multi-pod;
+    # () when global_batch < data-axis size (long-context decode)
+    model_axis: str = "model"
+    kv_seq_axes: tuple[str, ...] = ("model",)
+    fsdp: bool = False  # also shard params over the data axis (training)
+    # None → same as batch_axes
+    cache_batch_axes: tuple[str, ...] | None = None
+
+    # ---- spec construction -------------------------------------------------
+    @property
+    def batch(self):
+        if not self.batch_axes:
+            return None
+        return self.batch_axes if len(self.batch_axes) > 1 else self.batch_axes[0]
+
+    @property
+    def cache_batch(self):
+        axes = self.cache_batch_axes
+        if axes is None:
+            return self.batch
+        if not axes:
+            return None
+        return axes if len(axes) > 1 else axes[0]
+
+    @property
+    def kv_seq(self):
+        if len(self.kv_seq_axes) == 1:
+            return self.kv_seq_axes[0]
+        return self.kv_seq_axes
+
+    @property
+    def data_axis_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        n = 1
+        for a in self.batch_axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    @property
+    def all_data_axes(self) -> tuple[str, ...]:
+        """Every non-model axis of the mesh (for full-fleet seq sharding)."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in self.mesh.axis_names if a != self.model_axis)
+
+    @property
+    def model_axis_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape[self.model_axis]
+
+    def spec(self, *parts) -> tuple:
+        return tuple(parts)
+
+    def named(self, *parts) -> tuple | None:
+        """The spec of ``parts`` when a mesh is present, None otherwise
+        (JAX's ``NamedSharding``, whose mesh is the policy's)."""
+        if self.mesh is None:
+            return None
+        return tuple(parts)
+
+    # ---- per-shard kernel dispatch -----------------------------------------
+    def moe_shard_spec(self, Gd: int, Ev: int) -> tuple:
+        """(data_spec, expert_spec) for the per-rank MoE kernels.
+
+        ``data_spec`` shards the leading dispatch-group dim of the
+        (Gd, E_v, C, D) expert buffers / (Gd, Ng, E) router logits over the
+        batch axes — ``None`` (replicate) when the batch collapsed to a
+        single group (B didn't divide the data extent) or there are no batch
+        axes (replicated-activation decode). ``expert_spec`` shards E_v over
+        the model axis — ``None`` when E_v doesn't divide the model extent.
+        """
+        if self.mesh is None:
+            return None, None
+        data_spec = (
+            self.batch if (Gd > 1 and Gd == self.data_axis_size) else None
+        )
+        expert_spec = (
+            self.model_axis if Ev % self.model_axis_size == 0 else None
+        )
+        return data_spec, expert_spec
+
+    def expert_collective_axis(self, num_slots: int) -> str | None:
+        """Mesh axis for collective expert-row migration, or ``None``.
+
+        Collectives apply exactly when the slot dim of the stacked expert
+        weights is sharded: a real mesh, a model axis wider than one rank,
+        and a slot count the axis divides."""
+        if self.mesh is None or self.model_axis_size <= 1:
+            return None
+        if num_slots % self.model_axis_size != 0:
+            return None
+        return self.model_axis
+
+    def moe_expert_pad(self, Ev: int) -> tuple[int, Any]:
+        """(padded E_v, expert spec) for the per-rank kernels when ``Ev``
+        doesn't divide the model-axis extent: dead slots — zero weight rows
+        and zero buffers whose FFN output is exactly zero and is sliced back
+        off — pad the expert dim to the next multiple of the axis. Returns
+        ``(Ev, None)`` with no mesh or a 1-wide model axis."""
+        if self.mesh is None or self.model_axis_size <= 1:
+            return Ev, None
+        pad = (-Ev) % self.model_axis_size
+        return Ev + pad, self.model_axis
+
+    # ---- activation constraints: the identity in eager PyTorch -------------
+    def constrain(self, x, *parts):
+        """The identity: JAX's ``with_sharding_constraint`` hints a layout
+        to its compiler, and eager PyTorch has none to hint."""
+        del parts
+        return x
+
+    def act_bsd(self, x):
+        """(B, S, D): batch over data, replicated over model (identity)."""
+        return self.constrain(x, self.batch, None, None)
+
+    def act_seq_sharded(self, x):
+        """(B, S, D): sequence over model in JAX (identity here)."""
+        return self.constrain(x, self.batch, self.model_axis, None)
+
+    def act_ff_sharded(self, x):
+        """(B, S, F): TP intermediate in JAX (identity here)."""
+        return self.constrain(x, self.batch, None, self.model_axis)
+
+    def act_vocab_sharded(self, x):
+        """(B, S, V): logits, vocab over model in JAX (identity here)."""
+        return self.constrain(x, self.batch, None, self.model_axis)
+
+    def kv_cache(self, x):
+        """(L, B, S, KV, hd): KV sequence over kv_seq in JAX (identity
+        here)."""
+        return self.constrain(x, None, self.cache_batch, self.kv_seq, None, None)
+
+    # ---- parameter specs ---------------------------------------------------
+    def _fsdp_axis(self):
+        return "data" if (self.fsdp and self.mesh is not None) else None
+
+    def w_col(self, stacked: bool = True) -> tuple:
+        """(…, D, F): input dim optionally FSDP-sharded, output dim over model."""
+        core = (self._fsdp_axis(), self.model_axis)
+        return ((None,) if stacked else ()) + core
+
+    def w_row(self, stacked: bool = True) -> tuple:
+        """(…, F, D): input dim over model, output dim optionally FSDP."""
+        core = (self.model_axis, self._fsdp_axis())
+        return ((None,) if stacked else ()) + core
+
+    def w_expert(self, ndim_tail: int = 2, stacked: bool = True) -> tuple:
+        """(…, E_virtual, D, F) / (…, E_virtual, F, D): experts over model."""
+        core = (self.model_axis,) + (self._fsdp_axis(),) + (None,) * (ndim_tail - 1)
+        return ((None,) if stacked else ()) + core
+
+    def w_replicated(self, ndim: int) -> tuple:
+        return (None,) * ndim
+
+    def w_vector(self, stacked: bool = True) -> tuple:
+        """(…, D) biases/norm scales: replicated."""
+        return ((None,) if stacked else ()) + (None,)
+
+    def embed_tied(self) -> tuple:
+        """Tied embedding doubles as lm_head: shard vocab over model."""
+        return (self.model_axis, self._fsdp_axis())
+
+    def embed_untied(self) -> tuple:
+        """Lookup-only table: shard d_model over model."""
+        return (self._fsdp_axis(), self.model_axis)
+
+    def lm_head(self) -> tuple:
+        return (self._fsdp_axis(), self.model_axis)
+
+
+def host_policy() -> ShardingPolicy:
+    """Policy for one device: every constraint a no-op."""
+    return ShardingPolicy(mesh=None)
+
+
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def local_expert_slots(policy: ShardingPolicy | None,
+                       num_slots: int) -> slice | None:
+    """The slots ``[d·S/m, (d+1)·S/m)`` this rank holds of an S-slot
+    expert pool, d being its model-axis position, or None when the pool is
+    not sharded (no mesh, a 1-wide model axis, or S indivisible by it:
+    every rank then holds all S slots, as JAX replicates them)."""
+    if policy is None or policy.expert_collective_axis(num_slots) is None:
+        return None
+    per = num_slots // policy.model_axis_size
+    d = policy.mesh.index(policy.model_axis)
+    return slice(d * per, (d + 1) * per)
+
+
+def param_specs(params, policy: ShardingPolicy | None):
+    """The specs the port honours for a parameter tree, mirroring it: the
+    stacked expert weights ``(L, S, …)`` under ``blocks/moe`` shard their
+    slot dim over the model axis where :func:`local_expert_slots` does;
+    every other leaf is None (whole on every rank). ``params`` may hold
+    tensors or numpy arrays of the full shapes."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if tree is None:
+            return None
+        if (len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_WEIGHTS
+                and local_expert_slots(policy, int(tree.shape[1])) is not None):
+            return (None, policy.model_axis) + (None,) * (len(tree.shape) - 2)
+        return None
+
+    return walk(params, ())

@@ -37,6 +37,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.autograd, repro_torch.tree\n"
         "import repro_torch.launch.dryrun, repro_torch.launch.specs\n"
         "import repro_torch.launch.cost\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.kernels.sharded\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
