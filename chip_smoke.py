@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs fifteen phases, each printing JSON lines:
+runs sixteen phases, each printing JSON lines:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -24,7 +24,10 @@ runs fifteen phases, each printing JSON lines:
    4096, 7168) at decode and C = 1,279 for the ``swa`` phase's longest
    prompt, and K2 at Mixtral's (8, 8) and (4,090, 8), k 2. K1 is also
    held and timed at one rank's share of the ``mesh`` phase's (1, 4)
-   decode, (20, 4, 1536)×(20, 1536, 256).
+   decode, (20, 4, 1536)×(20, 1536, 256), and of the ``mesh_train``
+   phase's forward, (20, 205, 1536)×(20, 1536, 256) at (1, 4) and (40,
+   103, 1536)×(40, 1536, 256) at (2, 2), K2 at that (2, 2) rank's (256,
+   40), k 8.
 3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
    engine on the card (kernels) and on the CPU (plain versions), same
    seeded weights and placement, must give equal greedy tokens. Then the
@@ -202,6 +205,34 @@ runs fifteen phases, each printing JSON lines:
    runs only with 4 cards (``"not run: N card(s)"`` otherwise). It prints
    each run's decode-step medians, walls and staged bytes: times of 4
    processes sharing one card, not of a multi-card fleet.
+16. ``mesh_train`` — training under the mesh (``make_train_step(…,
+   policy=…)``): granite at full width, 8 of 32 layers (4 ranks share the
+   card), bf16 parameters and fp32 moments, seed-0 weights drawn whole and
+   placed by the ``train`` phase's seed, its batches (4 × 128 tokens,
+   capacity factor 2.0) and optimizer, 5 AdamW steps, remat off, on 4
+   gloo ranks at (1, 4) and (2, 2), each against one process on the card
+   (dispatched in 2 groups for (2, 2)). The first step's loss within 1e-3
+   relative and grad norm within 1e-2 of one process's, its expert counts
+   and dropped share equal, each rank's gradient (after the reduction over
+   ranks) within 2e-2 of the leaf's max |g| of the one-process rows; the
+   second step's loss within 1e-3 and grad norm within 5e-2; the later
+   losses within 10 % and grad norms within 30 % (bf16 parameters part in
+   their last bits from the first update on, and one process on the card
+   does not repeat itself bit for bit; the later counts are printed);
+   every rank the same metrics; each rank's expert update over the run
+   (p_5 − p_0) at cosine ≥ 0.9 with one process's on its rows, and its
+   expert rows after the last step within twice the share by which a
+   second one-process run parts from the first; the replicated leaves
+   (parameters and moments) bit-equal on every rank and each expert shard
+   on the ranks that hold it; parameter and moment bytes those of the
+   rank's leaves; K1/K2 launched 8 × 5 times a rank, K1 on (E_v/m, C,
+   1536) × (E_v/m, 1536, 256). The (2, 2) ranks then save a checkpoint from the
+   mesh: it restores on one process in JAX's dtypes and each rank's
+   shards have the restored rows' checksums. With 4 cards, full granite
+   (32 layers) also trains over NCCL at (1, 4), a card a rank, against
+   one process (``"not run: N card(s)"`` otherwise). It prints each run's
+   losses, the per-rank step medians (host clock, steps 2–5) beside one
+   process's, staged bytes and peak memory a rank.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -431,6 +462,10 @@ def phase_kernels():
                                  mix.capacity_factor))}
     c_train = slot_capacity(TRAIN_BATCH * TRAIN_SEQ, cfg, capacity_factor=2.0,
                             num_slots=S, replicated=False)
+    # a (2, 2) rank of ``mesh_train`` dispatches its data half of the batch
+    c_train_2x2 = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // 2, cfg,
+                                capacity_factor=2.0, num_slots=S,
+                                replicated=False)
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     summary = {}
@@ -453,6 +488,11 @@ def phase_kernels():
         *((tag, mS, c, mD, mF, torch.bfloat16) for tag, c in m_cap.items()),
         # the ``train`` phase's forward: 512 tokens at capacity factor 2.0
         ("train", S, c_train, D, F, torch.bfloat16),
+        # one rank's expert shard of the ``mesh_train`` phase's (1, 4)
+        # forward: the same 512 tokens on 20 of the 80 slots
+        ("train_rank", S // MESH_MODEL, c_train, D, F, torch.bfloat16),
+        # and one rank's of its (2, 2) forward: 256 tokens on 40 slots
+        ("train_rank_2x2", S // 2, c_train_2x2, D, F, torch.bfloat16),
     ]
     # loops of calls for the timings; the prefill shape takes milliseconds
     # a call (fp32 for the plain version)
@@ -475,8 +515,8 @@ def phase_kernels():
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
                "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
-        if tag in ("decode", "decode_rank", "prefill", "train", *c_rep,
-                   *m_cap):
+        if tag in ("decode", "decode_rank", "prefill", "train", "train_rank",
+                   "train_rank_2x2", *c_rep, *m_cap):
             x, wg, wu, wd = args
             n_kernel, n_plain, n_library = iters.get(tag, (50, 20, 50))
 
@@ -502,6 +542,8 @@ def phase_kernels():
 
     router_cases = [("decode", 8, E, k), ("prefill", 128, E, k),
                     ("train", TRAIN_BATCH * TRAIN_SEQ, E, k),
+                    # a (2, 2) rank of ``mesh_train``: its data half
+                    ("train_rank_2x2", TRAIN_BATCH * TRAIN_SEQ // 2, E, k),
                     ("mixtral_decode", SWA_BATCH, mix.num_experts,
                      mix.experts_per_token),
                     ("mixtral_prefill", SWA_PROMPTS[1], mix.num_experts,
@@ -532,8 +574,8 @@ def phase_kernels():
                 abs_err = max(abs_err, ps_abs)
             row = {"kernel": name, "case": tag, "shape": [T, e, kk],
                    "max_abs_err": abs_err, "bit_equal_repeated": True}
-            if tag in ("decode", "prefill", "train", "mixtral_decode",
-                       "mixtral_prefill"):
+            if tag in ("decode", "prefill", "train", "train_rank_2x2",
+                       "mixtral_decode", "mixtral_prefill"):
                 def kernel():
                     return ops.topk_router(logits, kk, with_stats=with_stats)
 
@@ -3023,6 +3065,34 @@ def _check_mesh_run(tag, res, ref, shape, row_bytes):
     return cross
 
 
+def _nccl_scan(ref, store: Path, row_bytes, cards):
+    """The (1, 4) scenario over NCCL, a card a rank, in ``"scan"``
+    against the one-process ``ref``: (the run's record, its launches)."""
+    from repro_torch.launch.mesh import spawn
+
+    res = spawn(_mesh_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
+                store_dir=store / "nccl",
+                args=({"nd": MESH_MODEL, "mode": "scan", "guard": False,
+                       "reference": ref["path"]},),
+                timeout=MESH_TIMEOUT_S)
+    _check_mesh_run("nccl_scan", res, ref, (1, MESH_MODEL), row_bytes)
+    check(all(r["captures"] == {"decode": 1, "prefill": 0, "migrate": 0}
+              for r in res),
+          f"mesh nccl scan: captures {[r['captures'] for r in res]}")
+    launches = collections.Counter()
+    for r in res:
+        launches.update(r["launches"])
+    return {
+        "ranks": len(res), "cards": cards,
+        "devices": [r["device"] for r in res],
+        "captures_per_rank": 1, "tokens_equal_one_process": True,
+        "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
+        "launches_per_rank": [r["launches"] for r in res],
+        "decode_step_ms_median_per_rank": [
+            statistics.median(r["step_ms"]) for r in res],
+        "wall_s_per_rank": [r["wall_s"] for r in res]}, launches
+
+
 def phase_mesh(kernel_summary):
     """The expert-parallel data plane across ranks: (1, 4) and (2, 2)
     meshes of gloo ranks on this card in ``"python"`` against one-process
@@ -3114,28 +3184,9 @@ def phase_mesh(kernel_summary):
             gc.collect()
         n_cards = torch.cuda.device_count()
         if n_cards >= MESH_MODEL:
-            res = spawn(_mesh_rank, 1, MESH_MODEL, backend="nccl",
-                        device="cuda", store_dir=store / "nccl",
-                        args=({"nd": MESH_MODEL, "mode": "scan",
-                               "guard": False,
-                               "reference": ref_1x4["path"]},),
-                        timeout=MESH_TIMEOUT_S)
-            _check_mesh_run("nccl_scan", res, ref_1x4, (1, MESH_MODEL),
-                            row_bytes)
-            check(all(r["captures"] == {"decode": 1, "prefill": 0,
-                                        "migrate": 0} for r in res),
-                  f"mesh nccl scan: captures {[r['captures'] for r in res]}")
-            runs["nccl_scan"] = {
-                "ranks": len(res), "cards": cards,
-                "devices": [r["device"] for r in res],
-                "captures_per_rank": 1, "tokens_equal_one_process": True,
-                "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
-                "launches_per_rank": [r["launches"] for r in res],
-                "decode_step_ms_median_per_rank": [
-                    statistics.median(r["step_ms"]) for r in res],
-                "wall_s_per_rank": [r["wall_s"] for r in res]}
-            for r in res:
-                launches.update(r["launches"])
+            runs["nccl_scan"], counts = _nccl_scan(ref_1x4, store, row_bytes,
+                                                   cards)
+            launches.update(counts)
         else:
             runs["nccl_scan"] = f"not run: {n_cards} card(s)"
         emit({"phase": "mesh", "nccl_scan": runs["nccl_scan"]})
@@ -3150,6 +3201,641 @@ def phase_mesh(kernel_summary):
               "bound_ms", "bound_by", "bound_share")},
           "seconds": time.perf_counter() - start})
     return dict(launches)
+
+
+# --------------------------------------------------------------- mesh_train
+# Training under the mesh: granite at full width, 8 of 32 layers (4 ranks
+# share the card: ~315 M parameters a rank at (1, 4), ~504 M at (2, 2)),
+# bf16 parameters and fp32 moments, seed-0 weights drawn whole (as one
+# process draws them) and placed by the ``train`` phase's seed, the
+# ``train`` phase's batches (4 × 128 tokens, C = 205) and optimizer (the
+# launcher's: learning rate 1e-3, 10 warm-up steps, a cosine to 20), 5
+# steps, remat off; each mesh against one process on the card at the same
+# depth, draws and batches (dispatched in 2 groups for (2, 2)).
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_STEPS = 5
+MESH_TRAIN_TIMEOUT_S = 900.0
+# gates, bf16 parameters. The first step starts from the same weights:
+# its loss within 1e-3 relative of one process's, its grad norm within
+# 1e-2, its expert counts and dropped share equal, and each gradient leaf
+# (the rank's rows, after the reduction over ranks) within 2e-2 of the
+# leaf's max |g| (the single-card train tests' bf16 tolerance). The
+# second step, after one update (Adam's first is ±lr a weight, its sign
+# the gradient's), within 1e-3 and 5e-2. From there one process on the
+# card does not repeat itself bit for bit (the embedding's and the
+# gather's backwards add with atomics), the ranks sum in other orders,
+# and an update of lr ≈ 1e-4 is about one bf16 step of a weight, so a
+# gradient near 0 that takes the other sign parts the runs; they part
+# faster as the loss climbs. So the later steps' losses are held within
+# 10 % and their grad norms within 30 % (on an H100 one process run again
+# parts from itself by several per cent in the norm by step 5, sound mesh
+# runs by up to about a tenth; a norm that missed a sum over ranks would
+# be off by a factor), their counts printed; what must hold exactly is
+# that the ranks stay replicas: the same metrics on every rank, every
+# whole leaf (parameters and moments) bit-equal on every rank and every
+# expert shard on the ranks that hold it. Each expert leaf's update over
+# the run on the rank's rows, p_5 − p_0, must point as one process's
+# does: cosine ≥ 0.9 (sound runs read about 0.97–0.98 on an H100, one
+# process run again about 0.96–0.98; ranks whose replicas parted read
+# 0.84–0.86). A second
+# one-process run, at each shape, measures how far the card's own runs
+# part: each rank's expert rows after the last step must lie within twice
+# its largest max |Δ| / max |w| of one process's (an Adam step moves a
+# weight by about lr at most, so both read a few lr over the weights'
+# max).
+MESH_TRAIN_LOSS_RTOL = (1e-3, 1e-3, 0.1)
+MESH_TRAIN_NORM_RTOL = (1e-2, 5e-2, 0.3)
+MESH_TRAIN_GRAD_TOL = 2e-2
+MESH_TRAIN_UPDATE_COS = 0.9
+MESH_TRAIN_PARAM_SPREAD = 2.0
+# the ``kernels`` phase's rows at the shapes a rank launches: K1 and K2
+# at (1, 4) (all 512 tokens, 20 slots) and at (2, 2) (256 tokens, 40)
+MESH_TRAIN_KERNEL_ROWS = ("moe_ffn/train_rank", "moe_ffn/train_rank_2x2",
+                          "topk_router_stats/train",
+                          "topk_router_stats/train_rank_2x2")
+
+
+def _mt_build(cfg, device, policy):
+    """The train state of this process's leaves: the seed-0 draw whole,
+    placed, and (under a mesh) only the rank's expert slots kept; the
+    train step (remat off), the (L, E_v) tables and the batch stream."""
+    from repro_torch.launch.train import placement
+    from repro_torch.models import apply_placement, init_params
+    from repro_torch.sharding import local_expert_slots
+    from repro_torch.training import (
+        AdamWConfig,
+        DataConfig,
+        SyntheticTokenStream,
+        init_train_state,
+        make_train_step,
+    )
+
+    params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    s2e, e2s = placement(cfg.num_layers, cfg.num_virtual_experts,
+                         TRAIN_PLACEMENT_SEED)
+    moe = apply_placement(params["blocks"]["moe"],
+                          torch.as_tensor(s2e, device=device))
+    del params["blocks"]["moe"]
+    rows = local_expert_slots(policy, cfg.num_virtual_experts)
+    if rows is not None:
+        moe = {k: (v if k == "router" else v[:, rows].clone())
+               for k, v in moe.items()}
+    params["blocks"]["moe"] = moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=10,
+                      total_steps=TRAIN_STEPS)
+    state = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, policy=policy, remat=False)
+    data = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    return state, step, torch.as_tensor(e2s, device=device), data
+
+
+def _mt_run(state, step, tables, data, device, on_grads):
+    """``MESH_TRAIN_STEPS`` steps, each synchronised and timed on the host
+    clock; ``on_grads(grads)`` sees the first step's gradients as the
+    update gets them (the reduced ones under a mesh). Returns the
+    per-step metrics on the host and the step times (ms)."""
+    import repro_torch.training.train_step as train_step_module
+
+    inner = train_step_module.adamw_update
+    seen = []
+
+    def update(params, grads, opt_state, cfg, **kw):
+        if not seen:
+            seen.append(True)
+            on_grads(grads)
+        return inner(params, grads, opt_state, cfg, **kw)
+
+    train_step_module.adamw_update = update
+    history, step_ms = [], []
+    try:
+        for _ in range(MESH_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in next(data).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, tables)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append({"loss": float(m["loss"]),
+                            "grad_norm": float(m["grad_norm"]),
+                            "dropped": float(m["moe_dropped"]),
+                            "expert_counts": m["expert_counts"].cpu().numpy()})
+    finally:
+        train_step_module.adamw_update = inner
+    return history, step_ms
+
+
+def _moe_leaf(path: str) -> bool:
+    from repro_torch.sharding import is_expert_leaf
+
+    return is_expert_leaf(path.split("."))
+
+
+def _mt_reference(cfg, groups, store: Path, tensors: bool,
+                  compare_to: str | None = None):
+    """One process on the card: the steps, and (``tensors``) the first
+    step's gradients and the expert leaves after the last step saved
+    under ``store`` for the ranks to hold their rows against; with
+    ``compare_to`` (an earlier run's saved leaves) the least cosine of
+    this run's expert updates with that run's and the largest share by
+    which its expert leaves part from that run's."""
+    from repro_torch.kernels import ops
+
+    policy = _grouped_policy(groups) if groups > 1 else None
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, tables, data = _mt_build(cfg, dev, policy)
+    grads_path = store / f"train_grads_{groups}.pt"
+    final_path = store / f"train_final_{groups}.pt"
+
+    def save_grads(grads):
+        if tensors:
+            torch.save({n: g.detach().cpu() for n, g in _leaves(grads)},
+                       grads_path)
+
+    start = {n: w.detach().clone() for n, w in _leaves(state["params"])
+             if _moe_leaf(n)} if compare_to else None
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    history, step_ms = _mt_run(state, step, tables, data, dev, save_grads)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    update_cos = param_share = None
+    if compare_to:
+        moved = [(n, w) for n, w in _leaves(state["params"]) if _moe_leaf(n)]
+        Ev = cfg.num_virtual_experts
+        update_cos = _update_cosine(moved, start, compare_to, 0, Ev)
+        param_share = _worst_share(moved, compare_to, 0, Ev, dev)
+        del start, moved
+    if tensors:
+        torch.save({n: w.detach().cpu() for n, w in
+                    _leaves(state["params"]) if _moe_leaf(n)}, final_path)
+    out = {"history": history, "step_ms": step_ms, "wall_s": wall,
+           "launches": launches, "grads": str(grads_path),
+           "final": str(final_path), "update_cos": update_cos,
+           "param_share": param_share, "peak_bytes": torch.cuda.max_memory_allocated()}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _worst_share(got, ref_path, lo, hi, device) -> tuple[float, str]:
+    """The largest max |Δ| / max |ref| over ``got``'s leaves against the
+    saved one-process tensors (the rank's slots ``[lo, hi)`` of an expert
+    stack), and its leaf."""
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    worst, at = 0.0, ""
+    for name, g in got:
+        want = ref[name]
+        if _moe_leaf(name) and want.shape[1] != g.shape[1]:
+            want = want[:, lo:hi]
+        want = want.to(device, torch.float32)
+        share = ((g.detach().float() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30)).item()
+        if share > worst:
+            worst, at = share, name
+        del want
+    return worst, at
+
+
+def _update_cosine(moved, start, ref_path, lo, hi) -> tuple[float, str]:
+    """The least cosine, over the expert leaves, between this rank's
+    update of its rows over the run and one process's update of them."""
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    worst, at = 1.0, ""
+    for name, w in moved:
+        p0 = start[name].float()
+        want = ref[name][:, lo:hi].to(w.device).float() - p0
+        got = w.detach().float() - p0
+        cos = (torch.sum(got * want) / (got.norm() * want.norm()).clamp(
+            min=1e-30)).item()
+        if cos < worst:
+            worst, at = cos, name
+        del p0, want, got
+    return worst, at
+
+
+def _shard_sums(state) -> dict:
+    """Checksums of a state's leaves: per (layer, slot) rows for the
+    expert stacks of the parameters and moments, one a leaf otherwise."""
+    out = {}
+    for name, t in _leaves(state):
+        if _moe_leaf(name):
+            out[name] = _row_checksums(t).numpy()
+        else:
+            out[name] = _checksum({"x": t.reshape(-1)})
+    return out
+
+
+def _mt_rank(mesh, sc):
+    """One rank of a ``mesh_train`` run: its leaves of the placed seed-0
+    draw, 5 steps through the port's train step under the mesh, and what
+    the parent checks (metrics, bytes, launches, K1's shapes, staged
+    bytes, the first step's gradient and the last step's expert rows
+    against the one-process run's, and after a save from the mesh the
+    checksums of its shards)."""
+    import repro_torch.kernels.sharded as sharded
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import ShardingPolicy, local_expert_slots
+    from repro_torch.training import train_state_specs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _mt_config(sc["layers"])
+    policy = ShardingPolicy(mesh=mesh)
+    dev = mesh.device
+    state, step, tables, data = _mt_build(cfg, dev, policy)
+    Ev = cfg.num_virtual_experts
+    rows = local_expert_slots(policy, Ev)
+    lo, hi = (rows.start, rows.stop) if rows is not None else (0, Ev)
+    opt = state["opt"]
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "param_bytes": _tree_nbytes(state["params"]),
+           "moment_bytes": _tree_nbytes(opt["mu"]) + _tree_nbytes(opt["nu"]),
+           "slots": [lo, hi]}
+    shapes = set()
+    inner = sharded.moe_ffn
+
+    def recorded(x, wg, wu, wd):
+        shapes.add((tuple(x.shape), tuple(wg.shape)))
+        return inner(x, wg, wu, wd)
+
+    def check_grads(grads):
+        if sc["tensors"]:
+            out["grad_share"] = _worst_share(_leaves(grads), sc["grads"], lo,
+                                             hi, dev)
+
+    start = {n: w.detach().clone() for n, w in _leaves(state["params"])
+             if _moe_leaf(n)} if sc["tensors"] else None
+
+    sharded.moe_ffn = recorded
+    ops.reset_launch_counts()
+    mesh.staged_bytes = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        history, step_ms = _mt_run(state, step, tables, data, dev,
+                                   check_grads)
+    finally:
+        sharded.moe_ffn = inner
+    out.update(history=history, step_ms=step_ms,
+               wall_s=time.perf_counter() - t0,
+               launches=ops.launch_counts(), k1_shapes=sorted(shapes),
+               staged_bytes=mesh.staged_bytes,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    moved = [(n, w) for n, w in _leaves(state["params"]) if _moe_leaf(n)]
+    if sc["tensors"]:
+        out["param_share"] = _worst_share(moved, sc["final"], lo, hi, dev)
+        out["update_cos"] = _update_cosine(moved, start, sc["final"], lo, hi)
+        del start
+    out["sums"] = {n: _checksum({"x": t.reshape(-1)})
+                   for n, t in _leaves(state) if n != "opt.step"}
+    if sc.get("save"):
+        t0 = time.perf_counter()
+        CheckpointManager(sc["save"]).save(
+            MESH_TRAIN_STEPS, state, mesh=mesh,
+            shardings=train_state_specs(state, policy, num_slots=Ev))
+        out["save_s"] = time.perf_counter() - t0
+        out["shard_sums"] = _shard_sums(state)
+    return out
+
+
+def _mt_config(layers):
+    """Granite at capacity factor 2.0 (the launcher's), ``layers`` deep
+    (None: its whole depth)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                               capacity_factor=2.0)
+
+
+def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
+    """What every rank of a ``mesh_train`` run must hold against its
+    one-process reference (its expert rows after the last step within
+    ``param_limit`` of the reference's where the ranks measured them)."""
+    from repro_torch.models.dispatch import slot_capacity
+
+    data, model = shape
+    L, Ev = cfg.num_layers, cfg.num_virtual_experts
+    F = cfg.expert_d_ff // cfg.expert_tp
+    expert = 3 * L * Ev * cfg.d_model * F  # parameters of the whole pool
+    replicated = sum(t.numel() for n, t in _leaves(_meta_params(cfg))
+                     if not _moe_leaf(n))
+    per = Ev // model
+    C = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // data, cfg,
+                      capacity_factor=2.0, num_slots=Ev, replicated=False)
+    for r in res:
+        hist = r["history"]
+        check(len(hist) == MESH_TRAIN_STEPS,
+              f"mesh_train {tag}: rank {r['rank']} ran {len(hist)} steps")
+        for i, (h, w) in enumerate(zip(hist, ref["history"])):
+            j = min(i, 2)
+            check(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                  and abs(h["loss"] - w["loss"])
+                  <= MESH_TRAIN_LOSS_RTOL[j] * abs(w["loss"]),
+                  f"mesh_train {tag}: rank {r['rank']} step {i} loss "
+                  f"{h['loss']} vs one process {w['loss']}")
+            check(MESH_TRAIN_NORM_RTOL[j] is None
+                  or abs(h["grad_norm"] - w["grad_norm"])
+                  <= MESH_TRAIN_NORM_RTOL[j] * abs(w["grad_norm"]),
+                  f"mesh_train {tag}: rank {r['rank']} step {i} grad norm "
+                  f"{h['grad_norm']} vs one process {w['grad_norm']}")
+            check(i > 0 or (np.array_equal(h["expert_counts"],
+                                           w["expert_counts"])
+                            and h["dropped"] == w["dropped"]),
+                  f"mesh_train {tag}: rank {r['rank']} step 0 expert counts "
+                  f"or dropped share {h['dropped']} differ from one "
+                  f"process's ({w['dropped']})")
+        # every rank reports the same global metrics
+        check([(h["loss"], h["grad_norm"]) for h in hist]
+              == [(h["loss"], h["grad_norm"]) for h in res[0]["history"]],
+              f"mesh_train {tag}: ranks report different metrics")
+        if "grad_share" in r:
+            check(r["grad_share"][0] <= MESH_TRAIN_GRAD_TOL,
+                  f"mesh_train {tag}: rank {r['rank']} gradient "
+                  f"{r['grad_share']} off the one-process rows")
+            check(r["update_cos"][0] >= MESH_TRAIN_UPDATE_COS,
+                  f"mesh_train {tag}: rank {r['rank']} expert update "
+                  f"{r['update_cos']} does not follow one process's")
+            check(r["param_share"][0] <= param_limit,
+                  f"mesh_train {tag}: rank {r['rank']} expert rows after "
+                  f"the last step {r['param_share']} off one process's "
+                  f"(limit {param_limit})")
+        # the ranks are replicas: whole leaves on all, shards on their
+        # data rows
+        for name, v in r["sums"].items():
+            twin = next(q for q in res if q["slots"] == r["slots"])
+            first = twin if _moe_leaf(name) else res[0]
+            check(v == first["sums"][name],
+                  f"mesh_train {tag}: rank {r['rank']}'s {name} differs "
+                  f"from rank {first['rank']}'s")
+        n_params = replicated + expert // model
+        check(r["param_bytes"] == 2 * n_params
+              and r["moment_bytes"] == 2 * 4 * n_params,
+              f"mesh_train {tag}: rank {r['rank']} holds {r['param_bytes']} "
+              f"parameter and {r['moment_bytes']} moment bytes, not those "
+              f"of {n_params} parameters")
+        want = L * MESH_TRAIN_STEPS
+        check(r["launches"]["moe_ffn"] == want
+              and r["launches"]["topk_router_stats"] == want
+              and r["launches"]["topk_router"] == 0,
+              f"mesh_train {tag}: rank {r['rank']} launches {r['launches']}"
+              f" != {want} of K1 and K2")
+        check(r["k1_shapes"] == [((per, C, cfg.d_model),
+                                  (per, cfg.d_model, F))],
+              f"mesh_train {tag}: K1 shapes {r['k1_shapes']}")
+
+
+def _check_mesh_save(root, res):
+    """The (2, 2) save restores on one process (the CPU, global shapes,
+    JAX's dtypes) and each rank's shards have the restored rows'
+    checksums."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(str(root))
+    check(mgr.committed_steps() == [MESH_TRAIN_STEPS],
+          f"mesh_train save: steps {mgr.committed_steps()}")
+    manifest = json.loads((Path(root) / f"step_{MESH_TRAIN_STEPS:08d}"
+                           / "manifest.json").read_text())
+    dtypes = {k: v["dtype"] for k, v in manifest["paths"].items()}
+    check(all(v == ("bfloat16" if k.startswith("params/") else
+                    "int32" if k == "opt/step" else "float32")
+              for k, v in dtypes.items()),
+          f"mesh_train save: dtypes {dtypes}")
+    # a skeleton without tensors: every leaf comes back on the CPU
+    skeleton = {}
+    for k in dtypes:
+        node = skeleton
+        *path, leaf = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = True
+    t0 = time.perf_counter()
+    state, _, step = mgr.restore(skeleton)
+    load_s = time.perf_counter() - t0
+    check(step == MESH_TRAIN_STEPS and int(state["opt"]["step"]) == step,
+          f"mesh_train save: step {step}")
+    sums = _shard_sums(_to(state, "cuda"))
+    for r in res:
+        lo, hi = r["slots"]
+        for k, v in r["shard_sums"].items():
+            want = sums[k] if not isinstance(v, np.ndarray) else sums[k][:, lo:hi]
+            check(np.array_equal(v, want),
+                  f"mesh_train save: rank {r['rank']}'s {k} differs from "
+                  "the restored rows")
+    nbytes = _tree_nbytes(state)
+    del state
+    return {"leaves": len(dtypes), "bytes": nbytes, "restore_s": load_s}
+
+
+def _nccl_train(store: Path, cards):
+    """Full granite (32 layers) trained at (1, 4) over NCCL, a card a
+    rank, against one process on the first card: (the run's record, its
+    launches)."""
+    from repro_torch.launch.mesh import spawn
+
+    full = _mt_config(None)
+    ref = _mt_reference(full, 1, store, tensors=False)
+    res = spawn(_mt_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
+                store_dir=store / "nccl_train",
+                args=({"layers": full.num_layers, "tensors": False},),
+                timeout=MESH_TRAIN_TIMEOUT_S)
+    record = {
+        "layers": full.num_layers, "ranks": len(res), "cards": cards,
+        "devices": [r["device"] for r in res],
+        "losses": [h["loss"] for h in res[0]["history"]],
+        "one_process_losses": [h["loss"] for h in ref["history"]],
+        "grad_norms": [h["grad_norm"] for h in res[0]["history"]],
+        "one_process_grad_norms": [h["grad_norm"] for h in ref["history"]],
+        "launches_per_rank": [r["launches"] for r in res],
+        "peak_bytes_per_rank": [r["peak_bytes"] for r in res],
+        "step_ms_median_per_rank": [
+            statistics.median(r["step_ms"][1:]) for r in res],
+        "one_process_step_ms_median": statistics.median(ref["step_ms"][1:]),
+        "one_process_peak_bytes": ref["peak_bytes"]}
+    emit({"phase": "mesh_train", "nccl_train": record})
+    _check_mt_run("nccl", res, ref, (1, MESH_MODEL), full)
+    launches = collections.Counter()
+    for r in res:
+        launches.update(r["launches"])
+    return record, launches
+
+
+def phase_mesh_train(kernel_summary):
+    """Training under the mesh: (1, 4) and (2, 2) meshes of gloo ranks on
+    this card against one-process runs (8 layers), a save from (2, 2)
+    restored on one process; with 4 cards, full granite trained at (1, 4)
+    over NCCL, a card a rank, against one process."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    cfg = _mt_config(MESH_TRAIN_LAYERS)
+    L = cfg.num_layers
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
+    launches = collections.Counter()
+    runs = {}
+    try:
+        for shape in ((1, MESH_MODEL), (2, 2)):
+            data, model = shape
+            tag = f"{data}x{model}"
+            t0 = time.perf_counter()
+            ref = _mt_reference(cfg, data, store, tensors=True)
+            ref_s = time.perf_counter() - t0
+            save = store / "ckpt" if shape == (2, 2) else None
+            t0 = time.perf_counter()
+            res = spawn(_mt_rank, data, model, backend="gloo", device="cuda",
+                        store_dir=store / tag,
+                        args=({"layers": L, "tensors": True,
+                               "grads": ref["grads"], "final": ref["final"],
+                               "save": None if save is None else str(save)},),
+                        timeout=MESH_TRAIN_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+            for r in res:
+                launches.update(r["launches"])
+            runs[tag] = {
+                "shape": list(shape), "layers": L, "cards": cards,
+                "ranks": len(res), "backend": "gloo",
+                "transport": "4 processes sharing one card, collectives "
+                "staged through pinned host buffers",
+                "steps": MESH_TRAIN_STEPS, "tokens_per_step":
+                    TRAIN_BATCH * TRAIN_SEQ,
+                "losses": [h["loss"] for h in res[0]["history"]],
+                "one_process_losses": [h["loss"] for h in ref["history"]],
+                "loss_bit_equal": [h["loss"] == w["loss"] for h, w in
+                                   zip(res[0]["history"], ref["history"])],
+                "grad_norms": [h["grad_norm"] for h in res[0]["history"]],
+                "one_process_grad_norms": [h["grad_norm"]
+                                           for h in ref["history"]],
+                "dropped": [h["dropped"] for h in res[0]["history"]],
+                "one_process_dropped": [h["dropped"] for h in ref["history"]],
+                # the most assignments a layer routed elsewhere than one
+                # process, each step
+                "counts_moved_max": [
+                    int(np.abs(h["expert_counts"].astype(np.int64)
+                               - w["expert_counts"]).sum(axis=1).max())
+                    for h, w in zip(res[0]["history"], ref["history"])],
+                "grad_share_per_rank": [r["grad_share"] for r in res],
+                "param_share_per_rank": [r["param_share"] for r in res],
+                "update_cos_per_rank": [r["update_cos"] for r in res],
+                "param_bytes_per_rank": res[0]["param_bytes"],
+                "moment_bytes_per_rank": res[0]["moment_bytes"],
+                "k1_shape_per_rank": [list(x) for x in res[0]["k1_shapes"][0]],
+                "launches_per_rank": [r["launches"] for r in res],
+                "staged_bytes_per_rank": [r["staged_bytes"] for r in res],
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in res],
+                # step 1 holds the gradient check: steps 2..5 are timed
+                "step_ms_median_per_rank": [
+                    statistics.median(r["step_ms"][1:]) for r in res],
+                "one_process_step_ms_median":
+                    statistics.median(ref["step_ms"][1:]),
+                "one_process_peak_bytes": ref["peak_bytes"],
+                "wall_s_per_rank": [r["wall_s"] for r in res],
+                "spawn_s": spawn_s, "one_process_s": ref_s,
+            }
+            # one process again: how far the card's own runs part
+            again = _mt_reference(cfg, data, store, tensors=False,
+                                  compare_to=ref["final"])
+            param_limit = MESH_TRAIN_PARAM_SPREAD * again["param_share"][0]
+            runs[tag].update(
+                one_process_rerun_losses=[h["loss"] for h in again["history"]],
+                one_process_rerun_grad_norms=[h["grad_norm"]
+                                              for h in again["history"]],
+                one_process_rerun_update_cos=again["update_cos"],
+                one_process_rerun_param_share=again["param_share"],
+                param_share_limit=param_limit)
+            emit({"phase": "mesh_train", "run": tag, **runs[tag]})
+            _check_mt_run(tag, res, ref, shape, cfg, param_limit)
+            emit({"phase": "mesh_train", "run": tag, "checks": "passed",
+                  "replicas_bit_equal": True})
+            if save is not None:
+                t0 = time.perf_counter()
+                runs[tag]["save"] = _check_mesh_save(save, res)
+                runs[tag]["save"].update(
+                    restored_equal=True, check_s=time.perf_counter() - t0,
+                    save_s_per_rank=[r["save_s"] for r in res])
+                emit({"phase": "mesh_train", "run": tag,
+                      "save": runs[tag]["save"]})
+            del res
+            gc.collect()
+        n_cards = torch.cuda.device_count()
+        if n_cards >= MESH_MODEL:
+            runs["nccl_train"], counts = _nccl_train(store, cards)
+            launches.update(counts)
+        else:
+            runs["nccl_train"] = f"not run: {n_cards} card(s)"
+            emit({"phase": "mesh_train", "nccl_train": runs["nccl_train"]})
+    finally:
+        import shutil
+
+        shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "mesh_train", "ok": True,
+          "kernels_per_rank": {key: {k: row[k] for k in (
+              "shape", "ms", "device_us", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "bound_share")}
+              for key, row in ((key, kernel_summary[key])
+                               for key in MESH_TRAIN_KERNEL_ROWS)},
+          "seconds": time.perf_counter() - start})
+    return dict(launches)
+
+
+def nccl_paths():
+    """The multi-card paths alone (four cards): the ``mesh`` phase's NCCL
+    ``"scan"`` serve and the ``mesh_train`` phase's NCCL training of full
+    granite, each against its one-process run. Returns their launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= MESH_MODEL, f"nccl: {n_cards} card(s), {MESH_MODEL} needed")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    cfg = get_config(ARCH)
+    row_bytes = 3 * cfg.d_model * (cfg.expert_d_ff // cfg.expert_tp) * 2
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    launches = collections.Counter()
+    try:
+        t0 = time.perf_counter()
+        ref = _mesh_reference(cfg, MESH_MODEL, 1, store)
+        record, counts = _nccl_scan(ref, store, row_bytes, cards)
+        launches.update(counts)
+        emit({"phase": "mesh", "nccl_scan": record,
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        _, counts = _nccl_train(store, cards)
+        launches.update(counts)
+        emit({"phase": "mesh_train", "nccl_train_ok": True,
+              "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return dict(launches)
+
+
+def _meta_params(cfg):
+    from repro_torch.models import init_params
+
+    return init_params(cfg, device="meta")
 
 
 def main(argv=None) -> int:
@@ -3192,6 +3878,7 @@ def main(argv=None) -> int:
     examples_launches = phase_examples()
     collective_launches = phase_collective()
     mesh_launches = phase_mesh(summary)
+    mesh_train_launches = phase_mesh_train(summary)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
@@ -3218,6 +3905,8 @@ def main(argv=None) -> int:
             "collective_launches": collective_launches[name],
             # summed over the ranks of every mesh run
             "mesh_launches": mesh_launches.get(name, 0),
+            # summed over the ranks of every mesh_train run
+            "mesh_train_launches": mesh_train_launches.get(name, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -3229,6 +3918,14 @@ def main(argv=None) -> int:
         k: rank_row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                  "library_ms", "bound_ms", "bound_by",
                                  "device_us", "bound_share")}
+    for i, name, tags in ((0, "moe_ffn", ("train_rank", "train_rank_2x2")),
+                          (1, "topk_router_stats", ("train_rank_2x2",))):
+        for tag in tags:
+            row = summary[f"{name}/{tag}"]
+            kernels[i][tag] = {
+                k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by",
+                                    "device_us", "bound_share")}
     s84 = summary["moe_ffn/decode_s84"]
     kernels[0]["replicated_pool"] = {
         k: s84[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",

@@ -23,7 +23,10 @@ intact. The manifest's ``extra`` carries opaque user state (the data
 stream's position), so that a restart reproduces the batch sequence.
 :meth:`CheckpointManager.restore_sharded` restores onto a mesh of ranks:
 arrays are stored unsharded, so a checkpoint written by either package on
-any mesh (or one device) restores onto any mesh shape.
+any mesh (or one device) restores onto any mesh shape. ``save(…,
+mesh=…, shardings=…)`` writes one from a mesh: every sharded leaf is
+all-gathered into its global shape, as JAX's ``save`` writes global
+arrays, and one rank writes the step.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from ..sharding import spec_axes
 
 __all__ = ["CheckpointManager"]
 
@@ -105,15 +110,53 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save / restore ------------------------------------------------------
-    def save(self, step: int, state, *, extra: dict | None = None) -> str:
-        """Write ``state`` (a nested dict of tensors) as step ``step``."""
+    def save(self, step: int, state, *, extra: dict | None = None,
+             mesh=None, shardings=None) -> str:
+        """Write ``state`` (a nested dict of tensors) as step ``step``.
+
+        From a ``mesh`` every rank calls it: ``shardings`` mirrors
+        ``state`` with each leaf's spec (as :meth:`restore_sharded` takes
+        them; None for a whole leaf), and each sharded leaf is all-gathered
+        over its axes into the global shape, a leaf at a time, by the
+        ranks whose position off those axes is 0. Rank 0 writes the step
+        with the same atomic commit; the others write nothing and return
+        once it is committed (a barrier)."""
+        if mesh is not None:
+            return self._save_from_mesh(step, state, extra, mesh, shardings)
+        return self._write(step, _flatten(state), extra)
+
+    def _save_from_mesh(self, step, state, extra, mesh, shardings) -> str:
+        import torch.distributed as dist
+
+        specs = _flatten(shardings) if shardings is not None else {}
+        flat = {}
+        for k, v in _flatten(state).items():
+            spec = specs.get(k)
+            named = spec_axes(spec)
+            # only the ranks that hold the first copy along the other
+            # axes gather: their groups are apart from the others'
+            if any(mesh.coords[a] for a in mesh.axis_names if a not in named):
+                continue
+            for dim, axes in enumerate(spec or ()):
+                if axes is not None:
+                    parts = mesh.all_gather(v, axes)  # (n, *v.shape)
+                    v = torch.cat(list(parts.unbind(0)), dim=dim)
+            if mesh.rank == 0:
+                flat[k] = v.detach().cpu()
+        d = self._step_dir(step)
+        if mesh.rank == 0:
+            self._write(step, flat, extra)
+        dist.barrier()
+        return d
+
+    def _write(self, step: int, leaves: dict, extra) -> str:
         d = self._step_dir(step)
         tmp = d + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         flat, names = {}, {}
-        for k, v in _flatten(state).items():
+        for k, v in leaves.items():
             flat[k], names[k] = _to_numpy(v)
         np.savez(os.path.join(tmp, "arrays.npz"), **flat)
         manifest = {

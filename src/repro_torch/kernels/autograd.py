@@ -14,6 +14,11 @@ backward kernel in either package).
   softmax's Jacobian (``sharded.py:243-263``). ``ids`` and ``counts`` are
   integers and carry no gradient.
 
+The backward math itself is :func:`ffn_backward` and
+:func:`router_backward`, which the Functions of
+:mod:`repro_torch.kernels.sharded` also call on a rank's shard under a
+mesh.
+
 A CUDA tensor runs the kernel and a CPU tensor its plain version
 (:mod:`repro_torch.kernels.ref`), so on the CPU the same Functions run and
 their backwards can be held against the JAX ones. Callers go through
@@ -28,7 +33,7 @@ from .moe_gemm import moe_ffn_cuda
 from .ref import moe_ffn_ref, topk_router_ref
 from .topk_router import topk_router_cuda
 
-__all__ = ["MoEFFN", "TopKRouter"]
+__all__ = ["MoEFFN", "TopKRouter", "ffn_backward", "router_backward"]
 
 
 class MoEFFN(torch.autograd.Function):
@@ -43,26 +48,31 @@ class MoEFFN(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # y = (silu(x·Wg) ⊙ x·Wu)·Wd, the hidden activations recomputed
-        x, wg, wu, wd = ctx.saved_tensors
-        xf = x.float()
-        wgf, wuf, wdf = wg.float(), wu.float(), wd.float()
-        h1 = torch.bmm(xf, wgf)
-        h2 = torch.bmm(xf, wuf)
-        sig = torch.sigmoid(h1)
-        s = h1 * sig  # silu
-        gf = g.float()
-        dh = torch.bmm(gf, wdf.transpose(1, 2))
-        dwd = torch.bmm((s * h2).transpose(1, 2), gf)
-        dh2 = dh * s
-        dh1 = dh * h2 * (sig * (1.0 + h1 * (1.0 - sig)))  # silu'
-        dx = (torch.bmm(dh1, wgf.transpose(1, 2))
-              + torch.bmm(dh2, wuf.transpose(1, 2)))
-        xt = xf.transpose(1, 2)
-        dwg = torch.bmm(xt, dh1)
-        dwu = torch.bmm(xt, dh2)
-        return (dx.to(x.dtype), dwg.to(wg.dtype), dwu.to(wu.dtype),
-                dwd.to(wd.dtype))
+        return ffn_backward(*ctx.saved_tensors, g)
+
+
+def ffn_backward(x, wg, wu, wd, g):
+    """(dx, dWg, dWu, dWd) of y = (silu(x·Wg) ⊙ x·Wu)·Wd under the
+    cotangent ``g``, the hidden activations recomputed in fp32; each in
+    its input's dtype."""
+    xf = x.float()
+    wgf, wuf, wdf = wg.float(), wu.float(), wd.float()
+    h1 = torch.bmm(xf, wgf)
+    h2 = torch.bmm(xf, wuf)
+    sig = torch.sigmoid(h1)
+    s = h1 * sig  # silu
+    gf = g.float()
+    dh = torch.bmm(gf, wdf.transpose(1, 2))
+    dwd = torch.bmm((s * h2).transpose(1, 2), gf)
+    dh2 = dh * s
+    dh1 = dh * h2 * (sig * (1.0 + h1 * (1.0 - sig)))  # silu'
+    dx = (torch.bmm(dh1, wgf.transpose(1, 2))
+          + torch.bmm(dh2, wuf.transpose(1, 2)))
+    xt = xf.transpose(1, 2)
+    dwg = torch.bmm(xt, dh1)
+    dwu = torch.bmm(xt, dh2)
+    return (dx.to(x.dtype), dwg.to(wg.dtype), dwu.to(wu.dtype),
+            dwd.to(wd.dtype))
 
 
 class TopKRouter(torch.autograd.Function):
@@ -85,15 +95,22 @@ class TopKRouter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dgates, _dids, dpsum, _dcounts):
         lg, ids = ctx.saved_tensors
-        ids = ids.long()
-        probs = torch.softmax(lg.float(), dim=-1)  # (T, E)
-        pick = torch.gather(probs, -1, ids)  # (T, k)
-        ssum = pick.sum(dim=-1, keepdim=True)
-        dgates = dgates.float()
-        # gates = pick / Σpick ⇒ dpick_i = dgates_i/Σ − (Σ_j dgates_j·pick_j)/Σ²
-        dot = torch.sum(dgates * pick, dim=-1, keepdim=True)
-        dpick = dgates / ssum - dot / (ssum * ssum)
-        dprobs = torch.zeros_like(probs).scatter_add_(-1, ids, dpick)
-        dprobs = dprobs + dpsum.float()[None, :]
-        dlg = probs * (dprobs - torch.sum(dprobs * probs, dim=-1, keepdim=True))
-        return dlg.to(lg.dtype), None
+        return router_backward(lg, ids, dgates, dpsum), None
+
+
+def router_backward(lg, ids, dgates, dpsum):
+    """The logits' cotangent of the router: ``dgates`` (…, k) through the
+    renorm and the top-k gather of the softmax, ``dpsum`` (E,) added to
+    every row, then the softmax's Jacobian; in the logits' dtype."""
+    ids = ids.long()
+    probs = torch.softmax(lg.float(), dim=-1)  # (…, E)
+    pick = torch.gather(probs, -1, ids)  # (…, k)
+    ssum = pick.sum(dim=-1, keepdim=True)
+    dgates = dgates.float()
+    # gates = pick / Σpick ⇒ dpick_i = dgates_i/Σ − (Σ_j dgates_j·pick_j)/Σ²
+    dot = torch.sum(dgates * pick, dim=-1, keepdim=True)
+    dpick = dgates / ssum - dot / (ssum * ssum)
+    dprobs = torch.zeros_like(probs).scatter_add_(-1, ids, dpick)
+    dprobs = dprobs + dpsum.float()
+    dlg = probs * (dprobs - torch.sum(dprobs * probs, dim=-1, keepdim=True))
+    return dlg.to(lg.dtype)

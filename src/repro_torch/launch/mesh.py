@@ -12,9 +12,12 @@ ascending order, which is the order along the axes.
 
 The collectives the expert-parallel data plane needs live here, over a
 named axis (or a tuple of axes): :meth:`Mesh.all_gather`,
-:meth:`Mesh.all_to_all_single` and :meth:`Mesh.send_recv` (paired
-point-to-point transfers). Under ``backend="nccl"`` they are NCCL's own
-collectives on the card's tensors, which a CUDA graph can capture. Under
+:meth:`Mesh.all_reduce` (a gather reduced in rank order: the training
+step's gradient and norm reductions), :meth:`Mesh.broadcast`,
+:meth:`Mesh.all_to_all_single` and
+:meth:`Mesh.send_recv` (paired point-to-point transfers). Under
+``backend="nccl"`` they are NCCL's own collectives on the card's tensors,
+which a CUDA graph can capture. Under
 ``backend="gloo"`` a tensor on a CUDA device is staged through pinned host
 buffers, here and nowhere else: that is the transport when several ranks
 share one card (NCCL puts no two ranks on one GPU), and
@@ -162,6 +165,52 @@ class Mesh:
                else torch.empty((n, *t.shape), dtype=t.dtype, device=t.device))
         dist.all_gather(list(out.unbind(0)), src, group=group)
         return self._up(out, t.device) if staged else out
+
+    def broadcast(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """The tensor of the axis's first rank, on every rank of it (``t``
+        gives the shape and dtype elsewhere). A 1-wide axis returns ``t``
+        and moves nothing."""
+        if self.size(axis) == 1:
+            return t
+        group, ranks = self._group(axis)
+        t = t.contiguous()
+        mine = self.index(axis) == 0
+        if self.backend == "nccl":
+            out = t if mine else torch.empty_like(t)
+            dist.broadcast(out, ranks[0], group=group)
+            return out
+        staged = self._staged(t)
+        if not staged:
+            out = t.clone() if not mine else t
+            dist.broadcast(out, ranks[0], group=group)
+            return out
+        buf = (self._down(t, "bcast") if mine
+               else self._host(t.shape, t.dtype, "bcast"))
+        dist.broadcast(buf, ranks[0], group=group)
+        return t if mine else self._up(buf, t.device)
+
+    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum",
+                   dtype=None) -> torch.Tensor:
+        """The ``"sum"`` or ``"max"`` of every rank's ``t`` along ``axis``,
+        in ``dtype`` (default ``t``'s): one :meth:`all_gather` of ``t`` as
+        it is, reduced in axis order, so that every rank gets the same
+        bits (a ring all-reduce adds in an order that depends on the
+        rank). A bf16 ``t`` summed in fp32 is the sum of its values
+        converted first, at half the bytes moved. A 1-wide axis moves
+        nothing."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"op {op!r} not in ('sum', 'max')")
+        dtype = dtype or t.dtype
+        if self.size(axis) == 1:
+            return t.to(dtype)
+        parts = self.all_gather(t, axis)
+        out = parts[0].to(dtype, copy=True)
+        for p in parts[1:]:
+            if op == "sum":
+                out.add_(p.to(dtype))
+            else:
+                torch.maximum(out, p.to(dtype), out=out)
+        return out
 
     def all_to_all_single(self, inp: torch.Tensor, axis,
                           in_splits: list[int], out_splits: list[int]

@@ -22,6 +22,7 @@ __all__ = [
     "embed_tokens",
     "lm_logits",
     "cross_entropy_loss",
+    "token_nll",
     "normal_init",
 ]
 
@@ -152,6 +153,17 @@ def lm_logits(x, params, config: ModelConfig):
     return logits
 
 
+def token_nll(logits, labels):
+    """(B, S) negative log-likelihood of each label under fp32 ``logits``
+    (B, S, V), as :func:`cross_entropy_loss` computes it before its
+    mean."""
+    vmax = torch.amax(logits, dim=-1, keepdim=True)
+    shifted = logits - vmax.detach()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + vmax[..., 0]
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - label_logit
+
+
 def cross_entropy_loss(logits, labels, *, mask=None):
     """Mean token NLL: logits (B, S, V) fp32, labels (B, S); ``mask``
     (B, S) optional 0/1 validity (the vision patch positions are 0).
@@ -160,11 +172,7 @@ def cross_entropy_loss(logits, labels, *, mask=None):
     the logits and not where it is added back, so the gradient carries
     the max's (one-hot, split between ties) term as the reference's does
     (``torch.amax`` splits it between ties as ``jnp.max`` does)."""
-    vmax = torch.amax(logits, dim=-1, keepdim=True)
-    shifted = logits - vmax.detach()
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + vmax[..., 0]
-    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - label_logit
+    nll = token_nll(logits, labels)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

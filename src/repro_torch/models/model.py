@@ -29,6 +29,8 @@ Training (:func:`forward_train`, :func:`loss_fn`) and :func:`prefill` run
 the same blocks over the full sequence (:func:`_stack_forward`); autograd
 differentiates them, through the kernels' ``torch.autograd.Function``s in
 the MoE layers. No train path reaches the decode steps' in-place writes.
+Under a policy with a mesh each data rank trains on its rows of the
+batch and :func:`loss_fn` returns JAX's global loss on every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import launches
+from ..kernels.sharded import sum_over
 from .attention import (
     attention_decode,
     attention_decode_paged,
@@ -49,6 +52,7 @@ from .attention import (
 )
 from .layers import (
     cross_entropy_loss,
+    token_nll,
     embed_tokens,
     gated_mlp,
     init_gated_mlp,
@@ -199,7 +203,8 @@ def _ssm_block_train(x, lp, config: ModelConfig, *, return_cache: bool):
 
 
 def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
-                      return_cache: bool, policy=None, num_slots=None):
+                      return_cache: bool, policy=None, num_slots=None,
+                      global_batch=None):
     """ln → attention → ln → MoE layer (a MoE config's blocks, under the
     layer's (E_v,) table ``placement_l``) or gated MLP (the dense blocks
     and zamba2's shared block); returns (x, {"k", "v"} | None, MoEAux |
@@ -212,7 +217,7 @@ def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
     aux = None
     if "moe" in lp:
         y, aux = moe_layer(h2, lp["moe"], placement_l, config, policy,
-                           num_slots=num_slots)
+                           num_slots=num_slots, global_batch=global_batch)
     else:
         y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation)
     return x + y, cache, aux
@@ -220,7 +225,7 @@ def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
 
 def _stack_forward(x, params, placements, config: ModelConfig, *,
                    return_cache: bool, remat: bool, policy=None,
-                   num_slots=None):
+                   num_slots=None, global_batch=None):
     """The whole layer stack over a full sequence, as the JAX
     ``_stack_forward``: (x, caches | None, [MoEAux per layer] | None).
 
@@ -231,8 +236,9 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
     expert→slot tables ``placements`` (identity when None) over weights
     already in slot order; the capacity factor is the config's. Under a
     ``policy`` with a mesh the MoE layers run their sharded data plane
-    over the whole batch ``x`` (:func:`~repro_torch.models.moe.moe_layer`
-    with ``global_batch=None``) over a pool of ``num_slots`` slots."""
+    over a pool of ``num_slots`` slots: on the whole batch ``x`` with
+    ``global_batch=None``, or on this rank's rows of a batch of
+    ``global_batch`` (:func:`~repro_torch.models.moe.moe_layer`)."""
     L = config.num_layers
     blocks = _unbind(params["blocks"])
 
@@ -242,7 +248,8 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
     def attn_block(xc, lp, placement_l):
         return _attn_block_train(xc, lp, placement_l, config,
                                  return_cache=return_cache, policy=policy,
-                                 num_slots=num_slots)
+                                 num_slots=num_slots,
+                                 global_batch=global_batch)
 
     ssm_block, attn_block = _remat(ssm_block, remat), _remat(attn_block, remat)
     if config.is_hybrid:
@@ -287,7 +294,7 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
 
 
 def forward_train(params, batch, config: ModelConfig, placements=None, *,
-                  remat: bool = True):
+                  remat: bool = True, policy=None, num_slots=None):
     """batch: ``tokens`` (B, S) int, ``labels`` (B, P + S), for the vision
     frontend ``patches`` (B, P, D) (and a ``loss_mask``); ``placements``
     the (L, E_v) expert→slot tables of a MoE config.
@@ -295,10 +302,28 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
     Returns (logits (B, P + S, V_pad) fp32, aux): for a MoE config
     ``expert_counts`` (L, E) i32, the mean ``aux_loss`` and ``dropped``
     over the layers and the summed ``dropped_tokens``, as the JAX
-    ``forward_train`` gives them; else an empty dict."""
-    x = _embed_input(params, batch["tokens"], config, batch.get("patches"))
-    x, _, auxes = _stack_forward(x, params, placements, config,
-                                 return_cache=False, remat=remat)
+    ``forward_train`` gives them; else an empty dict.
+
+    Under a ``policy`` with a mesh whose data axes are wider than one
+    rank, each rank embeds and runs its ``B/d`` rows (:func:`data_rows`;
+    the batch must divide) and its logits are those rows'; the MoE layers
+    dispatch them as the rank's group of the global batch, so the aux is
+    the global one, the same on every rank. ``num_slots`` is the expert
+    pool's global slot count, which the MoE layers need under a model
+    axis. A policy without a mesh runs the whole batch in the policy's
+    ``data_axis_size`` dispatch groups."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    rows = _train_rows(policy, B)
+    patches = batch.get("patches")
+    if rows is not None:
+        tokens = tokens[rows]
+        patches = None if patches is None else patches[rows]
+    x = _embed_input(params, tokens, config, patches)
+    x, _, auxes = _stack_forward(
+        x, params, placements, config, return_cache=False, remat=remat,
+        policy=policy, num_slots=num_slots,
+        global_batch=None if rows is None else B)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = lm_logits(x, params, config)
     aux = {}
@@ -311,15 +336,49 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
     return logits, aux
 
 
+def _train_rows(policy, batch: int) -> slice | None:
+    """This rank's rows of a training batch (:func:`data_rows`); raises
+    where data axes wider than one rank do not divide the batch."""
+    rows = data_rows(policy, batch)
+    if (rows is None and policy is not None and policy.mesh is not None
+            and policy.data_axis_size > 1):
+        raise ValueError(
+            f"a training batch of {batch} rows does not shard over the "
+            f"{policy.data_axis_size} data ranks")
+    return rows
+
+
 def loss_fn(params, batch, config: ModelConfig, placements=None, *,
-            remat: bool = True):
+            remat: bool = True, policy=None, num_slots=None):
     """(cross entropy over ``labels`` under the optional ``loss_mask`` +
     ``router_aux_coef`` · aux loss for a MoE config, aux); the JAX
-    ``loss_fn``."""
+    ``loss_fn``.
+
+    Under a ``policy`` whose data axes shard the batch
+    (:func:`forward_train`) the loss is JAX's global mean: the rank's sum
+    of token losses, summed over the data ranks
+    (:func:`~repro_torch.kernels.sharded.sum_over`), over the global
+    token count (the ``loss_mask``'s global sum), plus the aux term once.
+    Every rank returns the same value; its backward carries only the
+    rank's own rows, so that the gradients summed over the data ranks are
+    the global loss's."""
     logits, aux = forward_train(params, batch, config, placements,
-                                remat=remat)
-    loss = cross_entropy_loss(logits, batch["labels"],
-                              mask=batch.get("loss_mask"))
+                                remat=remat, policy=policy,
+                                num_slots=num_slots)
+    rows = _train_rows(policy, batch["tokens"].shape[0])
+    mask = batch.get("loss_mask")
+    if rows is None:
+        loss = cross_entropy_loss(logits, batch["labels"], mask=mask)
+    else:
+        mesh, axes = policy.mesh, policy.batch
+        nll = token_nll(logits, batch["labels"][rows])
+        if mask is None:
+            count = float(nll.numel() * policy.data_axis_size)
+            loss = sum_over(torch.sum(nll), mesh, axes) / count
+        else:
+            m = mask[rows].to(nll.dtype)
+            count = torch.clamp(mesh.all_reduce(torch.sum(m), axes), min=1.0)
+            loss = sum_over(torch.sum(nll * m), mesh, axes) / count
     if config.is_moe:
         loss = loss + config.router_aux_coef * aux["aux_loss"]
     return loss, aux

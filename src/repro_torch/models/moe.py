@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.sharded import gather_over
 from ..sharding.policy import local_expert_slots
 from .dispatch import (
     MoEAux,
@@ -184,7 +185,11 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
     ``B/d`` rows); with None, ``x`` is the whole batch and, when the groups
     shard, the layer computes its own group's rows and all-gathers ``y``
     over the data axes. Either way the aux counts are the totals over all
-    groups, the same on every rank.
+    groups, the same on every rank. Training hands the layer its rows with
+    ``global_batch`` set, as JAX shards the batch
+    (:func:`~repro_torch.models.model.forward_train`); under a gradient
+    the gather of ``y`` gives each rank its own rows' cotangent back
+    (:func:`~repro_torch.kernels.sharded.gather_over`).
 
     ``num_slots`` is the pool's global slot count S. With None it is the
     rows ``p`` holds, which is S wherever the pool is whole; under a
@@ -231,8 +236,8 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
     )
     y_e = expert_compute(xg, plan, p, config, policy, groups=Gd)
     y = combine(y_e, plan, tuple(x.shape))
-    if gather_out:
-        y = mesh.all_gather(y, data_spec).reshape(B, T, D)
+    if gather_out:  # the backward keeps this group's rows' cotangent
+        y = gather_over(y, mesh, data_spec).reshape(B, T, D)
     return y, MoEAux(
         expert_counts=router.expert_counts,
         aux_loss=router.aux_loss,

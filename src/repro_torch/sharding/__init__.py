@@ -2,10 +2,13 @@
 from .policy import (
     ShardingPolicy,
     host_policy,
+    is_expert_leaf,
     local_expert_slots,
     param_specs,
+    spec_axes,
 )
 
 __all__ = [
-    "ShardingPolicy", "host_policy", "local_expert_slots", "param_specs",
+    "ShardingPolicy", "host_policy", "is_expert_leaf", "local_expert_slots",
+    "param_specs", "spec_axes",
 ]

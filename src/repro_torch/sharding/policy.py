@@ -29,7 +29,7 @@ import dataclasses
 from typing import Any
 
 __all__ = ["ShardingPolicy", "host_policy", "local_expert_slots",
-           "param_specs"]
+           "param_specs", "spec_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +216,15 @@ def host_policy() -> ShardingPolicy:
 EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 
 
+def is_expert_leaf(path) -> bool:
+    """Whether a parameter path (its keys, outermost first) names a
+    stacked expert weight ``(L, S, …)`` under ``blocks/moe``: the leaves
+    whose slot dim a model axis shards, or which it stores whole on every
+    rank when it does not divide the pool."""
+    return (len(path) >= 2 and path[-2] == "moe"
+            and path[-1] in EXPERT_WEIGHTS)
+
+
 def local_expert_slots(policy: ShardingPolicy | None,
                        num_slots: int) -> slice | None:
     """The slots ``[d·S/m, (d+1)·S/m)`` this rank holds of an S-slot
@@ -229,20 +238,36 @@ def local_expert_slots(policy: ShardingPolicy | None,
     return slice(d * per, (d + 1) * per)
 
 
-def param_specs(params, policy: ShardingPolicy | None):
+def param_specs(params, policy: ShardingPolicy | None, *,
+                num_slots: int | None = None):
     """The specs the port honours for a parameter tree, mirroring it: the
     stacked expert weights ``(L, S, …)`` under ``blocks/moe`` shard their
     slot dim over the model axis where :func:`local_expert_slots` does;
     every other leaf is None (whole on every rank). ``params`` may hold
-    tensors or numpy arrays of the full shapes."""
+    tensors or numpy arrays of the full shapes, or a rank's own tensors
+    with ``num_slots``, the pool's global slot count (a rank's rows of a
+    sharded pool cannot be told from a whole pool by their count)."""
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if tree is None:
             return None
-        if (len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_WEIGHTS
-                and local_expert_slots(policy, int(tree.shape[1])) is not None):
+        if not is_expert_leaf(path):
+            return None
+        S = int(tree.shape[1]) if num_slots is None else num_slots
+        if local_expert_slots(policy, S) is not None:
             return (None, policy.model_axis) + (None,) * (len(tree.shape) - 2)
         return None
 
     return walk(params, ())
+
+
+def spec_axes(spec) -> tuple[str, ...]:
+    """Every mesh axis a spec names, in its order (``()`` for None: a
+    whole leaf)."""
+    axes = []
+    for entry in spec or ():
+        if entry is None:
+            continue
+        axes.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(axes)

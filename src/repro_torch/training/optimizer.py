@@ -14,6 +14,16 @@ per fp32 temporary), so the step holds two fp32 temporaries of the leaf it
 is on and no copy of the others. The schedule's step count stays on the
 host (a 0-d int32 CPU tensor, ``opt["step"]``), so a step reads nothing
 back from the card.
+
+**Under a mesh** each rank holds its leaves in the parameters' layout
+(:func:`adamw_state_specs`: the moments are shaped like the rank's own
+parameters), and ``policy`` with the tree's ``specs``
+(:func:`repro_torch.sharding.param_specs`) makes the two global values
+GSPMD computes: the gradient norm (each sharded leaf's sum of squares
+summed over its axes, each whole leaf counted once) and each leaf's
+compression scale (the max of |g| over its axes). Both reductions run in
+rank order (:meth:`repro_torch.launch.mesh.Mesh.all_reduce`), so every
+rank takes the same step.
 """
 from __future__ import annotations
 
@@ -23,9 +33,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..tree import leaves, tree_map
+from ..sharding.policy import spec_axes
+from ..tree import leaves, leaves_along, tree_map, unflatten
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "compress_grads"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_state_specs",
+           "compress_grads"]
 
 _F32 = np.float32
 # the dtypes JAX's ``p.dtype.kind == "f"`` takes: bfloat16 is kind "V" in
@@ -76,38 +88,74 @@ def adamw_init(params) -> dict[str, Any]:
     }
 
 
-def compress_grads(grads, residual, bits: int = 8):
+def adamw_state_specs(param_specs):
+    """The optimizer state's specs, mirroring the parameters' (the moments
+    live wherever the parameter shard lives; the step count is whole)."""
+    return {"mu": param_specs, "nu": param_specs, "step": ()}
+
+
+def _reduce_sharded(values: list, flat_specs: list, policy, op: str) -> list:
+    """``values`` (one 0-d tensor a leaf) with each sharded leaf's value
+    reduced by ``op`` over its spec's axes: one collective a set of axes."""
+    if policy is None or policy.mesh is None:
+        return values
+    values = list(values)
+    by_axes: dict[tuple, list[int]] = {}
+    for i, spec in enumerate(flat_specs):
+        axes = spec_axes(spec)
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        packed = policy.mesh.all_reduce(torch.stack([values[i] for i in idx]),
+                                        axes, op)
+        for j, i in enumerate(idx):
+            values[i] = packed[j]
+    return values
+
+
+def compress_grads(grads, residual, bits: int = 8, *, policy=None,
+                   specs=None):
     """Error-feedback quantization: returns (dequantized fp32 grads, the
     residual).
 
     Each leaf plus its residual is quantized to ``bits`` signed levels
     around its max-abs scale; the quantization error is written into
     ``residual`` in place (and it is returned) to be added back next step.
-    """
+    Under a ``policy`` with a mesh, a leaf sharded by its entry of
+    ``specs`` takes the max over its axes, the whole leaf's scale."""
     levels = 2.0 ** (bits - 1) - 1
-
-    def q(g, r):
+    pairs = list(zip(leaves(grads), leaves(residual)))
+    # the scales first (each leaf's fp32 sum is made again below, so that
+    # no more than one exists at a time)
+    amax = _reduce_sharded(
+        [torch.amax(torch.abs(g.float() + r)) for g, r in pairs],
+        leaves_along(grads, specs), policy, "max")
+    out = []
+    for (g, r), m in zip(pairs, amax):
         g = g.float() + r
-        scale = torch.clamp(torch.amax(torch.abs(g)), min=1e-12) / levels
+        scale = torch.clamp(m, min=1e-12) / levels
         deq = torch.round(g / scale) * scale
         r.copy_(g - deq)
-        return deq
-
-    return tree_map(q, grads, residual), residual
+        out.append(deq)
+    return unflatten(grads, out), residual
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, policy=None,
+                 specs=None):
     """One AdamW step, in place. Returns (params, state, metrics), the
     tensors given, updated, and ``{"grad_norm", "lr"}`` (a device scalar
-    and a float)."""
+    and a float). Under a ``policy`` with a mesh, ``specs`` (the tree's
+    :func:`~repro_torch.sharding.param_specs`) names the sharded leaves,
+    whose sums of squares are summed over their axes: ``grad_norm`` and
+    the clip are the global ones."""
     step = state["step"] + 1
     n = int(step)
     flat_g = leaves(grads)
-    gnorm = torch.sqrt(sum(
-        torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
-        for g in flat_g
-    ))
+    sq = _reduce_sharded(
+        [torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+         for g in flat_g], leaves_along(grads, specs), policy, "sum")
+    gnorm = torch.sqrt(sum(sq))
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = _lr(cfg, n)
     b1, b2 = cfg.beta1, cfg.beta2

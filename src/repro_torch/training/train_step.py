@@ -7,6 +7,18 @@ The step runs autograd over :func:`repro_torch.models.loss_fn` (through
 the kernels' ``torch.autograd.Function``s in the MoE layers) and updates
 the state in place. MoE configs take the (L, E_v) placement tables and
 report per-layer expert counts, GEM's Step-1 trace, as in serving.
+
+**Under a policy with a mesh** (JAX's ``make_train_step(config, policy,
+…)``) each rank keeps its own experts' weights, gradients and moments
+(:func:`~repro_torch.sharding.param_specs`) and every other leaf whole.
+Each rank runs the backward of its rows' share of the global loss
+(:func:`~repro_torch.models.loss_fn` under the policy); then, once a step
+and after accumulation, every leaf that ranks hold alike over the data
+axes is summed over them in fp32, and a whole-stored expert stack (a pool
+the model axis does not divide, whose rows each model rank computes
+apart) is summed over the model axis too. The update runs on the rank's
+own leaves, with the global gradient norm (:func:`~repro_torch.training.
+optimizer.adamw_update`).
 """
 from __future__ import annotations
 
@@ -16,10 +28,17 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models.model import loss_fn
-from ..tree import leaves, tree_map
-from .optimizer import AdamWConfig, adamw_init, adamw_update, compress_grads
+from ..sharding.policy import is_expert_leaf, param_specs
+from ..tree import leaf_paths, leaves, leaves_along, tree_map, unflatten
+from .optimizer import (
+    AdamWConfig,
+    adamw_init,
+    adamw_state_specs,
+    adamw_update,
+    compress_grads,
+)
 
-__all__ = ["init_train_state", "make_train_step"]
+__all__ = ["init_train_state", "make_train_step", "train_state_specs"]
 
 
 def init_train_state(params, cfg: AdamWConfig) -> dict[str, Any]:
@@ -34,8 +53,23 @@ def init_train_state(params, cfg: AdamWConfig) -> dict[str, Any]:
     return state
 
 
+def train_state_specs(state, policy, *, num_slots: int | None = None):
+    """The specs of a train state's leaves, mirroring it: the parameters'
+    (:func:`~repro_torch.sharding.param_specs`, of a rank's own tensors
+    with the pool's global ``num_slots``), the same for the moments and the
+    error-feedback residual, and a whole step count. What
+    :meth:`~repro_torch.checkpoint.CheckpointManager.save` and
+    ``restore_sharded`` take under a mesh."""
+    specs = param_specs(state["params"], policy, num_slots=num_slots)
+    out = {"params": specs, "opt": adamw_state_specs(specs)}
+    if "ef_residual" in state:
+        out["ef_residual"] = specs
+    return out
+
+
 def make_train_step(config: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
-                    *, accum_steps: int = 1, remat: bool = True, mark=None):
+                    *, policy=None, accum_steps: int = 1, remat: bool = True,
+                    mark=None):
     """Returns ``train_step(state, batch, placements=None) → (state,
     metrics)``; the state is updated in place and returned.
 
@@ -47,15 +81,25 @@ def make_train_step(config: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     (device scalars) and ``lr`` (a float), plus ``moe_dropped`` and
     ``expert_counts`` (L, E) for MoE configs.
 
+    ``policy``: a :class:`~repro_torch.sharding.ShardingPolicy`. With a
+    mesh every rank passes the whole global batch and the state of its
+    own leaves (``init_train_state`` of the rank's parameters); the
+    metrics are the global ones, the same on every rank. Without one,
+    the MoE layers dispatch in its ``data_axis_size`` groups.
+
     ``mark``, if given, is called with ``"forward"``, ``"backward"`` and
     ``"update"`` as each part of the step has been queued (a profiler's
     hook: the caller may record a CUDA event there)."""
+    mesh = None if policy is None else policy.mesh
+    num_slots = config.num_virtual_experts if config.is_moe else None
+
     def note(name):
         if mark is not None:
             mark(name)
 
     def grads_of(params, batch, placements):
-        loss, aux = loss_fn(params, batch, config, placements, remat=remat)
+        loss, aux = loss_fn(params, batch, config, placements, remat=remat,
+                            policy=policy, num_slots=num_slots)
         note("forward")
         grads = torch.autograd.grad(loss, leaves(params))
         note("backward")
@@ -84,11 +128,17 @@ def make_train_step(config: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
                 del mgrads
             loss = loss / accum_steps
             grads = [a.div_(accum_steps) for a in acc]
-        grads = _unflatten(params, list(grads))
+        specs = None
+        if mesh is not None:
+            specs = param_specs(params, policy, num_slots=num_slots)
+            grads = _reduce_grads(list(grads), params, specs, policy)
+        grads = unflatten(params, list(grads))
         if opt_cfg.compress:
             grads, _ = compress_grads(grads, state["ef_residual"],
-                                      opt_cfg.compress_bits)
-        _, _, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
+                                      opt_cfg.compress_bits, policy=policy,
+                                      specs=specs)
+        _, _, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg,
+                                         policy=policy, specs=specs)
         del grads
         note("update")
         metrics = {"loss": loss, **opt_metrics}
@@ -100,8 +150,31 @@ def make_train_step(config: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     return train_step
 
 
-def _unflatten(skeleton, flat: list):
-    """Leaves in :func:`leaves` order → ``skeleton``'s nesting."""
-    if isinstance(skeleton, dict):
-        return {k: _unflatten(skeleton[k], flat) for k in sorted(skeleton)}
-    return flat.pop(0)
+def _reduce_grads(grads: list, params, specs, policy) -> list:
+    """Sum each rank's gradients (in :func:`leaves` order) over the ranks
+    that hold the leaf alike: the data axes for every leaf (when they
+    shard the batch), and the model axis too for a whole-stored expert
+    stack under a model axis wider than one rank. fp32, in rank order,
+    one leaf at a time.
+
+    Every other whole leaf is computed whole by each rank of the model
+    axis, from the same inputs; on a card its backward adds with atomics
+    (the gathers' and the embedding's), so the ranks' bits may differ,
+    and replicas updated from them would part. Its gradient is taken from
+    the axis's first rank on all of them, before the sum (a broadcast:
+    the same bits on the CPU, where every rank computes them alike)."""
+    mesh = policy.mesh
+    data = tuple(policy.batch_axes) if policy.data_axis_size > 1 else ()
+    model = policy.model_axis if policy.model_axis_size > 1 else None
+    out = []
+    for path, spec, g in zip(leaf_paths(params), leaves_along(params, specs),
+                             grads):
+        axes = data
+        if spec is None and is_expert_leaf(path) and model:
+            axes = data + (model,)
+        elif spec is None and model:
+            g = mesh.broadcast(g, model)
+        if axes:
+            g = mesh.all_reduce(g, axes, dtype=torch.float32)
+        out.append(g)
+    return out

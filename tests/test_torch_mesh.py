@@ -129,6 +129,44 @@ def test_mesh_collectives_route_by_axis(shape, tmp_path):
         assert out["staged"] == 0  # CPU tensors are never staged
 
 
+def _reductions(mesh):
+    """``all_reduce`` (sum, max) and ``broadcast`` over every axis, on
+    values that name the rank."""
+    r = mesh.rank
+    t = torch.tensor([r + 0.5, -10.0 * r], dtype=torch.float32)
+    out = {}
+    for axis in ("data", "model", ("data", "model")):
+        out[("sum", axis)] = mesh.all_reduce(t, axis).numpy()
+        out[("max", axis)] = mesh.all_reduce(t, axis, "max").numpy()
+        out[("bcast", axis)] = mesh.broadcast(t, axis).numpy()
+    try:
+        mesh.all_reduce(t, "model", "mean")
+    except ValueError as e:
+        out["bad_op"] = str(e)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_all_reduce_and_broadcast_route_by_axis(shape, tmp_path):
+    """Sums and maxima over an axis are the same on each of its ranks
+    (one gather, reduced in axis order); a broadcast hands every rank of
+    the axis the tensor of its first rank."""
+    data, model = shape
+    res = ranks(_reductions, data, model, tmp_path)
+    grid = np.arange(data * model).reshape(data, model)
+    for r, out in enumerate(res):
+        dr, mr = divmod(r, model)
+        for axis, members in (("data", grid[:, mr]), ("model", grid[dr]),
+                              (("data", "model"), grid.reshape(-1))):
+            vals = np.stack([[m + 0.5, -10.0 * m] for m in members])
+            np.testing.assert_array_equal(out[("sum", axis)], vals.sum(0))
+            np.testing.assert_array_equal(out[("max", axis)], vals.max(0))
+            src = members[0]
+            np.testing.assert_array_equal(out[("bcast", axis)],
+                                          [src + 0.5, -10.0 * src])
+        assert "'mean'" in out["bad_op"]
+
+
 def _world_of_one(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             world_size=1, rank=0)

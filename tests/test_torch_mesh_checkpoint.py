@@ -6,7 +6,18 @@ in fp32 and bf16, unsharded as JAX stores them) restores onto (1, 4) and
 everything else whole), bit for bit; so does one written by the
 single-card port. The restored shard serves: a decode-free check that
 the sharded MoE layer on it gives the single-card layer's output at
-(1, 4), bit for bit."""
+(1, 4), bit for bit.
+
+A checkpoint saved from a mesh (``CheckpointManager.save(…, mesh=…,
+shardings=…)``): a (2, 2) training state after 3 steps (granite smoke,
+fp32, 16 virtual experts, capacity factor 8.0 so that no assignment
+drops and the dispatch groups of (2, 2) and (1, 4) are the same math)
+restores on one process bit for bit as the ranks' shards put together,
+JAX's ``CheckpointManager.restore`` reads it, and ``restore_sharded``
+onto (1, 4) followed by 2 more steps tracks 5 uninterrupted (2, 2) steps
+within the single-card train tests' tolerances (loss 1e-5, grad norm
+1e-4, the state 1e-4 relative in norm; the two meshes sum in other
+orders)."""
 import dataclasses
 
 import jax
@@ -24,10 +35,20 @@ from repro.sharding import host_policy as jax_host_policy  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models.moe import moe_layer  # noqa: E402
+from repro_torch.bridge import params_from_numpy, state_to_numpy  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.sharding import (  # noqa: E402
     ShardingPolicy,
     local_expert_slots,
     param_specs,
+)
+from repro_torch.training import (  # noqa: E402
+    AdamWConfig,
+    DataConfig,
+    SyntheticTokenStream,
+    init_train_state,
+    make_train_step,
+    train_state_specs,
 )
 
 torch.set_num_threads(1)
@@ -170,3 +191,158 @@ def test_restored_shard_serves_the_single_card_layer(results):
     for res in port[(2, 2)]:  # two dispatch groups: every rank alike
         assert res["layer"].shape == want.shape
         np.testing.assert_array_equal(res["layer"], port[(2, 2)][0]["layer"])
+
+
+# ------------------------------------------------------ a save from a mesh
+SAVE_STEP, MORE = 3, 2
+TRAIN_OVERRIDES = dict(OVERRIDES, capacity_factor=8.0)
+OPT = dict(learning_rate=3e-3, warmup_steps=1, total_steps=SAVE_STEP + MORE)
+
+
+def _train_inputs():
+    cfg = dataclasses.replace(get_smoke_config(ARCH), **TRAIN_OVERRIDES)
+    tree = state_to_numpy(init_params(cfg, seed=5, device="cpu",
+                                      dtype=torch.float32))
+    Ev = cfg.num_virtual_experts
+    rng = np.random.default_rng(12)
+    s2e = np.stack([rng.permutation(Ev) for _ in range(cfg.num_layers)])
+    tree["blocks"]["moe"] = {
+        k: (v if k == "router" else np.take_along_axis(
+            v, s2e[:, :, None, None], axis=1))
+        for k, v in tree["blocks"]["moe"].items()}
+    data = SyntheticTokenStream(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=16, global_batch=4,
+                                           seed=3))
+    return {"params": tree, "e2s": np.argsort(s2e, axis=1).astype(np.int32),
+            "batches": [next(data) for _ in range(SAVE_STEP + MORE)]}
+
+
+TRAIN = _train_inputs()
+
+
+def _trainer(mesh):
+    policy = ShardingPolicy(mesh=mesh)
+    cfg = dataclasses.replace(get_smoke_config(ARCH), **TRAIN_OVERRIDES)
+    opt = AdamWConfig(**OPT)
+    state = init_train_state(params_from_numpy(
+        TRAIN["params"], cfg, "cpu", torch.float32, policy=policy), opt)
+    step = make_train_step(cfg, opt, policy=policy)
+    specs = train_state_specs(state, policy,
+                              num_slots=cfg.num_virtual_experts)
+    return state, step, specs
+
+
+def _steps(step, state, lo, hi):
+    metrics = []
+    for batch in TRAIN["batches"][lo:hi]:
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()},
+                        torch.from_numpy(TRAIN["e2s"]))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return state, metrics
+
+
+def _save_rank(mesh, root):
+    """(2, 2): 3 steps, the save from the mesh, 2 more steps."""
+    state, step, specs = _trainer(mesh)
+    state, metrics = _steps(step, state, 0, SAVE_STEP)
+    saved = state_to_numpy(state)
+    path = CheckpointManager(root).save(SAVE_STEP, state, mesh=mesh,
+                                        shardings=specs,
+                                        extra={"step": SAVE_STEP})
+    state, more = _steps(step, state, SAVE_STEP, SAVE_STEP + MORE)
+    return {"saved": saved, "path": path, "metrics": metrics + more,
+            "final": state_to_numpy(state)}
+
+
+def _resume_rank(mesh, root):
+    """(1, 4): restore the (2, 2) save onto this mesh, 2 more steps."""
+    skeleton, step, specs = _trainer(mesh)
+    state, extra, at = CheckpointManager(root).restore_sharded(
+        skeleton, specs, mesh=mesh)
+    state, metrics = _steps(step, state, extra["step"], SAVE_STEP + MORE)
+    return {"at": at, "metrics": metrics, "final": state_to_numpy(state)}
+
+
+def _gathered(rank_states, shape):
+    """The ranks' shards put back together: the expert stacks' slots over
+    the model ranks of data row 0, every other leaf from rank 0."""
+    data, model = shape
+    flat = [_flat(s) for s in rank_states]
+    out = {}
+    for k, v in flat[0].items():
+        if k.split("/")[-1] in ("w_gate", "w_up", "w_down"):
+            v = np.concatenate([flat[m][k] for m in range(model)], axis=1)
+        out[k] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def saved(tmp_path_factory):
+    root = tmp_path_factory.mktemp("mesh_save")
+    save = ranks(_save_rank, 2, 2, root, str(root / "ckpt"))
+    resume = ranks(_resume_rank, 1, 4, root, str(root / "ckpt"))
+    return root / "ckpt", save, resume
+
+
+def test_mesh_save_restores_on_one_process_bit_for_bit(saved):
+    root, save, _ = saved
+    assert all(r["path"] == save[0]["path"] for r in save)
+    assert CheckpointManager(str(root)).committed_steps() == [SAVE_STEP]
+    want = _gathered([r["saved"] for r in save], (2, 2))
+    # the second data row held the same shards as the first
+    for r, twin in ((save[2], save[0]), (save[3], save[1])):
+        for k, v in _flat(r["saved"]).items():
+            assert np.array_equal(v, _flat(twin["saved"])[k]), k
+    cfg = dataclasses.replace(get_smoke_config(ARCH), **TRAIN_OVERRIDES)
+    skeleton = init_train_state(params_from_numpy(
+        TRAIN["params"], cfg, "cpu", torch.float32), AdamWConfig(**OPT))
+    state, extra, step = CheckpointManager(str(root)).restore(skeleton)
+    assert (extra, step) == ({"step": SAVE_STEP}, SAVE_STEP)
+    got = {k: v.numpy() for k, v in _flat(state).items()}
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert np.array_equal(got[k], want[k]), k
+    assert got["params/blocks/moe/w_gate"].shape[1] == 16  # the whole pool
+
+
+def test_mesh_save_is_read_by_jax(saved):
+    root, save, _ = saved
+    want = _gathered([r["saved"] for r in save], (2, 2))
+    skeleton = _nest(want)
+    state, extra, step = JaxCheckpointManager(str(root)).restore(skeleton)
+    assert (extra, step) == ({"step": SAVE_STEP}, SAVE_STEP)
+    got = _flat(jax.tree.map(np.asarray, state))
+    for k, v in want.items():
+        assert np.array_equal(got[k], v), k
+
+
+def _nest(flat):
+    out = {}
+    for k, v in flat.items():
+        node = out
+        *path, leaf = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def test_restore_sharded_onto_another_mesh_resumes_training(saved):
+    _, save, resume = saved
+    straight = save[0]["metrics"]
+    final = _gathered([r["final"] for r in save], (2, 2))
+    for rank, r in enumerate(resume):
+        assert r["at"] == SAVE_STEP
+        for (loss, norm), (want_loss, want_norm) in zip(
+                r["metrics"], straight[SAVE_STEP:]):
+            assert loss == pytest.approx(want_loss, rel=1e-5)
+            assert norm == pytest.approx(want_norm, rel=1e-4)
+        per = 16 // 4
+        for k, v in _flat(r["final"]).items():
+            w = final[k]
+            if k.split("/")[-1] in ("w_gate", "w_up", "w_down"):
+                w = w[:, rank * per:(rank + 1) * per]
+            err = np.linalg.norm(v - w) / max(float(np.linalg.norm(w)), 1e-30)
+            assert err <= 1e-4, (rank, k, err)

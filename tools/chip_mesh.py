@@ -1,14 +1,19 @@
-"""Run ``chip_smoke.py``'s ``build`` and ``mesh`` phases alone on the card(s).
+"""Run ``chip_smoke.py``'s ``build``, ``mesh`` and ``mesh_train`` phases
+alone on the card(s).
 
-    python3 tools/chip_mesh.py
+    python3 tools/chip_mesh.py [--nccl]
 
 from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. With one card it serves full granite-moe-3b-a800m with 4 gloo
-ranks sharing it, at (1, 4) and (2, 2), against one-process runs; with
-four cards the gloo ranks get a card each and the phase also runs NCCL
-``decode_mode="scan"`` at (1, 4). The phase's checks raise on failure;
-its JSON lines are ``chip_smoke.py``'s. The kernels' table row is not
-measured here (``chip_smoke.py``'s ``kernels`` phase measures it).
+ranks sharing it, at (1, 4) and (2, 2), against one-process runs, then
+trains granite at 8 layers with 4 gloo ranks at both shapes against one
+process; with four cards the gloo ranks get a card each, and the phases
+also serve in NCCL ``decode_mode="scan"`` and train full granite over
+NCCL at (1, 4). The phases' checks raise on failure; their JSON lines
+are ``chip_smoke.py``'s. The kernels' table rows are not measured here
+(``chip_smoke.py``'s ``kernels`` phase measures them). ``--nccl`` (four
+cards) runs only what needs them: the NCCL ``"scan"`` serve and the NCCL
+training of full granite, each against its one-process run.
 """
 import sys
 import time
@@ -25,9 +30,16 @@ if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.phase_build()
+    if sys.argv[1:] == ["--nccl"]:
+        print(chip_smoke.nccl_paths(), flush=True)
+        sys.exit(0)
     t0 = time.perf_counter()
     unmeasured = dict.fromkeys(("shape", "ms", "device_us", "plain_ms",
                                 "library_ms", "bound_ms", "bound_by",
                                 "bound_share"))
     print(chip_smoke.phase_mesh({"moe_ffn/decode_rank": unmeasured}))
     print("mesh phase seconds", time.perf_counter() - t0, flush=True)
+    t0 = time.perf_counter()
+    print(chip_smoke.phase_mesh_train(
+        dict.fromkeys(chip_smoke.MESH_TRAIN_KERNEL_ROWS, unmeasured)))
+    print("mesh_train phase seconds", time.perf_counter() - t0, flush=True)
