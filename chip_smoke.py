@@ -181,36 +181,59 @@ runs sixteen phases, each printing JSON lines:
    and tables after the swap, equal migration records (``"via":
    "host"``: one card has no expert sharding), K1/K2 launched on every MoE
    layer call, one capture.
-15. ``mesh`` — the expert-parallel data plane across ranks
+15. ``mesh`` — the data plane across ranks under JAX's layout
    (``repro_torch.launch.mesh``, ``sharding``, ``kernels/sharded.py``):
-   full granite, bf16, the ``collective`` scenario at 32 layers (8
-   requests of 32 new tokens, GEM's one-shot replan at step 16 under
+   full granite, bf16, the ``collective`` scenario at 32 layers (8 requests
+   of 32 new tokens, GEM's one-shot replan at step 16 under
    ``migration_via="collective"``), served by 4 ranks that share this card
    over ``gloo`` (NCCL puts no two ranks on one GPU; the collectives stage
    through pinned host buffers) in ``decode_mode="python"``, each rank
-   drawing its shard of the same seed-0 weights a layer at a time. At
-   (1, 4), GEM over the 4 emulated devices, each rank holding 20 of the 80
-   slots: tokens equal a one-process run on the card (dense cache, the
-   same draws), its logits' largest |Δ| is printed, each rank holds
-   558,173,184 + 1,509,949,440 parameter bytes, its slot rows after the
-   swap have the one-process rows' checksums, every rank's tables are the
-   one-process tables, the measured ``cross_rows`` and ``payload_bytes``
-   equal ``stats_for_dense_sources(src, 4, 2,359,296)`` and the ranks
-   shipped exactly those rows, K1/K2 launched 32 × (prefills + steps) a
-   rank with K1 on (20, C, 1536)×(20, 1536, 256), K2's counters are at 0,
-   and an engine in ``"scan"`` over gloo on the card raises
-   ``ValueError``. At (2, 2), GEM over 2 devices: the same checks against
-   a one-process run that dispatches the batch in 2 groups, each rank
-   holding 558,173,184 + 3,019,898,880 bytes. NCCL ``"scan"`` at (1, 4)
-   runs only with 4 cards (``"not run: N card(s)"`` otherwise). It prints
-   each run's decode-step medians, walls and staged bytes: times of 4
-   processes sharing one card, not of a multi-card fleet.
+   drawing its shard of the same seed-0 weights (the expert stacks a layer
+   at a time). Each rank holds its shard of every leaf by ``param_specs``
+   (the projections and the vocabulary over ``model``, the expert slots)
+   and its block of the dense KV cache's positions. At (1, 4), GEM over the
+   4 emulated devices, each rank holding 20 of the 80 slots, against a
+   one-process run on the card (dense cache, the same draws). bf16 router
+   logits tie, and the layout's summation orders would break some ties
+   the other way, so the ranks run on one process's router logits at
+   every MoE layer (K2 runs on them) and take one process's tokens at
+   every step (:func:`_pin_calls`): the routed counts at every step, the
+   tables and the slot rows after the swap equal one process's, the logits
+   of every prefill and decode step lie within ``MESH_LOGITS_TOL`` of one
+   process's, and a rank's own arg max may differ from one process's token
+   only where one process's top-1 margin lies within that row's |Δ|. Each
+   rank holds 142,642,176 + 1,509,949,440 parameter bytes (every leaf's
+   bytes its shard's) and a quarter of one process's cache bytes, and runs
+   4 collectives a layer and 2 more a decode step (q/k/v, the softmax
+   partials, ``wo``, K1's outputs; the embedding, the logits); its tables
+   are every other rank's and ``argsort`` of its plan; the measured
+   ``cross_rows`` and ``payload_bytes`` equal ``stats_for_dense_sources(src,
+   4, 2,359,296)`` and the ranks shipped exactly those rows, K1/K2 launched
+   32 × (prefills + steps) a rank with K1 on (20, C, 1536)×(20, 1536, 256),
+   K2's counters are at 0, and an engine in ``"scan"`` over gloo on the
+   card raises ``ValueError``. At (2, 2), GEM over 2 devices: the same
+   checks against a one-process run that dispatches the batch in 2 groups,
+   each rank holding 281,152,512 + 3,019,898,880 bytes, a quarter of the
+   cache (half the rows, half the positions) and running 6 collectives a
+   layer and 3 more a step (K2's statistics and the dispatch counts over
+   ``data``, the logits over ``data``). Then both shapes in fp32 at 8
+   layers, as they come (no ties): tokens, every step's routed counts, the
+   tables and the rows equal one process's, the logits within
+   ``MESH_FP32_LOGITS_TOL``. NCCL ``"scan"`` at (1, 4) runs only with 4
+   cards (``"not run: N card(s)"`` otherwise): in bf16 (a captured step
+   cannot be pinned: tokens and logits are printed, the tables and rows
+   held to the rank's own plan) with three replays of rank 0's captured
+   step profiled (device time of the port kernels, the collectives, the
+   products and the rest), then in fp32 at 8 layers, held to one process
+   exactly. It prints each run's decode-step medians, walls and staged
+   bytes: times of 4 processes sharing one card, not of a multi-card
+   fleet.
 16. ``mesh_train`` — training under the mesh (``make_train_step(…,
    policy=…)``): granite at full width, 8 of 32 layers (4 ranks share the
    card), bf16 parameters and fp32 moments, seed-0 weights drawn whole and
    placed by the ``train`` phase's seed, its batches (4 × 128 tokens,
-   capacity factor 2.0) and optimizer, 5 AdamW steps, remat off, on 4
-   gloo ranks at (1, 4) and (2, 2), each against one process on the card
+   capacity factor 2.0) and optimizer, 5 AdamW steps, remat off, on 4 gloo
+   ranks at (1, 4) and (2, 2), each against one process on the card
    (dispatched in 2 groups for (2, 2)). The first step's loss within 1e-3
    relative and grad norm within 1e-2 of one process's, its expert counts
    and dropped share equal, each rank's gradient (after the reduction over
@@ -218,19 +241,22 @@ runs sixteen phases, each printing JSON lines:
    second step's loss within 1e-3 and grad norm within 5e-2; the later
    losses within 10 % and grad norms within 30 % (bf16 parameters part in
    their last bits from the first update on, and one process on the card
-   does not repeat itself bit for bit; the later counts are printed);
-   every rank the same metrics; each rank's expert update over the run
-   (p_5 − p_0) at cosine ≥ 0.9 with one process's on its rows, and its
-   expert rows after the last step within twice the share by which a
-   second one-process run parts from the first; the replicated leaves
-   (parameters and moments) bit-equal on every rank and each expert shard
-   on the ranks that hold it; parameter and moment bytes those of the
-   rank's leaves; K1/K2 launched 8 × 5 times a rank, K1 on (E_v/m, C,
-   1536) × (E_v/m, 1536, 256). The (2, 2) ranks then save a checkpoint from the
-   mesh: it restores on one process in JAX's dtypes and each rank's
-   shards have the restored rows' checksums. With 4 cards, full granite
-   (32 layers) also trains over NCCL at (1, 4), a card a rank, against
-   one process (``"not run: N card(s)"`` otherwise). It prints each run's
+   does not repeat itself bit for bit; the later counts are printed); every
+   rank the same metrics; each rank's expert update over the run (p_5 −
+   p_0) at cosine ≥ 0.9 with one process's on its rows, and its expert rows
+   after the last step within twice the share by which a second one-process
+   run parts from the first; the whole leaves (parameters and moments)
+   bit-equal on every rank and each shard on the ranks that hold it;
+   parameter and moment bytes those of the rank's shards by ``param_specs``
+   (441,535,488 and 1,766,141,952 at (1, 4), 882,035,712 and 3,528,142,848
+   at (2, 2)); 128 tokens a row, so the model axis runs the attention
+   sequence-parallel; K1/K2 launched 8 × 5 times a rank, K1 on (E_v/m, C,
+   1536) × (E_v/m, 1536, 256). The (2, 2) ranks then save a checkpoint from
+   the mesh: it restores on one process in JAX's dtypes and each rank's
+   shards have the restored rows' checksums. With 4 cards, full granite (32
+   layers) also trains over NCCL at (1, 4), a card a rank, against one
+   process, and one more step is profiled on every rank (``"not run: N
+   card(s)"`` otherwise). It prints each run's
    losses, the per-rank step medians (host clock, steps 2–5) beside one
    process's, staged bytes and peak memory a rank.
 
@@ -2839,15 +2865,49 @@ def phase_collective():
 
 
 # --------------------------------------------------------------------- mesh
-# The expert-parallel data plane across ranks: full granite, bf16, served
-# by 4 ranks that share this one card over gloo (NCCL puts no two ranks on
-# one GPU), the exchange staged through the host; GEM's one-shot replan at
-# step 16 moves rows between ranks. Its times are those of 4 processes
-# sharing one card, not of a multi-card fleet.
+# The data plane across ranks under JAX's layout: full granite, bf16,
+# served by 4 ranks that share this one card over gloo (NCCL puts no two
+# ranks on one GPU), the collectives staged through the host; GEM's
+# one-shot replan at step 16 moves rows between ranks. Its times are those
+# of 4 processes sharing one card, not of a multi-card fleet.
 MESH_MODEL = 4
 MESH_REQUESTS, MESH_NEW = 8, 32
 MESH_TIMEOUT_S = 600.0
 _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+# a rank's logits against one process's (fp32 logits of a bf16 model) on
+# the same inputs: the row-parallel ``wo`` sums fp32 partials and rounds
+# once, the softmax over the sharded cache combines fp32 partials, and the
+# projections and the logits are column blocks of one process's products,
+# so a layer's output parts from one process's only where an fp32 sum
+# lands on the other side of a bf16 rounding boundary; the logits (|logit|
+# up to ~4, a bf16 ulp 2^-6 there) move by a few ulps. A wrong layout moves
+# them by O(1). bf16 router logits tie, and those few ulps break some ties
+# the other way, which sends a token to another expert (a change of O(1)
+# to its rows): so the bf16 runs in "python" take one process's router
+# logits at every MoE layer (K2 still runs, on them) and one process's
+# tokens at every step, and hold their own logits within the tolerance at
+# every prefill and decode step.
+MESH_LOGITS_TOL = 0.25
+# an fp32 run (8 layers, (1, 4)) takes the ties away: no bf16 rounding of
+# router logits or products, summation orders part the logits by ~1e-6
+# relative, so routing, tables, rows and tokens must equal one process's
+# and the logits lie within 1e-3
+MESH_FP32_LAYERS = 8
+MESH_FP32_LOGITS_TOL = 1e-3
+# (full granite) bytes a rank holds at each shape, by param_specs: the
+# non-expert leaves (embedding by vocabulary, projections over model,
+# norms and router whole) and the expert slots
+MESH_PARAM_BYTES = {(1, 4): {"non_expert": 142_642_176,
+                             "expert": 1_509_949_440},
+                    (2, 2): {"non_expert": 281_152_512,
+                             "expert": 3_019_898_880}}
+MESH_ONE_PROCESS_BYTES = {"non_expert": 558_173_184, "expert": 6_039_797_760}
+# collectives a rank runs a decode step, by layer and once a step: (1, 4)
+# the q/k/v gather, the softmax partials' gather, the ``wo`` sum and K1's
+# gather a layer, the embedding's sum and the logits' gather a step; (2,
+# 2) also K2's statistics and the dispatch counts over data a layer and
+# the logits over data a step
+MESH_COLLECTIVES = {(1, 4): (4, 2), (2, 2): (6, 3)}
 
 
 def _mesh_engine(params, cfg, policy, nd, mode, device=None,
@@ -2877,9 +2937,11 @@ def _mesh_engine(params, cfg, policy, nd, mode, device=None,
     return eng
 
 
-def _mesh_drive(eng, logits=None):
+def _mesh_drive(eng, logits=None, counts=None, force=None):
     """Run the engine with its decode steps timed on the host clock (each
-    step synchronised), each step's logits kept on the host when asked.
+    step synchronised), each step's logits and (L, E) expert counts kept
+    on the host when asked. ``force``, one process's logits of every
+    step: the engine samples its tokens from those instead of its own.
     Returns (step ms, wall s)."""
     inner, step_ms = eng._decode, []
 
@@ -2891,6 +2953,10 @@ def _mesh_drive(eng, logits=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if logits is not None:
             logits.append(out[0].float().cpu())
+        if counts is not None:
+            counts.append(out[2].expert_counts.cpu().numpy())
+        if force is not None:
+            out = (force[len(step_ms) - 1].to(out[0].device), *out[1:])
         return out
 
     eng._decode = timed
@@ -2908,7 +2974,183 @@ def _param_bytes(params) -> dict:
     moe = params["blocks"]["moe"]
     expert = sum(moe[n].nelement() * moe[n].element_size()
                  for n in _EXPERT_WEIGHTS)
-    return {"replicated": _tree_nbytes(params) - expert, "expert": expert}
+    return {"non_expert": _tree_nbytes(params) - expert, "expert": expert}
+
+
+class _MeshAt:
+    """A stand-in for rank ``rank`` of a (data, model) mesh: the extents
+    and positions the port's specs read."""
+
+    def __init__(self, shape, rank):
+        self.shape = {"data": shape[0], "model": shape[1]}
+        self.axis_names = ("data", "model")
+        self.coords = {"data": rank // shape[1], "model": rank % shape[1]}
+
+    def size(self, axis):
+        axes = (axis,) if isinstance(axis, str) else axis
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axis):
+        axes = (axis,) if isinstance(axis, str) else axis
+        return int(np.ravel_multi_index([self.coords[a] for a in axes],
+                                        [self.shape[a] for a in axes]))
+
+
+def _specs_by_name(cfg, shape) -> dict:
+    """``param_specs`` of the config's tree at ``shape``, by the dotted
+    leaf name :func:`_leaves` gives (without a prefix)."""
+    from repro_torch.sharding import ShardingPolicy, param_specs
+
+    specs = param_specs(_meta_params(cfg),
+                        ShardingPolicy(mesh=_MeshAt(shape, 0)), cfg)
+    return dict(_leaves(specs))
+
+
+def _spec_of(specs: dict, name: str):
+    """A state leaf's parameter spec (``params.``, ``opt.mu.``,
+    ``opt.nu.`` name their parameter's); None for a whole leaf."""
+    for prefix in ("params.", "opt.mu.", "opt.nu.", "ef_residual."):
+        if name.startswith(prefix):
+            name = name[len(prefix):]
+            break
+    spec = specs.get(name)
+    return spec if spec and any(a is not None for a in spec) else None
+
+
+def _rank_block(t, spec, shape, rank):
+    """The rank's block of a whole tensor by its spec (a contiguous copy)."""
+    from repro_torch.sharding import take_shard
+
+    if spec is None:
+        return t
+    return take_shard(t, spec, _MeshAt(shape, rank)).contiguous()
+
+
+def _shard_mismatches(params, cfg, shape) -> list:
+    """The leaves whose bytes on this rank are not their shard's by
+    ``param_specs`` (the global leaf's bytes over its sharded extents)."""
+    specs = _specs_by_name(cfg, shape)
+    whole = dict(_leaves(_meta_params(cfg)))
+    bad = []
+    for name, t in _leaves(params):
+        n = whole[name].numel()
+        for axes in specs[name] or ():
+            if axes is not None:
+                n //= shape[0] if axes == "data" else shape[1]
+        if t.numel() != n:
+            bad.append((name, t.numel(), n))
+    return bad
+
+
+def _cache_bytes(caches) -> int:
+    return sum(t.nelement() * t.element_size() for _, t in _leaves(caches))
+
+
+def _count_collectives(mesh):
+    """Wrap the mesh's collectives so that each top-level call counts
+    (an ``all_reduce`` once, not its inner gather) while ``on[0]``:
+    returns (counter, on)."""
+    counts, on, depth = collections.Counter(), [False], [0]
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            if on[0] and depth[0] == 0:
+                counts[name] += 1
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return call
+
+    for name in ("all_gather", "all_reduce", "broadcast",
+                 "all_to_all_single", "send_recv"):
+        setattr(mesh, name, counted(name, getattr(mesh, name)))
+    return counts, on
+
+
+def _logits_against(logits, ref) -> dict:
+    """A rank's logits (one (B, V) tensor a step) against one process's on
+    the same inputs: the largest |Δ| at each step, and each (step, row)
+    whose arg max differs, with one process's top-1 margin there (the gap
+    between its two largest logits) and that row's largest |Δ|."""
+    if len(logits) != len(ref):
+        return {"steps_compared": 0, "logits_abs_diff_per_step": [],
+                "logits_max_abs_diff": None, "argmax_partings": []}
+    deltas, partings = [], []
+    for step, (a, b) in enumerate(zip(logits, ref)):
+        d = (a - b).abs()
+        deltas.append(float(d.max()))
+        for row in (a.argmax(-1) != b.argmax(-1)).nonzero()[:, 0].tolist():
+            top = b[row].topk(2).values
+            partings.append({"step": step, "row": row,
+                             "one_process_top1_margin":
+                                 float(top[0] - top[1]),
+                             "abs_diff": float(d[row].max())})
+    return {"steps_compared": len(deltas),
+            "logits_abs_diff_per_step": deltas,
+            "logits_max_abs_diff": max(deltas, default=None),
+            "argmax_partings": partings}
+
+
+def _pin_calls(record, force=None, data_index: int = 0, *,
+               router: bool = True):
+    """Wrap the engine's ``prefill`` and (with ``router``; not under a
+    captured step) the MoE layers' K2 entry
+    (``dispatch.topk_router_sharded``). Each prefill's last-position
+    logits and each router call's logits are kept, on the host once the
+    wrapping is taken off, in ``record["prefill"]`` and
+    ``record["router"]``. With ``force`` (one process's record of the same
+    scenario) the router runs on one process's logits of the same call
+    (its ``data_index`` group where one process dispatched the batch in
+    groups) and the engine takes one process's prefill logits;
+    ``record["router_abs_diff"]`` keeps each call's largest |Δ| between
+    the rank's own router logits and those. The router's are kept on the
+    card until then, so that no call waits for the card. Returns a
+    function that takes the wrapping off."""
+    import repro_torch.models.dispatch as dispatch
+    import repro_torch.serving.engine as engine
+
+    inner, pre = dispatch.topk_router_sharded, engine.prefill
+    record.update(router=[], prefill=[], router_abs_diff=[])
+    on_card = []
+
+    def routed(logits, k, **kw):
+        mine = logits.detach().float()
+        record["router"].append(mine.clone())
+        if force is None:
+            return inner(logits, k, **kw)
+        if not on_card:
+            on_card.extend(t.to(logits.device) for t in force["router"])
+        want = on_card[len(record["router"]) - 1]
+        if want.shape != mine.shape and mine.shape[0] == 1:
+            want = want[data_index:data_index + 1]
+        if want.shape != mine.shape:
+            raise ValueError(f"router call {len(record['router'])}: "
+                             f"{tuple(mine.shape)} against one process's "
+                             f"{tuple(want.shape)}")
+        record["router_abs_diff"].append((mine - want).abs().max())
+        return inner(want.to(logits.dtype), k, **kw)
+
+    def prefilled(*a, **kw):
+        logits, caches = pre(*a, **kw)
+        record["prefill"].append(logits.float().cpu())
+        if force is not None:
+            logits = force["prefill"][len(record["prefill"]) - 1].to(
+                logits.device)
+        return logits, caches
+
+    engine.prefill = prefilled
+    if router:
+        dispatch.topk_router_sharded = routed
+
+    def undo():
+        dispatch.topk_router_sharded, engine.prefill = inner, pre
+        record["router"] = [t.cpu() for t in record["router"]]
+        record["router_abs_diff"] = [float(t)
+                                     for t in record["router_abs_diff"]]
+
+    return undo
 
 
 def _mesh_rank(mesh, sc):
@@ -2916,8 +3158,10 @@ def _mesh_rank(mesh, sc):
     same seed-0 draws as one process, expert stacks a layer at a time),
     checks the gloo + ``"scan"`` guard when asked, serves the scenario and
     returns what the parent checks: tokens, tables, records, launches and
-    K1's shapes, its rows' checksums, staged bytes, step times, and the
-    largest |Δ| of its logits against the one-process run's."""
+    K1's shapes, its rows' checksums, staged bytes, step times, and its
+    logits at every step and prefill against the one-process run's. With
+    ``sc["force"]`` it runs on one process's router logits and tokens
+    (:func:`_pin_calls`)."""
     import repro_torch.kernels.sharded as sharded
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2926,12 +3170,15 @@ def _mesh_rank(mesh, sc):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = _mesh_config(sc.get("layers"))
     policy = ShardingPolicy(mesh=mesh)
     params = init_params(cfg, seed=0, device=mesh.device,
-                         dtype=torch.bfloat16, policy=policy)
+                         dtype=getattr(torch, sc.get("dtype", "bfloat16")),
+                         policy=policy)
+    shape = (mesh.size("data"), mesh.size("model"))
     out = {"rank": mesh.rank, "device": str(mesh.device),
-           "backend": mesh.backend, "param_bytes": _param_bytes(params)}
+           "backend": mesh.backend, "param_bytes": _param_bytes(params),
+           "shard_mismatches": _shard_mismatches(params, cfg, shape)}
     if sc["guard"]:
         try:
             _mesh_engine(params, cfg, policy, sc["nd"], "scan")
@@ -2948,13 +3195,36 @@ def _mesh_rank(mesh, sc):
         return inner(x, wg, wu, wd)
 
     sharded.moe_ffn = recorded
+    ref = torch.load(sc["reference"]) if sc.get("reference") else None
+    pinned = {}
+    undo = _pin_calls(pinned, ref if sc.get("force") else None,
+                      mesh.index("data"), router=sc["mode"] == "python")
     eng = _mesh_engine(params, cfg, policy, sc["nd"], sc["mode"])
+    counts, counting = _count_collectives(mesh)
+    decode = eng._decode
+
+    def counted_step(*a, **kw):
+        counting[0] = True
+        try:
+            return decode(*a, **kw)
+        finally:
+            counting[0] = False
+
+    eng._decode = counted_step
     ops.reset_launch_counts()
     mesh.staged_bytes = 0
-    logits = []
-    step_ms, wall = _mesh_drive(eng, logits)
+    logits, counts_trace = [], []
+    step_ms, wall = _mesh_drive(eng, logits, counts_trace,
+                                ref["logits"] if sc.get("force") else None)
     sharded.moe_ffn = inner
-    ref = torch.load(sc["reference"]) if sc.get("reference") else None
+    undo()
+    if ref is not None:
+        out.update(_logits_against(logits, ref["logits"]))
+        out["prefill"] = _logits_against(pinned["prefill"], ref["prefill"])
+        out["router_logits_max_abs_diff"] = max(
+            pinned["router_abs_diff"], default=None)
+    if sc.get("profile") and eng.decode_graph is not None:
+        out["profile"] = _profile_captured(eng)
     moe = eng.params["blocks"]["moe"]
     out.update(
         tokens={r.uid: list(r.generated) for r in eng.finished},
@@ -2972,11 +3242,78 @@ def _mesh_rank(mesh, sc):
         step_ms=step_ms, wall_s=wall,
         captures=eng.graph_capture_counts,
         counters_at_zero=_counters_at_zero(),
-        logits_max_abs_diff=(
-            max(float((a - b).abs().max()) for a, b in zip(logits, ref))
-            if ref is not None and len(ref) == len(logits) else None),
+        cache_bytes=_cache_bytes(eng.caches),
+        expert_counts=counts_trace,
+        collectives=dict(counts),
+        # a captured step's replays call no Python: counted in "python"
+        collectives_per_step=(None if eng.decode_graph is not None else
+                              sum(counts.values()) / max(eng.decode_count,
+                                                         1)),
     )
     return out
+
+
+def _profile_captured(eng, replays: int = 3) -> dict:
+    """torch.profiler over ``replays`` replays of the engine's captured
+    decode step (the last step's inputs): the device time a replay of the
+    port kernels, the NCCL collectives, the cuBLAS/CUTLASS products and
+    the rest, and the ten longest kernels."""
+    graph = eng.decode_graph._graph
+
+    def run():
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+
+    run()
+    # one trace on every rank alike: a retaken trace on one rank would
+    # replay NCCL collectives the others never join
+    avgs, _, tries = _traced(run, attempts=1)
+    return {"replays": replays, "trace_attempts": tries,
+            **_device_split(avgs, replays)}
+
+
+def _device_split(avgs, n: int) -> dict:
+    """A trace's device time a run (of ``n`` runs) by kind: the port
+    kernels, the NCCL collectives, the cuBLAS/CUTLASS products and the
+    rest; the ten longest kernels with their calls a run. Annotations on
+    the device's timeline (NCCL's ``nccl:_all_gather_base`` spans its own
+    kernel) are not kernels and are left out."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in avgs if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.key.startswith("nccl:")]
+
+    def kind(name):
+        low = name.lower()
+        if _is_port_kernel(name):
+            return "port_kernels"
+        if "nccl" in low:
+            return "collectives"
+        if any(k in low for k in ("gemm", "cutlass", "xmma", "sm90", "matmul")):
+            return "products"
+        return "other"
+
+    by, calls = collections.Counter(), collections.Counter()
+    for e in dev:
+        by[kind(e.key)] += e.self_device_time_total / n / 1e3
+        calls[kind(e.key)] += e.count / n
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_ms_per_step": dict(by),
+            "kernels_per_step": dict(calls),
+            "busy_ms_per_step": sum(by.values()),
+            "top": [{"name": e.key[:80],
+                     "ms_per_step": e.self_device_time_total / n / 1e3,
+                     "calls_per_step": e.count / n} for e in top[:10]]}
+
+
+def _mesh_config(layers=None):
+    """Granite at ``layers`` deep (None: its whole depth)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
 
 
 def _grouped_policy(groups: int):
@@ -2993,49 +3330,133 @@ def _grouped_policy(groups: int):
     return Grouped(mesh=None)
 
 
-def _mesh_reference(cfg, nd, groups, store: Path):
+def _mesh_reference(cfg, nd, groups, store: Path, dtype=torch.bfloat16):
     """The scenario in one process on the card (``"python"``, the dense
-    cache the mesh run keeps): tokens, each step's logits (saved for the
-    ranks), each slot's row checksums and the tables after the swap."""
-    params = _parent_draw(cfg, 0, torch.bfloat16, experts_by_layer=True)
+    cache the mesh run keeps): tokens, each step's logits, each prefill's
+    and each router call's logits (saved for the ranks) and expert counts,
+    each slot's row checksums before the run (virtual order) and after the
+    swap, and the tables after it."""
+    params = _parent_draw(cfg, 0, dtype, experts_by_layer=True)
     eng = _mesh_engine(params, cfg, _grouped_policy(groups), nd, "python",
                        device="cuda", kv_mode="dense")
-    logits = []
-    step_ms, wall = _mesh_drive(eng, logits)
-    path = store / f"reference_{groups}.pt"
-    torch.save(logits, path)
+    moe = eng.params["blocks"]["moe"]
+    init_rows = {n: _row_checksums(moe[n]).numpy() for n in _EXPERT_WEIGHTS}
+    logits, counts, pinned = [], [], {}
+    undo = _pin_calls(pinned)
+    step_ms, wall = _mesh_drive(eng, logits, counts)
+    undo()
+    path = store / f"reference_{groups}_{cfg.num_layers}_{dtype}.pt"
+    torch.save({"logits": logits, "prefill": pinned["prefill"],
+                "router": pinned["router"],
+                "expert_counts": [torch.from_numpy(c) for c in counts]}, path)
     moe = eng.params["blocks"]["moe"]
     ref = {"tokens": {r.uid: list(r.generated) for r in eng.finished},
            "tables": eng.placements.cpu().numpy(),
            "rows": {n: _row_checksums(moe[n]).numpy() for n in _EXPERT_WEIGHTS},
+           "init_rows": init_rows, "expert_counts": counts,
+           "dtype": str(dtype).replace("torch.", ""),
+           "layers": cfg.num_layers,
            "step_ms": step_ms, "wall_s": wall, "path": str(path),
-           "param_bytes": _param_bytes(params)}
+           "param_bytes": _param_bytes(params),
+           "cache_bytes": _cache_bytes(eng.caches)}
     del eng, params, moe, logits
     gc.collect()
     torch.cuda.empty_cache()
     return ref
 
 
-def _check_mesh_run(tag, res, ref, shape, row_bytes):
+def _check_mesh_run(tag, res, ref, shape, row_bytes, *, mode,
+                    param_bytes=None):
     """What every rank of a mesh run must hold against the one-process
-    reference and the other ranks."""
+    reference and the other ranks, by ``mode``:
+
+    * ``"exact"`` (fp32, no ties): tokens, every step's routed counts,
+      tables and rows equal one process's, the logits of every decode step
+      and prefill within ``MESH_FP32_LOGITS_TOL``;
+    * ``"pinned"`` (bf16, on one process's router logits and tokens):
+      routed counts, tables and rows equal one process's, the logits of
+      every decode step and prefill within ``MESH_LOGITS_TOL`` (none may go
+      uncompared), and the rank's own arg max may differ from one
+      process's token only where one process's top-1 margin lies within
+      that row's |Δ|;
+    * ``"free"`` (bf16 in ``"scan"``, whose captured step cannot be
+      pinned): tokens and logits are printed, not held; the tables and rows
+      are held to the rank's own plan (the "exact" run holds this path to
+      one process).
+
+    Every mode holds the tables and rows to the rank's own plan, the
+    bytes, the cache, the collectives and the launches. ``param_bytes``:
+    the bytes a rank must hold, where given."""
     from repro_torch.kernels.collective import stats_for_dense_sources
 
+    if mode not in ("exact", "pinned", "free"):
+        raise ValueError(f"mode {mode!r}")
     data, model = shape
     first = res[0]
     per = first["rows"]["w_gate"].shape[1]  # the slots a rank stores
+    layers, per_step = MESH_COLLECTIVES[shape]
+    tol = MESH_FP32_LOGITS_TOL if mode == "exact" else MESH_LOGITS_TOL
     for r in res:
-        check(r["tokens"] == ref["tokens"],
-              f"mesh {tag}: rank {r['rank']}'s tokens differ from one process")
+        if mode != "free":
+            steps, pre = r["steps_compared"], r["prefill"]["steps_compared"]
+            worst = max(r["logits_max_abs_diff"] or 0.0,
+                        r["prefill"]["logits_max_abs_diff"] or 0.0)
+            check(steps == len(ref["expert_counts"]) > 0
+                  and pre == r["prefills"] > 0,
+                  f"mesh {tag}: rank {r['rank']} compared {steps} decode "
+                  f"steps and {pre} prefills with one process's")
+            check(worst <= tol,
+                  f"mesh {tag}: rank {r['rank']}'s logits part from one "
+                  f"process's by {worst} > {tol} on the same inputs")
+            check(r["tokens"] == ref["tokens"] and _same_counts(r, ref),
+                  f"mesh {tag}: rank {r['rank']}'s tokens or routed counts "
+                  f"({_moved_assignments(r, ref)} moved) part from one "
+                  "process's")
+            partings = r["argmax_partings"] + r["prefill"]["argmax_partings"]
+            check(mode == "pinned" or not partings,
+                  f"mesh {tag}: rank {r['rank']}'s arg max parts: {partings}")
+            # a near-tie of one process's two best logits, inside the
+            # rank's deviation on that row, may fall the other way
+            check(all(p["one_process_top1_margin"] <= p["abs_diff"]
+                      for p in partings),
+                  f"mesh {tag}: rank {r['rank']}'s arg max parts where one "
+                  f"process's top-1 margin exceeds the deviation: {partings}")
+        check((param_bytes is None or r["param_bytes"] == param_bytes)
+              and not r["shard_mismatches"],
+              f"mesh {tag}: rank {r['rank']} holds {r['param_bytes']} "
+              f"({r['shard_mismatches']}), not {param_bytes}")
+        check(r["cache_bytes"] * data * model == ref["cache_bytes"],
+              f"mesh {tag}: rank {r['rank']}'s cache {r['cache_bytes']} B is "
+              f"not 1/{data * model} of one process's {ref['cache_bytes']}")
+        L = r["calls"] // (r["prefills"] + r["decode_steps"])
+        check(r["collectives_per_step"] in (None, layers * L + per_step),
+              f"mesh {tag}: rank {r['rank']} runs {r['collectives']} "
+              f"collectives ({r['collectives_per_step']} a step), not "
+              f"{layers} a layer and {per_step}")
+        # GEM plans from the routed counts; where a rank's counts are one
+        # process's, so must its plan be (in "free", a tie of bf16 router
+        # logits broken the other way gives the rank a plan of its own,
+        # held to its rows)
+        same_counts = _same_counts(r, ref)
+        s2e = r["s2e"]
         check(np.array_equal(r["tables"], first["tables"])
-              and np.array_equal(r["tables"], ref["tables"]),
-              f"mesh {tag}: rank {r['rank']}'s tables differ")
+              and np.array_equal(r["tables"], np.argsort(s2e, axis=1))
+              and (not same_counts
+                   or np.array_equal(r["tables"], ref["tables"])),
+              f"mesh {tag}: rank {r['rank']}'s tables differ (counts equal "
+              f"one process's: {same_counts})")
         mr = r["rank"] % model
+        layer = np.arange(s2e.shape[0])[:, None]
         for n in _EXPERT_WEIGHTS:
+            # slot s holds virtual expert s2e[l, s]: its rows of the draw
+            want = ref["init_rows"][n][layer, s2e]
             check(np.array_equal(r["rows"][n],
-                                 ref["rows"][n][:, mr * per:(mr + 1) * per]),
+                                 want[:, mr * per:(mr + 1) * per])
+                  and (not same_counts or np.array_equal(
+                      r["rows"][n],
+                      ref["rows"][n][:, mr * per:(mr + 1) * per])),
                   f"mesh {tag}: rank {r['rank']}'s {n} rows differ from "
-                  "the one-process rows of its slots")
+                  "the draw's rows of the experts its plan puts there")
         check(r["launches"]["moe_ffn"] == r["calls"]
               and r["launches"]["topk_router_stats"] == r["calls"]
               and r["launches"]["topk_router"] == 0,
@@ -3065,32 +3486,90 @@ def _check_mesh_run(tag, res, ref, shape, row_bytes):
     return cross
 
 
-def _nccl_scan(ref, store: Path, row_bytes, cards):
-    """The (1, 4) scenario over NCCL, a card a rank, in ``"scan"``
-    against the one-process ``ref``: (the run's record, its launches)."""
+def _same_counts(r, ref) -> bool:
+    return len(r["expert_counts"]) == len(ref["expert_counts"]) and all(
+        np.array_equal(a, b)
+        for a, b in zip(r["expert_counts"], ref["expert_counts"]))
+
+
+def _moved_assignments(r, ref) -> int:
+    """How many routed assignments a rank's run sent to another expert
+    than one process's, over its decode steps (half the |Δ| of counts)."""
+    return int(sum(np.abs(a.astype(np.int64) - b).sum()
+                   for a, b in zip(r["expert_counts"], ref["expert_counts"]))
+               // 2)
+
+
+def _nccl_scan(ref, ref_fp32, store: Path, row_bytes, cards):
+    """The (1, 4) scenario over NCCL, a card a rank, in ``"scan"``: full
+    granite in bf16 against the one-process ``ref`` (``"free"``: a captured
+    step cannot be pinned to one process's routing; rank 0's captured step
+    profiled), then at ``MESH_FP32_LAYERS`` layers in fp32 against
+    ``ref_fp32`` (``"exact"``). Returns (the runs' record, their
+    launches)."""
     from repro_torch.launch.mesh import spawn
 
-    res = spawn(_mesh_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
-                store_dir=store / "nccl",
-                args=({"nd": MESH_MODEL, "mode": "scan", "guard": False,
-                       "reference": ref["path"]},),
-                timeout=MESH_TIMEOUT_S)
-    _check_mesh_run("nccl_scan", res, ref, (1, MESH_MODEL), row_bytes)
-    check(all(r["captures"] == {"decode": 1, "prefill": 0, "migrate": 0}
-              for r in res),
-          f"mesh nccl scan: captures {[r['captures'] for r in res]}")
     launches = collections.Counter()
-    for r in res:
-        launches.update(r["launches"])
-    return {
-        "ranks": len(res), "cards": cards,
-        "devices": [r["device"] for r in res],
-        "captures_per_rank": 1, "tokens_equal_one_process": True,
-        "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
-        "launches_per_rank": [r["launches"] for r in res],
-        "decode_step_ms_median_per_rank": [
-            statistics.median(r["step_ms"]) for r in res],
-        "wall_s_per_rank": [r["wall_s"] for r in res]}, launches
+    out = {}
+    for tag, r0, sc in (
+            ("bf16", ref, {"profile": True}),
+            ("fp32", ref_fp32, {"layers": MESH_FP32_LAYERS,
+                                "dtype": "float32"})):
+        res = spawn(_mesh_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
+                    store_dir=store / f"nccl_{tag}",
+                    args=({"nd": MESH_MODEL, "mode": "scan", "guard": False,
+                           "reference": r0["path"], **sc},),
+                    timeout=MESH_TIMEOUT_S)
+        exact = tag == "fp32"
+        emit({"phase": "mesh", "run": f"nccl_scan_{tag}",
+              "per_rank": [_mesh_rank_summary(r) for r in res]})
+        _check_mesh_run(f"nccl_scan_{tag}", res, r0, (1, MESH_MODEL),
+                        row_bytes * (2 if exact else 1),
+                        mode="exact" if exact else "free",
+                        param_bytes=(None if exact
+                                     else MESH_PARAM_BYTES[(1, MESH_MODEL)]))
+        check(all(r["captures"] == {"decode": 1, "prefill": 0, "migrate": 0}
+                  for r in res),
+              f"mesh nccl scan {tag}: captures {[r['captures'] for r in res]}")
+        for r in res:
+            launches.update(r["launches"])
+        out[tag] = {
+            "ranks": len(res), "cards": cards, "dtype": r0["dtype"],
+            "layers": r0["layers"], "devices": [r["device"] for r in res],
+            "mode": "exact" if exact else "free",
+            "captures_per_rank": 1, "tokens_equal_one_process": all(
+                r["tokens"] == r0["tokens"] for r in res),
+            "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
+            "argmax_partings": [len(r["argmax_partings"]) for r in res],
+            "counts_equal_one_process": [_same_counts(r, r0) for r in res],
+            "collectives_per_step": res[0]["collectives_per_step"],
+            "staged_bytes_per_rank": [r["staged_bytes"] for r in res],
+            "launches_per_rank": [r["launches"] for r in res],
+            "decode_step_ms_median_per_rank": [
+                statistics.median(r["step_ms"]) for r in res],
+            "wall_s_per_rank": [r["wall_s"] for r in res]}
+        if not exact:
+            check("profile" in res[0]
+                  and res[0]["profile"]["device_ms_per_step"].get(
+                      "port_kernels", 0) > 0,
+                  "mesh nccl scan: the captured step's trace holds no port "
+                  "kernel")
+            out[tag]["rank0_captured_step_profile"] = res[0]["profile"]
+        del res
+        gc.collect()
+    return out, launches
+
+
+def _mesh_rank_summary(r) -> dict:
+    """What a run prints of each rank."""
+    out = {k: r.get(k) for k in (
+        "rank", "param_bytes", "cache_bytes", "collectives",
+        "collectives_per_step", "logits_max_abs_diff", "steps_compared",
+        "router_logits_max_abs_diff", "argmax_partings", "staged_bytes")}
+    pre = r.get("prefill") or {}
+    out["prefill"] = {k: pre.get(k) for k in (
+        "steps_compared", "logits_max_abs_diff", "argmax_partings")}
+    return out
 
 
 def phase_mesh(kernel_summary):
@@ -3119,48 +3598,88 @@ def phase_mesh(kernel_summary):
     launches = collections.Counter()
     runs = {}
     try:
-        for shape, nd in (((1, MESH_MODEL), MESH_MODEL), ((2, 2), 2)):
+        refs = {}
+        for tag, shape, nd, dtype in (
+                ("1x4", (1, MESH_MODEL), MESH_MODEL, "bfloat16"),
+                ("2x2", (2, 2), 2, "bfloat16"),
+                ("1x4_fp32", (1, MESH_MODEL), MESH_MODEL, "float32"),
+                ("2x2_fp32", (2, 2), 2, "float32")):
             data, model = shape
-            tag = f"{data}x{model}"
+            exact = dtype == "float32"
+            mode = "exact" if exact else "pinned"
+            layers = MESH_FP32_LAYERS if exact else None
+            run_cfg = _mesh_config(layers)
             t0 = time.perf_counter()
-            ref = _mesh_reference(cfg, nd, data, store)
+            ref = _mesh_reference(run_cfg, nd, data, store,
+                                  getattr(torch, dtype))
             ref_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             res = spawn(_mesh_rank, data, model, backend="gloo",
                         device="cuda", store_dir=store / tag,
                         args=({"nd": nd, "mode": "python",
-                               "guard": shape == (1, MESH_MODEL),
-                               "reference": ref["path"]},),
+                               "guard": tag == "1x4",
+                               "reference": ref["path"],
+                               "force": mode == "pinned",
+                               "layers": layers, "dtype": dtype},),
                         timeout=MESH_TIMEOUT_S)
             spawn_s = time.perf_counter() - t0
-            cross = _check_mesh_run(tag, res, ref, shape, row_bytes)
+            emit({"phase": "mesh", "run": tag, "mode": mode,
+                  "per_rank": [_mesh_rank_summary(r) for r in res],
+                  "one_process_param_bytes": ref["param_bytes"],
+                  "one_process_cache_bytes": ref["cache_bytes"]})
+            cross = _check_mesh_run(
+                tag, res, ref, shape,
+                row_bytes * (2 if exact else 1), mode=mode,
+                param_bytes=None if exact else MESH_PARAM_BYTES[shape])
             Ev = cfg.num_virtual_experts
-            want_bytes = {"replicated": 558_173_184,
-                          "expert": 6_039_797_760 // model}
             for r in res:
-                check(r["param_bytes"] == want_bytes,
-                      f"mesh {tag}: rank {r['rank']} holds {r['param_bytes']}"
-                      f", not {want_bytes}")
                 launches.update(r["launches"])
-            check(ref["param_bytes"]["expert"] == 6_039_797_760,
+            check(exact or ref["param_bytes"] == MESH_ONE_PROCESS_BYTES,
                   f"mesh {tag}: one process holds {ref['param_bytes']}")
             check(all(x[2] == cfg.d_model and w == (Ev // model, cfg.d_model, F)
                       for r in res for x, w in r["k1_shapes"]),
                   f"mesh {tag}: K1 shapes {res[0]['k1_shapes']}")
-            if shape == (1, MESH_MODEL):
+            if tag == "1x4":
                 check(all("gloo" in r["guard"] for r in res),
                       f"mesh {tag}: gloo + scan did not raise: "
                       f"{[r['guard'] for r in res]}")
             steps = [statistics.median(r["step_ms"]) for r in res]
             runs[tag] = {
-                "shape": list(shape), "placement_devices": nd, "cards": cards,
+                "shape": list(shape), "layers": run_cfg.num_layers,
+                "dtype": dtype, "placement_devices": nd, "cards": cards,
                 "ranks": len(res), "decode_mode": "python",
                 "backend": "gloo", "transport": "4 processes sharing one "
                 "card, collectives staged through pinned host buffers",
-                "tokens_equal_one_process": True,
+                "mode": mode,
+                "tokens_equal_one_process": all(
+                    r["tokens"] == ref["tokens"] for r in res),
                 "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
+                "prefill_logits_max_abs_diff": [
+                    r["prefill"]["logits_max_abs_diff"] for r in res],
+                "router_logits_max_abs_diff": [
+                    r["router_logits_max_abs_diff"] for r in res],
+                "argmax_partings": [len(r["argmax_partings"])
+                                    + len(r["prefill"]["argmax_partings"])
+                                    for r in res],
+                "logits_tol": (MESH_FP32_LOGITS_TOL if exact
+                               else MESH_LOGITS_TOL),
                 "param_bytes_per_rank": res[0]["param_bytes"],
+                "param_bytes_total_per_rank": sum(
+                    res[0]["param_bytes"].values()),
+                "cache_bytes_per_rank": res[0]["cache_bytes"],
+                "one_process_cache_bytes": ref["cache_bytes"],
+                "collectives_per_step": res[0]["collectives_per_step"],
+                "collectives_per_step_by_kind": {
+                    k: v / res[0]["decode_steps"]
+                    for k, v in res[0]["collectives"].items()},
                 "tables_equal_all_ranks": True, "rows_equal": True,
+                "counts_equal_one_process": [_same_counts(r, ref)
+                                             for r in res],
+                "tables_equal_one_process": [
+                    bool(np.array_equal(r["tables"], ref["tables"]))
+                    for r in res],
+                "assignments_routed_elsewhere": [
+                    _moved_assignments(r, ref) for r in res],
                 "record": res[0]["records"][0], "cross_rows": cross,
                 "sent_rows": [r["sent_rows"] for r in res],
                 "staged_bytes": [r["staged_bytes"] for r in res],
@@ -3176,16 +3695,16 @@ def phase_mesh(kernel_summary):
                     statistics.median(ref["step_ms"]),
                 "one_process_wall_s": ref["wall_s"], "one_process_s": ref_s,
             }
-            if shape == (1, MESH_MODEL):
+            if tag == "1x4":
                 runs[tag]["gloo_scan_guard"] = res[0]["guard"]
-                ref_1x4 = ref
+            refs[tag] = ref
             emit({"phase": "mesh", "run": tag, **runs[tag]})
             del res
             gc.collect()
         n_cards = torch.cuda.device_count()
         if n_cards >= MESH_MODEL:
-            runs["nccl_scan"], counts = _nccl_scan(ref_1x4, store, row_bytes,
-                                                   cards)
+            runs["nccl_scan"], counts = _nccl_scan(
+                refs["1x4"], refs["1x4_fp32"], store, row_bytes, cards)
             launches.update(counts)
         else:
             runs["nccl_scan"] = f"not run: {n_cards} card(s)"
@@ -3257,11 +3776,13 @@ MESH_TRAIN_KERNEL_ROWS = ("moe_ffn/train_rank", "moe_ffn/train_rank_2x2",
 
 def _mt_build(cfg, device, policy):
     """The train state of this process's leaves: the seed-0 draw whole,
-    placed, and (under a mesh) only the rank's expert slots kept; the
-    train step (remat off), the (L, E_v) tables and the batch stream."""
+    placed, and (under a mesh) only the rank's shard of every leaf kept
+    (``param_specs``: its expert slots, its blocks of the projections and
+    the vocabulary); the train step (remat off), the (L, E_v) tables and
+    the batch stream."""
     from repro_torch.launch.train import placement
     from repro_torch.models import apply_placement, init_params
-    from repro_torch.sharding import local_expert_slots
+    from repro_torch.sharding import param_specs, take_shard
     from repro_torch.training import (
         AdamWConfig,
         DataConfig,
@@ -3275,12 +3796,16 @@ def _mt_build(cfg, device, policy):
                          TRAIN_PLACEMENT_SEED)
     moe = apply_placement(params["blocks"]["moe"],
                           torch.as_tensor(s2e, device=device))
-    del params["blocks"]["moe"]
-    rows = local_expert_slots(policy, cfg.num_virtual_experts)
-    if rows is not None:
-        moe = {k: (v if k == "router" else v[:, rows].clone())
-               for k, v in moe.items()}
     params["blocks"]["moe"] = moe
+    if policy is not None and policy.mesh is not None:
+        specs = param_specs(params, policy, cfg)
+
+        def keep(tree, spec):
+            if isinstance(tree, dict):
+                return {k: keep(v, spec[k]) for k, v in tree.items()}
+            return take_shard(tree, spec, policy.mesh).contiguous()
+
+        params = keep(params, specs)
     gc.collect()
     torch.cuda.empty_cache()
     opt = AdamWConfig(learning_rate=1e-3, warmup_steps=10,
@@ -3370,7 +3895,7 @@ def _mt_reference(cfg, groups, store: Path, tensors: bool,
         moved = [(n, w) for n, w in _leaves(state["params"]) if _moe_leaf(n)]
         Ev = cfg.num_virtual_experts
         update_cos = _update_cosine(moved, start, compare_to, 0, Ev)
-        param_share = _worst_share(moved, compare_to, 0, Ev, dev)
+        param_share = _worst_share(moved, compare_to, lambda _, t: t, dev)
         del start, moved
     if tensors:
         torch.save({n: w.detach().cpu() for n, w in
@@ -3385,17 +3910,14 @@ def _mt_reference(cfg, groups, store: Path, tensors: bool,
     return out
 
 
-def _worst_share(got, ref_path, lo, hi, device) -> tuple[float, str]:
+def _worst_share(got, ref_path, block, device) -> tuple[float, str]:
     """The largest max |Δ| / max |ref| over ``got``'s leaves against the
-    saved one-process tensors (the rank's slots ``[lo, hi)`` of an expert
-    stack), and its leaf."""
+    saved one-process tensors (``block(name, t)``: the rank's block of
+    one), and its leaf."""
     ref = torch.load(ref_path, mmap=True, map_location="cpu")
     worst, at = 0.0, ""
     for name, g in got:
-        want = ref[name]
-        if _moe_leaf(name) and want.shape[1] != g.shape[1]:
-            want = want[:, lo:hi]
-        want = want.to(device, torch.float32)
+        want = block(name, ref[name]).to(device, torch.float32)
         share = ((g.detach().float() - want).abs().max()
                  / want.abs().max().clamp(min=1e-30)).item()
         if share > worst:
@@ -3455,6 +3977,11 @@ def _mt_rank(mesh, sc):
     Ev = cfg.num_virtual_experts
     rows = local_expert_slots(policy, Ev)
     lo, hi = (rows.start, rows.stop) if rows is not None else (0, Ev)
+    shape = (mesh.size("data"), mesh.size("model"))
+    specs = _specs_by_name(cfg, shape)
+
+    def block(name, t):
+        return _rank_block(t, _spec_of(specs, name), shape, mesh.rank)
     opt = state["opt"]
     out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
            "param_bytes": _tree_nbytes(state["params"]),
@@ -3469,8 +3996,8 @@ def _mt_rank(mesh, sc):
 
     def check_grads(grads):
         if sc["tensors"]:
-            out["grad_share"] = _worst_share(_leaves(grads), sc["grads"], lo,
-                                             hi, dev)
+            out["grad_share"] = _worst_share(_leaves(grads), sc["grads"],
+                                             block, dev)
 
     start = {n: w.detach().clone() for n, w in _leaves(state["params"])
              if _moe_leaf(n)} if sc["tensors"] else None
@@ -3492,7 +4019,7 @@ def _mt_rank(mesh, sc):
                peak_bytes=torch.cuda.max_memory_allocated(dev))
     moved = [(n, w) for n, w in _leaves(state["params"]) if _moe_leaf(n)]
     if sc["tensors"]:
-        out["param_share"] = _worst_share(moved, sc["final"], lo, hi, dev)
+        out["param_share"] = _worst_share(moved, sc["final"], block, dev)
         out["update_cos"] = _update_cosine(moved, start, sc["final"], lo, hi)
         del start
     out["sums"] = {n: _checksum({"x": t.reshape(-1)})
@@ -3501,9 +4028,21 @@ def _mt_rank(mesh, sc):
         t0 = time.perf_counter()
         CheckpointManager(sc["save"]).save(
             MESH_TRAIN_STEPS, state, mesh=mesh,
-            shardings=train_state_specs(state, policy, num_slots=Ev))
+            shardings=train_state_specs(state, policy, cfg, num_slots=Ev))
         out["save_s"] = time.perf_counter() - t0
         out["shard_sums"] = _shard_sums(state)
+    if sc.get("profile"):
+        # one more step, traced on every rank alike (its collectives
+        # pair across the ranks), after everything above has been read
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(data).items()}
+
+        def one_step():
+            step(state, batch, tables)
+            torch.cuda.synchronize()
+
+        avgs, _, tries = _traced(one_step, attempts=1)
+        out["profile"] = {"trace_attempts": tries, **_device_split(avgs, 1)}
     return out
 
 
@@ -3526,9 +4065,11 @@ def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
     data, model = shape
     L, Ev = cfg.num_layers, cfg.num_virtual_experts
     F = cfg.expert_d_ff // cfg.expert_tp
-    expert = 3 * L * Ev * cfg.d_model * F  # parameters of the whole pool
-    replicated = sum(t.numel() for n, t in _leaves(_meta_params(cfg))
-                     if not _moe_leaf(n))
+    specs = _specs_by_name(cfg, shape)
+    # a rank's parameters: each leaf over its sharded extents
+    n_params = sum(t.numel() // (model if specs[n] and "model" in specs[n]
+                                 else 1)
+                   for n, t in _leaves(_meta_params(cfg)))
     per = Ev // model
     C = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // data, cfg,
                       capacity_factor=2.0, num_slots=Ev, replicated=False)
@@ -3569,15 +4110,15 @@ def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
                   f"mesh_train {tag}: rank {r['rank']} expert rows after "
                   f"the last step {r['param_share']} off one process's "
                   f"(limit {param_limit})")
-        # the ranks are replicas: whole leaves on all, shards on their
-        # data rows
+        # the ranks are replicas: whole leaves on all, shards on the ranks
+        # of the same model position
         for name, v in r["sums"].items():
-            twin = next(q for q in res if q["slots"] == r["slots"])
-            first = twin if _moe_leaf(name) else res[0]
+            twin = next(q for q in res
+                        if q["rank"] % model == r["rank"] % model)
+            first = twin if _spec_of(specs, name) else res[0]
             check(v == first["sums"][name],
                   f"mesh_train {tag}: rank {r['rank']}'s {name} differs "
                   f"from rank {first['rank']}'s")
-        n_params = replicated + expert // model
         check(r["param_bytes"] == 2 * n_params
               and r["moment_bytes"] == 2 * 4 * n_params,
               f"mesh_train {tag}: rank {r['rank']} holds {r['param_bytes']} "
@@ -3594,10 +4135,10 @@ def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
               f"mesh_train {tag}: K1 shapes {r['k1_shapes']}")
 
 
-def _check_mesh_save(root, res):
+def _check_mesh_save(root, res, cfg, shape):
     """The (2, 2) save restores on one process (the CPU, global shapes,
-    JAX's dtypes) and each rank's shards have the restored rows'
-    checksums."""
+    JAX's dtypes) and each rank's shards have the checksums of its blocks
+    of the restored leaves."""
     from repro_torch.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(str(root))
@@ -3623,16 +4164,26 @@ def _check_mesh_save(root, res):
     load_s = time.perf_counter() - t0
     check(step == MESH_TRAIN_STEPS and int(state["opt"]["step"]) == step,
           f"mesh_train save: step {step}")
-    sums = _shard_sums(_to(state, "cuda"))
+    state = _to(state, "cuda")
+    specs = _specs_by_name(cfg, shape)
+    sums = _shard_sums(state)
+    whole = dict(_leaves(state))
     for r in res:
         lo, hi = r["slots"]
         for k, v in r["shard_sums"].items():
-            want = sums[k] if not isinstance(v, np.ndarray) else sums[k][:, lo:hi]
+            spec = _spec_of(specs, k)
+            if isinstance(v, np.ndarray):  # an expert stack's rows
+                want = sums[k][:, lo:hi]
+            elif spec is not None:  # the rank's block of the leaf
+                want = _checksum({"x": _rank_block(
+                    whole[k], spec, shape, r["rank"]).reshape(-1)})
+            else:
+                want = sums[k]
             check(np.array_equal(v, want),
                   f"mesh_train save: rank {r['rank']}'s {k} differs from "
                   "the restored rows")
     nbytes = _tree_nbytes(state)
-    del state
+    del state, whole
     return {"leaves": len(dtypes), "bytes": nbytes, "restore_s": load_s}
 
 
@@ -3646,7 +4197,8 @@ def _nccl_train(store: Path, cards):
     ref = _mt_reference(full, 1, store, tensors=False)
     res = spawn(_mt_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
                 store_dir=store / "nccl_train",
-                args=({"layers": full.num_layers, "tensors": False},),
+                args=({"layers": full.num_layers, "tensors": False,
+                       "profile": True},),
                 timeout=MESH_TRAIN_TIMEOUT_S)
     record = {
         "layers": full.num_layers, "ranks": len(res), "cards": cards,
@@ -3660,7 +4212,8 @@ def _nccl_train(store: Path, cards):
         "step_ms_median_per_rank": [
             statistics.median(r["step_ms"][1:]) for r in res],
         "one_process_step_ms_median": statistics.median(ref["step_ms"][1:]),
-        "one_process_peak_bytes": ref["peak_bytes"]}
+        "one_process_peak_bytes": ref["peak_bytes"],
+        "rank0_step_profile": res[0].get("profile")}
     emit({"phase": "mesh_train", "nccl_train": record})
     _check_mt_run("nccl", res, ref, (1, MESH_MODEL), full)
     launches = collections.Counter()
@@ -3766,7 +4319,7 @@ def phase_mesh_train(kernel_summary):
                   "replicas_bit_equal": True})
             if save is not None:
                 t0 = time.perf_counter()
-                runs[tag]["save"] = _check_mesh_save(save, res)
+                runs[tag]["save"] = _check_mesh_save(save, res, cfg, shape)
                 runs[tag]["save"].update(
                     restored_equal=True, check_s=time.perf_counter() - t0,
                     save_s_per_rank=[r["save_s"] for r in res])
@@ -3818,7 +4371,9 @@ def nccl_paths():
     try:
         t0 = time.perf_counter()
         ref = _mesh_reference(cfg, MESH_MODEL, 1, store)
-        record, counts = _nccl_scan(ref, store, row_bytes, cards)
+        ref_fp32 = _mesh_reference(_mesh_config(MESH_FP32_LAYERS), MESH_MODEL,
+                                   1, store, torch.float32)
+        record, counts = _nccl_scan(ref, ref_fp32, store, row_bytes, cards)
         launches.update(counts)
         emit({"phase": "mesh", "nccl_scan": record,
               "seconds": time.perf_counter() - t0})

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .sharding.policy import param_specs, spec_axes, take_shard
 
 __all__ = ["params_from_numpy", "state_to_numpy", "state_from_numpy"]
 
@@ -33,19 +34,25 @@ def _leaf(arr, device, dtype):
     return torch.tensor(arr, device=device, dtype=dtype)
 
 
-def _convert(tree, specs, device, dtype):
+def _convert(tree, specs, mesh, device, dtype, path=()):
     if isinstance(tree, dict):
-        return {k: _convert(v, specs.get(k) if specs else None, device, dtype)
+        return {k: _convert(v, specs.get(k) if specs else None, mesh, device,
+                            dtype, path + (k,))
                 for k, v in tree.items()}
-    if specs is None:
+    if not spec_axes(specs):
         return _leaf(tree, device, dtype)
-    # an expert stack (L, S, …) sharded on its slot dim: this rank's rows,
+    leaf = "/".join(path)
+    if specs[0] is not None:
+        return _leaf(np.asarray(take_shard(tree, specs, mesh, leaf=leaf)),
+                     device, dtype)
+    # a stacked leaf (L, …) sharded past its layer dim: this rank's block,
     # converted a layer at a time
-    rows = specs
-    out = torch.empty((tree.shape[0], rows.stop - rows.start, *tree.shape[2:]),
-                      dtype=dtype, device=device)
+    first = take_shard(tree[0], specs[1:], mesh, leaf=leaf)
+    out = torch.empty((tree.shape[0], *first.shape), dtype=dtype,
+                      device=device)
     for layer in range(tree.shape[0]):
-        out[layer] = _leaf(np.asarray(tree[layer][rows]), device, dtype)
+        out[layer] = _leaf(np.asarray(take_shard(tree[layer], specs[1:], mesh,
+                                                 leaf=leaf)), device, dtype)
     return out
 
 
@@ -53,10 +60,10 @@ def params_from_numpy(tree: dict[str, Any], config: ModelConfig, device,
                       dtype=torch.float32, *, policy=None):
     """Nested dict of numpy arrays (the JAX layout) → the port's params.
 
-    Under a ``policy`` whose mesh shards the expert pool
-    (:func:`~repro_torch.sharding.local_expert_slots`) each rank gets
-    exactly its shard: the expert stacks' ``[L, slots of this model rank,
-    …]`` rows, converted a layer at a time, and every other leaf whole."""
+    Under a ``policy`` with a mesh each rank gets exactly its shard of
+    every leaf by :func:`~repro_torch.sharding.param_specs` (the
+    projections and the vocabulary over the model axis, the expert stacks'
+    slots), the stacked leaves converted a layer at a time."""
     missing = [k for k in _EXPECTED if k not in tree]
     if missing:
         raise KeyError(f"params tree lacks {missing}")
@@ -68,16 +75,9 @@ def params_from_numpy(tree: dict[str, Any], config: ModelConfig, device,
             f"embed {(V, D)} does not match {config.name}: "
             f"({config.padded_vocab}, {config.d_model})"
         )
-    specs = None
-    if policy is not None and config.is_moe:
-        from .sharding.policy import local_expert_slots
-
-        moe = tree["blocks"]["moe"]
-        rows = local_expert_slots(policy, int(np.shape(moe["w_gate"])[1]))
-        if rows is not None:
-            specs = {"blocks": {"moe": {n: rows for n in
-                                        ("w_gate", "w_up", "w_down")}}}
-    return _convert(tree, specs, torch.device(device), dtype)
+    mesh = None if policy is None else policy.mesh
+    specs = param_specs(tree, policy, config) if mesh is not None else None
+    return _convert(tree, specs, mesh, torch.device(device), dtype)
 
 
 def _leaf_to_numpy(t) -> np.ndarray:

@@ -37,6 +37,31 @@ experts' rows of it, and everything upstream runs alike on those ranks;
 so the rows' cotangents are all-gathered over the axis there, and every
 rank gets the whole ``dx``. Its weight gradients stay on the rank (only
 its rows of a whole-stored stack are non-zero).
+
+**The model axis's layout** (the projections, the vocabulary and the
+sequence sharded over ``model``) adds these, each with its adjoint:
+
+* :func:`gather_cat` concatenates every rank's block along a dim; the
+  ranks then compute alike on the whole (a replicated region: the gathered
+  weights where every rank runs every row, the MoE layer's rows, the
+  rows' token losses), each gets the whole cotangent and keeps its block.
+* :func:`take_block` keeps the rank's block of a value every rank holds
+  alike; its adjoint gathers the cotangent's blocks over the axis, so
+  that the region before it gets the whole cotangent on every rank. A
+  plain slice there would leave the region's leaves (the router, the
+  experts) with the rank's rows' share only.
+* :func:`rows_linear` is a product of the rank's block of rows with a
+  weight gathered whole from its shards (a sequence-parallel projection):
+  each rank uses the gathered weight for its own rows only, so the
+  adjoint of the gather is the ranks' shares summed, each keeping its
+  block. The sum is taken as one product over every rank's rows (their
+  inputs and cotangents gathered in sequence order): the same terms as
+  one device's product, in its order. Likewise :func:`scale_rows` (a
+  whole norm scale applied to the rank's rows, whose gradient would
+  otherwise hold those rows' share only) and :func:`rows_attention` (the
+  rank's queries against the gathered K/V) sum their gradients over every
+  rank's rows in one device's order: a sequence-parallel step's gradients
+  are one device's, bit for bit, wherever the forward's are.
 """
 from __future__ import annotations
 
@@ -46,7 +71,8 @@ from . import autograd as _ag
 from .ops import moe_ffn, topk_router
 
 __all__ = ["moe_ffn_sharded", "topk_router_sharded", "gather_over",
-           "sum_over"]
+           "sum_over", "gather_cat", "take_block", "rows_linear", "scale_rows",
+           "rows_attention"]
 
 
 def _needs_grad(*tensors) -> bool:
@@ -84,6 +110,180 @@ def sum_over(t, mesh, axis):
     """``mesh.all_reduce(t, axis)`` (the sum in rank order) whose backward
     passes the cotangent through unchanged."""
     return _SumOver.apply(t, mesh, axis)
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.block = t.shape[dim]
+        return _cat(mesh.all_gather(t, axis), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.index(ctx.axis) * ctx.block
+        return g.narrow(ctx.dim, lo, ctx.block), None, None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n = mesh.size(axis)
+        per = t.shape[dim] // n
+        return t.narrow(dim, mesh.index(axis) * per, per).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat(ctx.mesh.all_gather(g, ctx.axis), ctx.dim), None, None, None
+
+
+def _rows_forward(x, w, b, mesh, axis, wdim, transpose):
+    w_all = _cat(mesh.all_gather(w, axis), wdim)
+    y = torch.matmul(x, w_all.t() if transpose else w_all)
+    if b is not None:
+        y = y + _cat(mesh.all_gather(b, axis), 0)
+    return y, w_all
+
+
+class _RowsLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, mesh, axis, wdim, transpose):
+        y, w_all = _rows_forward(x, w, b, mesh, axis, wdim, transpose)
+        ctx.save_for_backward(x, w_all)
+        ctx.mesh, ctx.axis, ctx.wdim = mesh, axis, wdim
+        ctx.transpose = transpose
+        ctx.block, ctx.bias = w.shape[wdim], b is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_all = ctx.saved_tensors
+        mesh, axis, wdim, block = ctx.mesh, ctx.axis, ctx.wdim, ctx.block
+        w = w_all.t() if ctx.transpose else w_all  # (in, out)
+        # folded to 2-D as one device's matmul backward folds it (a
+        # strided cotangent would otherwise go through a batched product)
+        dx = g.reshape(-1, g.shape[-1]).mm(w.t()).view(*g.shape[:-1], -1)
+        # every rank's rows in sequence order: (B, S/m, ·) blocks on dim 1,
+        # folded as one device's matmul folds them
+        xs = _cat(mesh.all_gather(x, axis), 1)
+        gs = _cat(mesh.all_gather(g.contiguous(), axis), 1)
+        x2, g2 = xs.reshape(-1, xs.shape[-1]), gs.reshape(-1, gs.shape[-1])
+        dw = x2.t().mm(g2)
+        dw = dw.t() if ctx.transpose else dw
+        lo = mesh.index(axis) * block
+        db = None
+        if ctx.bias:
+            db = gs.sum_to_size(gs.shape[-1]).narrow(0, lo, block)
+        return (dx, dw.narrow(wdim, lo, block), db, None, None, None, None)
+
+
+def rows_linear(x, w, b, mesh, axis, *, wdim: int, transpose: bool = False):
+    """``x · W (+ b)`` for x the rank's block of rows (B, S/m, ·) and W
+    gathered whole over ``axis`` from the rank's shard ``w`` along
+    ``wdim`` (0: its rows of the input dim, 1: its columns of the output
+    dim, with ``b`` the bias's block); with ``transpose`` the gathered
+    weight is stored (out, in) and used transposed (the tied embedding as
+    the head). Backward: ``dx`` from the whole weight; W's and b's
+    gradients over every rank's rows, the rank's block kept."""
+    if not (torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in (x, w, b))):
+        return _rows_forward(x, w, b, mesh, axis, wdim, transpose)[0]
+    return _RowsLinear.apply(x, w, b, mesh, axis, wdim, transpose)
+
+
+class _ScaleRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xn, scale, mesh, axis):
+        gain = 1.0 + scale.float()
+        ctx.save_for_backward(xn, gain)
+        ctx.mesh, ctx.axis, ctx.dtype = mesh, axis, scale.dtype
+        return xn * gain
+
+    @staticmethod
+    def backward(ctx, g):
+        xn, gain = ctx.saved_tensors
+        rows = _cat(ctx.mesh.all_gather((g * xn).contiguous(), ctx.axis), 1)
+        dscale = rows.sum_to_size(gain.shape).to(ctx.dtype)
+        return g * gain, dscale, None, None
+
+
+def scale_rows(xn, scale, mesh, axis):
+    """``xn · (1 + scale)`` (fp32) for ``xn`` the rank's block of rows
+    (B, S/m, …, D) of a normalised activation and ``scale`` a whole leaf:
+    the scale's gradient sums every rank's rows (gathered in sequence
+    order) as one device sums them, the same on every rank."""
+    if not (torch.is_grad_enabled() and scale.requires_grad):
+        return xn * (1.0 + scale.float())
+    return _ScaleRows.apply(xn, scale, mesh, axis)
+
+
+class _RowsAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, core):
+        k_all = _cat(mesh.all_gather(k, axis), 1)
+        v_all = _cat(mesh.all_gather(v, axis), 1)
+        base = mesh.index(axis) * q.shape[1]
+        ctx.save_for_backward(q, k_all, v_all)
+        ctx.mesh, ctx.axis, ctx.core, ctx.base = mesh, axis, core, base
+        return core(q, k_all, v_all, base)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k_all, v_all = ctx.saved_tensors
+        mesh, axis, base, n = ctx.mesh, ctx.axis, ctx.base, q.shape[1]
+        q_all = _cat(mesh.all_gather(q, axis), 1)
+        g_all = _cat(mesh.all_gather(g.contiguous(), axis), 1)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (q_all, k_all, v_all)]
+            out = ctx.core(*leaves, 0)
+            grads = torch.autograd.grad(out, leaves, g_all)
+        return (*(d.narrow(1, base, n) for d in grads), None, None, None)
+
+
+def rows_attention(q, k, v, mesh, axis, core):
+    """Sequence-parallel attention: q, k, v (B, S/m, ·, hd) the rank's
+    block of rows; K and V are gathered over ``axis`` in sequence order
+    and ``core(q, k_all, v_all, base)`` attends the rank's queries (at
+    global positions base…) against them. Backward: the rows' queries and
+    output cotangents are gathered and the whole attention differentiated
+    on each rank (the whole score block, transiently), so that each K/V
+    gradient sums its queries' terms in one device's order; the rank
+    keeps its block of dq, dk and dv."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        k_all = _cat(mesh.all_gather(k, axis), 1)
+        v_all = _cat(mesh.all_gather(v, axis), 1)
+        return core(q, k_all, v_all, mesh.index(axis) * q.shape[1])
+    return _RowsAttention.apply(q, k, v, mesh, axis, core)
+
+
+def _cat(parts, dim):
+    """(n, …) gathered blocks → one tensor, the blocks side by side along
+    ``dim`` in axis order."""
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def gather_cat(t, mesh, axis, dim: int):
+    """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in axis
+    order; the backward keeps the rank's block of the cotangent (the
+    ranks compute alike on the result)."""
+    dim = dim % t.dim()
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return _cat(mesh.all_gather(t, axis), dim)
+    return _GatherCat.apply(t, mesh, axis, dim)
+
+
+def take_block(t, mesh, axis, dim: int):
+    """The rank's block of ``t`` along ``dim`` (one of ``mesh.size(axis)``
+    in axis order), of a value every rank of the axis holds alike; the
+    backward gathers the cotangent's blocks over the axis."""
+    dim = dim % t.dim()
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        per = t.shape[dim] // mesh.size(axis)
+        return t.narrow(dim, mesh.index(axis) * per, per)
+    return _TakeBlock.apply(t, mesh, axis, dim)
 
 
 def _ffn_groups(x, wg, wu, wd):

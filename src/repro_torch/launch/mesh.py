@@ -13,7 +13,8 @@ ascending order, which is the order along the axes.
 The collectives the expert-parallel data plane needs live here, over a
 named axis (or a tuple of axes): :meth:`Mesh.all_gather`,
 :meth:`Mesh.all_reduce` (a gather reduced in rank order: the training
-step's gradient and norm reductions), :meth:`Mesh.broadcast`,
+step's gradient reductions, the model axis's partial sums),
+:meth:`Mesh.broadcast`,
 :meth:`Mesh.all_to_all_single` and
 :meth:`Mesh.send_recv` (paired point-to-point transfers). Under
 ``backend="nccl"`` they are NCCL's own collectives on the card's tensors,

@@ -31,6 +31,17 @@ differentiates them, through the kernels' ``torch.autograd.Function``s in
 the MoE layers. No train path reaches the decode steps' in-place writes.
 Under a policy with a mesh each data rank trains on its rows of the
 batch and :func:`loss_fn` returns JAX's global loss on every rank.
+
+**Under a model axis** the attention families store the projections and
+the vocabulary sharded (:func:`~repro_torch.sharding.param_specs`), and
+prefill and training keep the residual stream sequence-sharded between
+blocks, each model rank holding its block of S/M rows (M from
+:func:`~repro_torch.models.attention.sequence_shards`: the axis's extent
+where it divides S, else 1 and every rank runs every row). A whole leaf
+applied to a rank's rows (the norm scales) would send back only its
+rows' share of the gradient, so its use sums the gradient over every
+rank's rows (:func:`~repro_torch.kernels.sharded.scale_rows`). The SSM
+and hybrid families keep every leaf and cache whole.
 """
 from __future__ import annotations
 
@@ -43,15 +54,25 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import launches
-from ..kernels.sharded import sum_over
+from ..kernels.sharded import gather_cat, sum_over, take_block
+from ..sharding.policy import (
+    kv_shard,
+    layout_policy,
+    model_axis,
+    param_specs,
+    shard_range,
+    spec_axes,
+    take_shard,
+)
 from .attention import (
     attention_decode,
     attention_decode_paged,
     attention_train,
     init_attention,
+    sequence_shards,
 )
 from .layers import (
-    cross_entropy_loss,
+    mean_nll,
     token_nll,
     embed_tokens,
     gated_mlp,
@@ -89,27 +110,44 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
     ``device`` (the card unless ``device="cpu"``). On ``device="meta"``
     the tree holds shapes and dtypes only, and nothing is drawn.
 
-    Under a ``policy`` whose mesh shards the expert pool, every rank makes
-    the same draws and keeps its own slots of each expert stack
-    (:func:`~repro_torch.models.moe.init_moe`), drawing the stacks a
-    layer at a time; every other weight is whole on every rank."""
+    Under a ``policy`` with a mesh every rank makes the same draws and
+    keeps its shard of each leaf by :func:`~repro_torch.sharding.
+    param_specs`: each leaf is drawn as one device draws it and sliced at
+    once, and each expert stack (:func:`~repro_torch.models.moe.init_moe`)
+    is drawn a layer at a time."""
     L, D, V = config.num_layers, config.d_model, config.padded_vocab
     device = resolve_device(device)
     g = None
     if device.type != "meta":
         g = torch.Generator(device=device)
         g.manual_seed(seed)
+    specs = {}
+    if policy is not None and policy.mesh is not None:
+        specs = param_specs(init_params(config, device="meta", dtype=dtype),
+                            policy, config)
 
-    def normal(shape, scale):
+    def shard(*path):
+        spec = specs
+        for k in path:
+            spec = spec.get(k, {}) if isinstance(spec, dict) else None
+        if not spec_axes(spec if isinstance(spec, tuple) else None):
+            return None
+        return lambda w: take_shard(w, spec, policy.mesh,
+                                    leaf="/".join(path))
+
+    def normal(shape, scale, *path):
         return normal_init(shape, scale, dtype=dtype, device=device,
-                           generator=g)
+                           generator=g, shard=shard(*path))
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    params: dict[str, Any] = {"embed": normal((V, D), 0.02)}
+    def sharder(*prefix):
+        return lambda name: shard(*prefix, name)
+
+    params: dict[str, Any] = {"embed": normal((V, D), 0.02, "embed")}
     if not config.tie_embeddings:
-        params["lm_head"] = normal((D, V), 0.02)
+        params["lm_head"] = normal((D, V), 0.02, "lm_head")
     params["final_norm"] = zeros(D)
     if config.ssm_state > 0:
         blocks = {"ln": zeros(L, D),
@@ -120,7 +158,8 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
             "ln1": zeros(L, D),
             "ln2": zeros(L, D),
             "attn": init_attention(config, num_layers=L, dtype=dtype,
-                                   device=device, generator=g),
+                                   device=device, generator=g,
+                                   shard=sharder("blocks", "attn")),
         }
         if config.is_moe:
             blocks["moe"] = init_moe(config, num_layers=L, dtype=dtype,
@@ -129,7 +168,8 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
         else:
             blocks["mlp"] = init_gated_mlp(D, config.d_ff, num_layers=L,
                                            dtype=dtype, device=device,
-                                           generator=g)
+                                           generator=g,
+                                           shard=sharder("blocks", "mlp"))
     params["blocks"] = blocks
     if config.is_hybrid:
         params["shared"] = {
@@ -174,10 +214,12 @@ def _stack_aux(auxes: list[MoEAux]) -> MoEAux:
     ))
 
 
-def _embed_input(params, tokens, config: ModelConfig, patches=None):
+def _embed_input(params, tokens, config: ModelConfig, patches=None,
+                 policy=None):
     """tokens (B, S) (+ vision patch embeddings (B, P, D), prepended) →
-    (B, P + S, D)."""
-    x = embed_tokens(tokens, params["embed"], config)
+    (B, P + S, D), whole on every rank."""
+    x = embed_tokens(tokens, params["embed"], config,
+                     layout_policy(policy, config))
     if config.frontend == "vision" and patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     return x
@@ -204,28 +246,36 @@ def _ssm_block_train(x, lp, config: ModelConfig, *, return_cache: bool):
 
 def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
                       return_cache: bool, policy=None, num_slots=None,
-                      global_batch=None):
+                      global_batch=None, seq_sharded: bool = False):
     """ln → attention → ln → MoE layer (a MoE config's blocks, under the
     layer's (E_v,) table ``placement_l``) or gated MLP (the dense blocks
     and zamba2's shared block); returns (x, {"k", "v"} | None, MoEAux |
-    None)."""
-    h = rms_norm(x, lp["ln1"], config.norm_eps)
-    a, kv = attention_train(h, lp["attn"], config, return_cache=return_cache)
+    None). With ``seq_sharded`` x is the rank's block of the sequence
+    over the model axis."""
+    layout = layout_policy(policy, config)
+    axis = model_axis(layout)
+    rows = (policy.mesh, axis) if seq_sharded and axis is not None else None
+    h = rms_norm(x, lp["ln1"], config.norm_eps, rows=rows)
+    a, kv = attention_train(h, lp["attn"], config, return_cache=return_cache,
+                            policy=layout, seq_sharded=seq_sharded)
     cache = {"k": kv[0], "v": kv[1]} if return_cache else None
     x = x + a
-    h2 = rms_norm(x, lp["ln2"], config.norm_eps)
+    h2 = rms_norm(x, lp["ln2"], config.norm_eps, rows=rows)
     aux = None
     if "moe" in lp:
         y, aux = moe_layer(h2, lp["moe"], placement_l, config, policy,
-                           num_slots=num_slots, global_batch=global_batch)
+                           num_slots=num_slots, global_batch=global_batch,
+                           seq_sharded=seq_sharded)
     else:
-        y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation)
+        y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation,
+                      policy=layout, rows="block" if seq_sharded else "all")
     return x + y, cache, aux
 
 
 def _stack_forward(x, params, placements, config: ModelConfig, *,
                    return_cache: bool, remat: bool, policy=None,
-                   num_slots=None, global_batch=None):
+                   num_slots=None, global_batch=None,
+                   seq_sharded: bool = False):
     """The whole layer stack over a full sequence, as the JAX
     ``_stack_forward``: (x, caches | None, [MoEAux per layer] | None).
 
@@ -238,7 +288,10 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
     ``policy`` with a mesh the MoE layers run their sharded data plane
     over a pool of ``num_slots`` slots: on the whole batch ``x`` with
     ``global_batch=None``, or on this rank's rows of a batch of
-    ``global_batch`` (:func:`~repro_torch.models.moe.moe_layer`)."""
+    ``global_batch`` (:func:`~repro_torch.models.moe.moe_layer`). With
+    ``seq_sharded`` (the attention families under a model axis that
+    divides S) ``x`` and the result are the rank's block of the sequence,
+    and the caches its block of positions."""
     L = config.num_layers
     blocks = _unbind(params["blocks"])
 
@@ -249,7 +302,8 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
         return _attn_block_train(xc, lp, placement_l, config,
                                  return_cache=return_cache, policy=policy,
                                  num_slots=num_slots,
-                                 global_batch=global_batch)
+                                 global_batch=global_batch,
+                                 seq_sharded=seq_sharded)
 
     ssm_block, attn_block = _remat(ssm_block, remat), _remat(attn_block, remat)
     if config.is_hybrid:
@@ -308,7 +362,9 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
     rank, each rank embeds and runs its ``B/d`` rows (:func:`data_rows`;
     the batch must divide) and its logits are those rows'; the MoE layers
     dispatch them as the rank's group of the global batch, so the aux is
-    the global one, the same on every rank. ``num_slots`` is the expert
+    the global one, the same on every rank. Under a model axis that
+    divides the sequence (:func:`sequence_shards`) the logits are the
+    rank's block of its rows' sequence. ``num_slots`` is the expert
     pool's global slot count, which the MoE layers need under a model
     axis. A policy without a mesh runs the whole batch in the policy's
     ``data_axis_size`` dispatch groups."""
@@ -319,13 +375,18 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
     if rows is not None:
         tokens = tokens[rows]
         patches = None if patches is None else patches[rows]
-    x = _embed_input(params, tokens, config, patches)
+    x = _embed_input(params, tokens, config, patches, policy)
+    sp = sequence_shards(policy, config, x.shape[1]) > 1
+    if sp:
+        x = take_block(x, policy.mesh, policy.model_axis, 1)
     x, _, auxes = _stack_forward(
         x, params, placements, config, return_cache=False, remat=remat,
         policy=policy, num_slots=num_slots,
-        global_batch=None if rows is None else B)
-    x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = lm_logits(x, params, config)
+        global_batch=None if rows is None else B, seq_sharded=sp)
+    x = rms_norm(x, params["final_norm"], config.norm_eps,
+                 rows=(policy.mesh, policy.model_axis) if sp else None)
+    logits = lm_logits(x, params, config, layout_policy(policy, config),
+                       mode="train", seq_sharded=sp)
     aux = {}
     if auxes is not None:
         moe = _stack_aux(auxes)
@@ -354,29 +415,42 @@ def loss_fn(params, batch, config: ModelConfig, placements=None, *,
     ``router_aux_coef`` · aux loss for a MoE config, aux); the JAX
     ``loss_fn``.
 
-    Under a ``policy`` whose data axes shard the batch
-    (:func:`forward_train`) the loss is JAX's global mean: the rank's sum
-    of token losses, summed over the data ranks
-    (:func:`~repro_torch.kernels.sharded.sum_over`), over the global
-    token count (the ``loss_mask``'s global sum), plus the aux term once.
-    Every rank returns the same value; its backward carries only the
-    rank's own rows, so that the gradients summed over the data ranks are
-    the global loss's."""
+    Under a ``policy`` whose data axes shard the batch (:func:`forward_train`)
+    the loss is JAX's global mean: the rank's sum of token losses, summed
+    over the data ranks (:func:`~repro_torch.kernels.sharded.sum_over`),
+    over the global token count (the ``loss_mask``'s global sum), plus the
+    aux term once. Where the model axis shards the sequence, the ranks'
+    blocks of token losses are first gathered whole over it. Every rank
+    returns the same value; its backward carries only the rank's own
+    tokens, so that the gradients summed over the ranks are the global
+    loss's."""
     logits, aux = forward_train(params, batch, config, placements,
                                 remat=remat, policy=policy,
                                 num_slots=num_slots)
-    rows = _train_rows(policy, batch["tokens"].shape[0])
-    mask = batch.get("loss_mask")
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    B, S = labels.shape
+    rows = _train_rows(policy, B)
+    if rows is not None:
+        labels = labels[rows]
+        mask = None if mask is None else mask[rows]
+    if sequence_shards(policy, config, S) > 1:
+        # the rows' losses whole on every model rank, reduced as one
+        # device reduces them; each rank's backward keeps its block
+        axis = policy.model_axis
+        block = shard_range(S, axis, policy.mesh, leaf="labels", dim=1)
+        nll = gather_cat(token_nll(logits, labels[:, block]), policy.mesh,
+                         axis, 1)
+    else:
+        nll = token_nll(logits, labels)
     if rows is None:
-        loss = cross_entropy_loss(logits, batch["labels"], mask=mask)
+        loss = mean_nll(nll, mask)
     else:
         mesh, axes = policy.mesh, policy.batch
-        nll = token_nll(logits, batch["labels"][rows])
         if mask is None:
             count = float(nll.numel() * policy.data_axis_size)
             loss = sum_over(torch.sum(nll), mesh, axes) / count
         else:
-            m = mask[rows].to(nll.dtype)
+            m = mask.to(nll.dtype)
             count = torch.clamp(mesh.all_reduce(torch.sum(m), axes), min=1.0)
             loss = sum_over(torch.sum(nll * m), mesh, axes) / count
     if config.is_moe:
@@ -400,28 +474,44 @@ def prefill(params, tokens, config: ModelConfig, placements=None, *,
     Under a ``policy`` with a mesh every rank runs the whole batch (the
     engine prefills one request, which no data axis divides: its MoE layers
     collapse to one dispatch group, as in JAX) through the sharded MoE
-    layers, and every rank returns the same logits and caches.
+    layers, and every rank returns the same logits. Under a model axis
+    that divides S (:func:`sequence_shards`) the stack runs
+    sequence-parallel and the caches hold the rank's block of S/M
+    positions; else every rank returns the whole caches.
     ``num_slots``: the expert pool's global slot count, which
     :func:`~repro_torch.models.moe.moe_layer` needs under a model axis.
     """
-    x = _embed_input(params, tokens, config, patches)
+    x = _embed_input(params, tokens, config, patches, policy)
+    sp = sequence_shards(policy, config, x.shape[1]) > 1
+    if sp:
+        x = take_block(x, policy.mesh, policy.model_axis, 1)
     x, caches, _ = _stack_forward(x, params, placements, config,
                                   return_cache=True, remat=False,
-                                  policy=policy, num_slots=num_slots)
-    x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = lm_logits(x[:, -1:], params, config)
+                                  policy=policy, num_slots=num_slots,
+                                  seq_sharded=sp)
+    last = rms_norm(x[:, -1:], params["final_norm"], config.norm_eps)
+    if sp:  # the last position is the last rank's
+        last = policy.mesh.all_gather(last, policy.model_axis)[-1]
+    logits = lm_logits(last, params, config, layout_policy(policy, config))
     return logits[:, 0], caches
 
 
 def init_decode_cache(config: ModelConfig, batch: int, max_len: int, *,
-                      device, dtype=torch.bfloat16):
+                      device, dtype=torch.bfloat16, policy=None):
     """Zero dense caches for :func:`decode_step` without block tables: a
     (B, S_max, KV, hd) panel per slot and attention site, S_max =
     min(window, max_len) under a sliding window (a ring), else max_len;
     SSM state and conv buffers per slot. The JAX ``init_decode_cache``'s
-    tree."""
+    tree. Under a ``policy`` whose ``kv_seq`` axes are wider than one rank
+    (:func:`~repro_torch.sharding.kv_shard`) each panel holds the rank's
+    block of the S_max positions (raises where they do not divide)."""
     window = config.sliding_window
     attn_len = min(window, max_len) if window else max_len
+    kv_axes = kv_shard(policy, config)
+    if kv_axes is not None:
+        block = shard_range(attn_len, kv_axes, policy.mesh,
+                            leaf="the dense KV cache", dim=2)
+        attn_len = block.stop - block.start
 
     def kv(*leading):
         shape = (*leading, batch, attn_len, config.num_kv_heads,
@@ -506,6 +596,9 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
     rank's group, and the logits are all-gathered over the data axes, so
     every rank returns all ``B`` rows and the same aux. ``num_slots`` is
     the expert pool's global slot count, as :func:`prefill` takes it.
+    Under a model axis the projections, the MLP and the vocabulary are
+    the rank's shards and the dense caches the rank's block of positions
+    (:func:`~repro_torch.models.attention.attention_decode`).
     """
     if block_tables is not None and (config.is_ssm or config.is_hybrid):
         raise ValueError("paged decode requires an attention-family arch")
@@ -517,7 +610,8 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
         tokens = tokens[rows]
         if block_tables is not None:
             block_tables, cur_len = block_tables[rows], cur_len[rows]
-    x = embed_tokens(tokens, params["embed"], config)
+    layout = layout_policy(policy, config)
+    x = embed_tokens(tokens, params["embed"], config, layout)
     moe_aux = None
     if config.is_hybrid:
         staged, _ = _hybrid_split(config)
@@ -552,11 +646,11 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
             if block_tables is not None:
                 a = attention_decode_paged(
                     h, lp["attn"], pools["k"][i], pools["v"][i], block_tables,
-                    cur_len, config,
+                    cur_len, config, layout,
                 )
             else:
                 a = attention_decode(h, lp["attn"], pools["k"][i],
-                                     pools["v"][i], cur_len, config)
+                                     pools["v"][i], cur_len, config, layout)
             x = x + a
             h2 = rms_norm(x, lp["ln2"], config.norm_eps)
             if config.is_moe:
@@ -569,12 +663,13 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
                 )
                 auxes.append(aux)
             else:
-                y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation)
+                y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation,
+                              policy=layout)
             x = x + y
         if auxes:
             moe_aux = _stack_aux(auxes)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = lm_logits(x, params, config)[:, 0]
+    logits = lm_logits(x, params, config, layout)[:, 0]
     if rows is not None:
         logits = policy.mesh.all_gather(logits, policy.batch).reshape(B, -1)
     return logits, caches, moe_aux

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.sharded import gather_over
-from ..sharding.policy import local_expert_slots
+from ..kernels.sharded import gather_cat, gather_over, take_block
+from ..sharding.policy import local_expert_slots, model_axis
 from .dispatch import (
     MoEAux,
     build_dispatch,
@@ -172,7 +172,8 @@ def apply_layer_permutation(moe_params, layer: int, perm, *,
 
 def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
               capacity_factor: float | None = None, shed_enable=None,
-              global_batch: int | None = None, num_slots: int | None = None):
+              global_batch: int | None = None, num_slots: int | None = None,
+              seq_sharded: bool = False):
     """x (B, T, D) → (y (B, T, D), :class:`MoEAux`) for one layer's params
     ``p`` and its (E_v,) ``expert_to_slot`` table or (E_v, P) replica-split
     table. ``shed_enable`` (a 0/1 scalar tensor, or None to leave the pass
@@ -194,7 +195,26 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
     ``num_slots`` is the pool's global slot count S. With None it is the
     rows ``p`` holds, which is S wherever the pool is whole; under a
     model axis wider than 1 it must be given, since a rank's S/m rows of a
-    sharded pool cannot be told from a whole pool by their count."""
+    sharded pool cannot be told from a whole pool by their count.
+
+    ``seq_sharded``: x holds this rank's block of the sequence over the
+    model axis (a sequence-parallel region). The layer is then one
+    replicated region: the blocks are gathered over the axis in front of
+    the router (the gather's adjoint keeps the rank's rows), every rank
+    runs the same dispatch on the whole sequence (capacity and drops are
+    decided over the whole group), and the rank's block of the output is
+    taken after it (the take's adjoint gathers the cotangent's rows), so
+    that the backward inside the region sees the whole cotangent on every
+    rank, as the sharded kernels' adjoints expect (JAX's
+    ``seq_sharded_out``)."""
+    axis = model_axis(policy) if seq_sharded else None
+    if axis is not None:
+        x = gather_cat(x, policy.mesh, axis, 1)
+        y, aux = moe_layer(x, p, expert_to_slot, config, policy,
+                           capacity_factor=capacity_factor,
+                           shed_enable=shed_enable, global_batch=global_batch,
+                           num_slots=num_slots)
+        return take_block(y, policy.mesh, axis, 1), aux
     B, T, D = x.shape
     # `is None`, not falsy-or: an explicit 0.0 means "minimum capacity"
     cf = capacity_factor if capacity_factor is not None else config.capacity_factor

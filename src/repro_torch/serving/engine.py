@@ -62,10 +62,13 @@ policy=policy)`` with a :class:`~repro_torch.sharding.ShardingPolicy` over a
 its own shard of the parameters, :func:`repro_torch.models.init_params` or
 :func:`repro_torch.bridge.params_from_numpy` with the policy). The expert
 pool's slots shard over ``model`` (placement device d is model rank d),
-the decode batch and the dispatch groups over ``data``, and every other
-parameter is whole on every rank. The KV cache is dense and holds the
-rank's rows; every rank prefills every request (its MoE layers collapse
-to one group) and keeps the rows it decodes. Every rank runs the same host
+the decode batch and the dispatch groups over ``data``, and the
+projections and the vocabulary over ``model``
+(:func:`~repro_torch.sharding.param_specs`). The KV cache is dense and
+holds the rank's rows and its block of positions over ``kv_seq``; every
+rank prefills every request (its MoE layers collapse to one group,
+sequence-parallel over ``model`` where the axis divides the prompt) and
+keeps the rows and positions it decodes. Every rank runs the same host
 control plane — scheduler, planner, online controller, shed gate — on the
 same inputs (K2's counts summed over the data ranks, the logits gathered
 over them), so their decisions, tables and tokens stay identical; their
@@ -161,6 +164,7 @@ from ..kernels.collective import (
     gather_rows,
     stats_for_dense_sources,
 )
+from ..models.attention import sequence_shards
 from ..models.dispatch import slot_capacity
 from ..models.model import (
     DecodeGraph,
@@ -209,6 +213,7 @@ from .kv_cache import (
 from ..sharding.policy import (
     ShardingPolicy,
     host_policy,
+    kv_shard,
     local_expert_slots,
 )
 from .sampling import sample
@@ -482,6 +487,7 @@ class ServingEngine:
                 engine_config.max_batch if rows is None
                 else rows.stop - rows.start,
                 engine_config.max_len, device=self.device, dtype=embed.dtype,
+                policy=policy,
             )
         self.cur_len = np.zeros(engine_config.max_batch, dtype=np.int32)
         self.last_token = np.zeros(engine_config.max_batch, dtype=np.int32)
@@ -694,25 +700,46 @@ class ServingEngine:
             )
 
     # ------------------------------------------------------------------
+    def _whole_prompt_cache(self, caches, prompt_len: int):
+        """The prefill's K/V whole over the prompt's positions: under a
+        model axis that divides the prompt each rank holds its block, and
+        the blocks are gathered (every rank prefills, so all call it)."""
+        policy = self.policy
+        if sequence_shards(policy, self.config, prompt_len) == 1:
+            return caches
+        whole = {name: torch.cat(list(policy.mesh.all_gather(
+            t, policy.model_axis).unbind(0)), dim=-3)
+            for name, t in caches["attn"].items()}
+        return {**caches, "attn": whole}
+
     def _write_slot(self, slot: int, req: Request) -> None:
         """Prefill one request and install its caches into slot ``slot`` of
         the dense cache: the K/V panels written at [0, P) and zeroed past
         the prompt, the SSM state and conv buffers replaced. A prompt
         longer than the panel (the ring, under a sliding window) raises
-        ``ValueError``, where the JAX engine's pad by ``pool − new`` does."""
+        ``ValueError``, where the JAX engine's pad by ``pool − new`` does.
+        Under ``kv_seq`` sharding the rank writes the positions of its
+        block only."""
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         logits, caches = prefill(
             self.params, tokens, self.config, self.placements,
             policy=self.policy, num_slots=self._num_slots,
         )
+        caches = self._whole_prompt_cache(caches, req.prompt_len)
         self.prefill_count += 1
         c = self.caches
         local = slot
         rows = self._rows
         if rows is not None:  # the rank holds only the rows it decodes
             local = slot - rows.start
+        lo, n_kv = 0, 1
+        kv = kv_shard(self.policy, self.config)
+        if "attn" in c and kv is not None:
+            n_kv = self.policy.mesh.size(kv)
+            lo = self.policy.mesh.index(kv) * c["attn"]["k"].shape[-3]
         if "attn" in c:
-            P, S_pool = caches["attn"]["k"].shape[-3], c["attn"]["k"].shape[-3]
+            P = caches["attn"]["k"].shape[-3]
+            S_pool = c["attn"]["k"].shape[-3] * n_kv
             if P > S_pool:
                 raise ValueError(
                     f"prompt of {P} tokens does not fit the dense KV "
@@ -724,10 +751,11 @@ class ServingEngine:
         if "attn" in c:
             for name in ("k", "v"):
                 pool, new = c["attn"][name], caches["attn"][name]
-                P = new.shape[-3]
                 panel = pool[..., local, :, :, :]
-                panel[..., :P, :, :].copy_(new[..., 0, :, :, :])
-                panel[..., P:, :, :].zero_()
+                mine = min(max(new.shape[-3] - lo, 0), panel.shape[-3])
+                panel[..., :mine, :, :].copy_(
+                    new[..., 0, lo:lo + mine, :, :])
+                panel[..., mine:, :, :].zero_()
         for key in ("ssm", "ssm_staged", "ssm_tail"):
             if key in c:
                 for part, pool in c[key].items():
@@ -742,12 +770,14 @@ class ServingEngine:
         self.installed[slot] = True
 
     def _install_paged_slot(self, slot: int, req: Request) -> None:
-        """Prefill one request and write its K/V into its owned blocks."""
+        """Prefill one request and write its K/V into its owned blocks (the
+        paged pool is whole on every rank)."""
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         logits, caches = prefill(
             self.params, tokens, self.config, self.placements,
             policy=self.policy, num_slots=self._num_slots,
         )
+        caches = self._whole_prompt_cache(caches, req.prompt_len)
         self.prefill_count += 1
         table = self.kv_pool.block_table(req.uid)
         blocks = torch.as_tensor(table, dtype=torch.long, device=self.device)

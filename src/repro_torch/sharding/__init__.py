@@ -3,12 +3,18 @@ from .policy import (
     ShardingPolicy,
     host_policy,
     is_expert_leaf,
+    kv_shard,
+    layout_policy,
     local_expert_slots,
+    model_axis,
     param_specs,
+    shard_range,
     spec_axes,
+    take_shard,
 )
 
 __all__ = [
-    "ShardingPolicy", "host_policy", "is_expert_leaf", "local_expert_slots",
-    "param_specs", "spec_axes",
+    "ShardingPolicy", "host_policy", "is_expert_leaf", "kv_shard",
+    "layout_policy", "local_expert_slots", "model_axis", "param_specs",
+    "shard_range", "spec_axes", "take_shard",
 ]

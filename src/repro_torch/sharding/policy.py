@@ -8,17 +8,24 @@
   tuple of axis names, or None (replicated), where JAX builds a
   ``PartitionSpec`` from the same entries. Every spec method returns what
   JAX's returns.
-* What the port honours: the expert dim of the stacked expert weights over
-  ``model`` (:func:`local_expert_slots`, :func:`param_specs`), and the batch
-  and the MoE dispatch groups over the batch axes
-  (:meth:`ShardingPolicy.moe_shard_spec`). Every other parameter and the KV
-  cache's sequence are replicated on every rank, where GSPMD would shard
-  them (``w_col``/``w_row``, ``kv_seq``, FSDP); the specs still answer as
-  JAX's do.
+* What the port honours under a mesh (:func:`param_specs`): every leaf
+  JAX's specs shard over ``model`` — ``wq``/``wk``/``wv`` and the gated
+  MLP's gate/up by their flat output dim (``w_col``), ``wo`` and the MLP's
+  down projection by their input dim (``w_row``), the q/k/v biases, the
+  tied embedding by vocabulary, an untied one by ``d_model``, ``lm_head``
+  by vocabulary — and the expert pool's slot dim
+  (:func:`local_expert_slots`); the dense KV cache's sequence over
+  ``kv_seq`` (:func:`kv_shard`); the batch and the MoE dispatch groups
+  over the batch axes (:meth:`ShardingPolicy.moe_shard_spec`). The FSDP
+  entries (``data``) are not honoured: every leaf is whole over the data
+  axes. Two divergences: a pool the model axis does not divide is stored
+  whole (JAX pads it through the dead-slot pad alike), and the SSM and
+  hybrid families keep every leaf and cache whole (their model-axis specs,
+  ``repro/models/ssm.py:63-80``, are not ported yet).
 * PyTorch runs eagerly: there is no compiler to hand a layout to, so
   :meth:`ShardingPolicy.constrain` and the ``act_*``/``kv_cache`` helpers
-  return their input. The data plane moves data between ranks itself, in
-  :mod:`repro_torch.kernels.sharded` and :mod:`repro_torch.models.moe`.
+  return their input. The model moves data between ranks itself, through
+  the collectives of :mod:`repro_torch.kernels.sharded`.
 
 The policy is mesh-optional: with ``mesh=None`` there is one rank and the
 same model code runs on one device.
@@ -28,8 +35,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-__all__ = ["ShardingPolicy", "host_policy", "local_expert_slots",
-           "param_specs", "spec_axes"]
+__all__ = ["ShardingPolicy", "host_policy", "kv_shard", "layout_policy",
+           "local_expert_slots", "model_axis", "model_dim", "param_specs",
+           "shard_range", "spec_axes", "take_shard"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,26 +246,138 @@ def local_expert_slots(policy: ShardingPolicy | None,
     return slice(d * per, (d + 1) * per)
 
 
-def param_specs(params, policy: ShardingPolicy | None, *,
+def layout_policy(policy: ShardingPolicy | None,
+                  config) -> ShardingPolicy | None:
+    """The policy by which a model of ``config`` lays out its leaves and
+    caches: ``policy``, or None (every leaf and cache whole on every rank)
+    for the SSM and hybrid families, whose model-axis specs
+    (``repro/models/ssm.py:63-80``) the port does not honour yet. The one
+    place that decides it: :func:`param_specs`, :func:`kv_shard`, the
+    model's sequence parallelism and its layers all ask here."""
+    return None if config.family in ("ssm", "hybrid") else policy
+
+
+def model_axis(policy: ShardingPolicy | None) -> str | None:
+    """The model axis when ``policy`` has a mesh whose model axis is wider
+    than one rank (the projections and the vocabulary are then stored
+    sharded over it), else None. Pass a model's policy through
+    :func:`layout_policy` first."""
+    if policy is None or policy.mesh is None or policy.model_axis_size <= 1:
+        return None
+    return policy.model_axis
+
+
+def shard_range(size: int, axes, mesh, *, leaf: str = "tensor",
+                dim: int = 0) -> slice:
+    """This rank's block ``[i·size/n, (i+1)·size/n)`` of a dim of ``size``
+    sharded over ``axes`` (a name or a tuple of names) of extent n, i its
+    position along them. Raises ``ValueError``, naming ``leaf`` and the
+    dim, when n does not divide ``size``: no dim is silently replicated."""
+    n = mesh.size(axes)
+    if size % n:
+        raise ValueError(
+            f"{leaf}: dim {dim} of size {size} does not shard over {axes!r} "
+            f"({n} ranks)")
+    per = size // n
+    lo = mesh.index(axes) * per
+    return slice(lo, lo + per)
+
+
+def take_shard(arr, spec, mesh, *, leaf: str = "tensor"):
+    """This rank's shard of a whole tensor or numpy array by its spec (one
+    entry a dim; None keeps the dim whole)."""
+    for dim, axes in enumerate(spec or ()):
+        if axes is None:
+            continue
+        rows = shard_range(arr.shape[dim], axes, mesh, leaf=leaf, dim=dim)
+        index = (slice(None),) * dim + (rows,)
+        arr = arr[index]
+    return arr
+
+
+def kv_shard(policy: ShardingPolicy | None, config) -> tuple | None:
+    """The axes over which the dense KV cache's sequence is sharded
+    (``policy.kv_seq_axes``), or None where each rank holds it whole: no
+    mesh, an extent of 1, or a family whose caches the port keeps whole
+    (:func:`layout_policy`)."""
+    policy = layout_policy(policy, config)
+    if policy is None or policy.mesh is None:
+        return None
+    axes = tuple(policy.kv_seq_axes)
+    if policy.mesh.size(axes) <= 1:
+        return None
+    return axes
+
+
+# a leaf's spec by its key path: JAX's ``init_attention``/
+# ``init_gated_mlp``/``init_moe``/``init_params`` specs without the FSDP
+# entries
+_COL = ("wq", "wk", "wv", "w_gate", "w_up")
+_BIAS = ("bq", "bk", "bv")
+
+
+def _leaf_spec(path, ndim: int, m: str, *, tied: bool, pool_divides: bool):
+    none = (None,) * ndim
+    name = path[-1]
+    if path == ("embed",):
+        return (m, None) if tied else (None, m)
+    if path == ("lm_head",):
+        return (None, m)
+    if is_expert_leaf(path):
+        return (None, m) + (None,) * (ndim - 2) if pool_divides else none
+    parent = path[-2] if len(path) >= 2 else None
+    if parent in ("attn", "mlp"):
+        if name in _COL:
+            return (None, None, m)
+        if name in ("wo", "w_down"):
+            return (None, m, None)
+        if name in _BIAS:
+            return (None, m)
+    return none
+
+
+def model_dim(path, ndim: int, *, tied: bool) -> int | None:
+    """The dim of a leaf (by its key path) that JAX's specs shard over the
+    model axis, or None for a leaf they keep whole: whatever the mesh,
+    the pool's divisibility or the family."""
+    spec = _leaf_spec(path, ndim, "model", tied=tied, pool_divides=True)
+    return spec.index("model") if "model" in spec else None
+
+
+def param_specs(params, policy: ShardingPolicy | None, config, *,
                 num_slots: int | None = None):
-    """The specs the port honours for a parameter tree, mirroring it: the
-    stacked expert weights ``(L, S, …)`` under ``blocks/moe`` shard their
-    slot dim over the model axis where :func:`local_expert_slots` does;
-    every other leaf is None (whole on every rank). ``params`` may hold
-    tensors or numpy arrays of the full shapes, or a rank's own tensors
-    with ``num_slots``, the pool's global slot count (a rank's rows of a
-    sharded pool cannot be told from a whole pool by their count)."""
+    """The spec of every leaf of ``config``'s parameter tree under
+    ``policy``, mirroring the tree: JAX's ``init_params`` specs less their
+    FSDP (``data``) entries, a tuple with one entry a dim (an axis name,
+    or None for a whole dim). Without a mesh every leaf is None (whole).
+
+    Two divergences from JAX's specs: a pool the model axis does not
+    divide (:func:`local_expert_slots`) is whole, and the SSM and hybrid
+    families (:func:`layout_policy`) are whole leaf for leaf, None as
+    without a mesh. ``params`` may hold tensors or numpy arrays of the
+    full shapes, or a rank's own tensors with ``num_slots``, the pool's
+    global slot count (a rank's rows of a sharded pool cannot be told
+    from a whole pool by their count)."""
+    policy = layout_policy(policy, config)
+    if policy is None or policy.mesh is None:
+        def nothing(tree):
+            if isinstance(tree, dict):
+                return {k: nothing(v) for k, v in tree.items()}
+            return None
+        return nothing(params)
+    m = policy.model_axis
+
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if tree is None:
             return None
-        if not is_expert_leaf(path):
-            return None
-        S = int(tree.shape[1]) if num_slots is None else num_slots
-        if local_expert_slots(policy, S) is not None:
-            return (None, policy.model_axis) + (None,) * (len(tree.shape) - 2)
-        return None
+        divides = False
+        if is_expert_leaf(path):
+            S = int(tree.shape[1]) if num_slots is None else num_slots
+            divides = policy.expert_collective_axis(S) is not None
+        return _leaf_spec(path, len(tree.shape), m,
+                          tied=config.tie_embeddings, pool_divides=divides)
 
     return walk(params, ())
 

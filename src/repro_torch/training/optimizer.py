@@ -19,11 +19,15 @@ back from the card.
 (:func:`adamw_state_specs`: the moments are shaped like the rank's own
 parameters), and ``policy`` with the tree's ``specs``
 (:func:`repro_torch.sharding.param_specs`) makes the two global values
-GSPMD computes: the gradient norm (each sharded leaf's sum of squares
-summed over its axes, each whole leaf counted once) and each leaf's
-compression scale (the max of |g| over its axes). Both reductions run in
-rank order (:meth:`repro_torch.launch.mesh.Mesh.all_reduce`), so every
-rank takes the same step.
+GSPMD computes: the gradient norm (each leaf's squares counted once) and
+each leaf's compression scale (the max of |g| over its axes). The norm
+sums each leaf's squares slice by slice along the dim a model axis may
+shard (:func:`~repro_torch.sharding.model_dim`), and the slices' sums
+in order: a rank computes its block of them and the blocks are gathered,
+so that the norm has the same bits on every rank and on one device,
+whatever the mesh. The max runs over the axes
+(:meth:`repro_torch.launch.mesh.Mesh.all_reduce`): every rank takes the
+same step.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..sharding.policy import spec_axes
-from ..tree import leaves, leaves_along, tree_map, unflatten
+from ..sharding.policy import model_dim, spec_axes
+from ..tree import leaf_paths, leaves, leaves_along, tree_map, unflatten
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_state_specs",
            "compress_grads"]
@@ -113,6 +117,41 @@ def _reduce_sharded(values: list, flat_specs: list, policy, op: str) -> list:
     return values
 
 
+def _squares(grads, specs, policy) -> list:
+    """Each leaf's sum of squares (a 0-d fp32 tensor), the same bits on
+    every rank and on one device: per slice along the leaf's
+    :func:`~repro_torch.sharding.model_dim` (the squared norm of each
+    slice), the slices' values gathered whole where the leaf is sharded
+    there, then summed in order."""
+    tied = "lm_head" not in grads
+    flat = leaves(grads)
+    out: list = [None] * len(flat)
+    by_axes: dict = {}
+    for i, (path, g, spec) in enumerate(zip(leaf_paths(grads), flat,
+                                            leaves_along(grads, specs))):
+        dim = model_dim(path, g.dim(), tied=tied)
+        if dim is None:
+            out[i] = torch.square(torch.linalg.vector_norm(
+                g, dtype=torch.float32))
+            continue
+        others = [d for d in range(g.dim()) if d != dim]
+        part = torch.square(torch.linalg.vector_norm(g, dim=others,
+                                                     dtype=torch.float32))
+        axes = None if spec is None else spec[dim]
+        if axes is None or policy is None or policy.mesh is None:
+            out[i] = torch.sum(part)
+        else:
+            by_axes.setdefault(axes, []).append((i, part))
+    for axes, items in by_axes.items():
+        parts = policy.mesh.all_gather(torch.cat([p for _, p in items]), axes)
+        lo = 0
+        for i, part in items:
+            n = part.numel()
+            out[i] = torch.sum(parts[:, lo:lo + n].reshape(-1))
+            lo += n
+    return out
+
+
 def compress_grads(grads, residual, bits: int = 8, *, policy=None,
                    specs=None):
     """Error-feedback quantization: returns (dequantized fp32 grads, the
@@ -147,15 +186,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, policy=None,
     tensors given, updated, and ``{"grad_norm", "lr"}`` (a device scalar
     and a float). Under a ``policy`` with a mesh, ``specs`` (the tree's
     :func:`~repro_torch.sharding.param_specs`) names the sharded leaves,
-    whose sums of squares are summed over their axes: ``grad_norm`` and
-    the clip are the global ones."""
+    whose slices' sums of squares are gathered over their axes
+    (:func:`_squares`): ``grad_norm`` and the clip are the global ones."""
     step = state["step"] + 1
     n = int(step)
     flat_g = leaves(grads)
-    sq = _reduce_sharded(
-        [torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
-         for g in flat_g], leaves_along(grads, specs), policy, "sum")
-    gnorm = torch.sqrt(sum(sq))
+    gnorm = torch.sqrt(sum(_squares(grads, specs, policy)))
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = _lr(cfg, n)
     b1, b2 = cfg.beta1, cfg.beta2

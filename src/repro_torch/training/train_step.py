@@ -9,14 +9,14 @@ the state in place. MoE configs take the (L, E_v) placement tables and
 report per-layer expert counts, GEM's Step-1 trace, as in serving.
 
 **Under a policy with a mesh** (JAX's ``make_train_step(config, policy,
-…)``) each rank keeps its own experts' weights, gradients and moments
-(:func:`~repro_torch.sharding.param_specs`) and every other leaf whole.
-Each rank runs the backward of its rows' share of the global loss
-(:func:`~repro_torch.models.loss_fn` under the policy); then, once a step
-and after accumulation, every leaf that ranks hold alike over the data
-axes is summed over them in fp32, and a whole-stored expert stack (a pool
-the model axis does not divide, whose rows each model rank computes
-apart) is summed over the model axis too. The update runs on the rank's
+…)``) each rank keeps its shard of every leaf, with its gradients and
+moments (:func:`~repro_torch.sharding.param_specs`: its experts, its
+columns or rows of the projections, its vocabulary). Each rank runs the
+backward of its tokens' share of the global loss
+(:func:`~repro_torch.models.loss_fn` under the policy; its rows of the
+batch and, under a model axis, its block of the sequence); then, once a
+step and after accumulation, every leaf's gradient is summed over the
+data axes in fp32 (:func:`_reduce_grads`). The update runs on the rank's
 own leaves, with the global gradient norm (:func:`~repro_torch.training.
 optimizer.adamw_update`).
 """
@@ -28,7 +28,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models.model import loss_fn
-from ..sharding.policy import is_expert_leaf, param_specs
+from ..sharding.policy import is_expert_leaf, param_specs, spec_axes
 from ..tree import leaf_paths, leaves, leaves_along, tree_map, unflatten
 from .optimizer import (
     AdamWConfig,
@@ -53,14 +53,16 @@ def init_train_state(params, cfg: AdamWConfig) -> dict[str, Any]:
     return state
 
 
-def train_state_specs(state, policy, *, num_slots: int | None = None):
-    """The specs of a train state's leaves, mirroring it: the parameters'
-    (:func:`~repro_torch.sharding.param_specs`, of a rank's own tensors
-    with the pool's global ``num_slots``), the same for the moments and the
-    error-feedback residual, and a whole step count. What
+def train_state_specs(state, policy, config, *,
+                      num_slots: int | None = None):
+    """The specs of a train state's leaves, mirroring it: ``config``'s
+    parameters' (:func:`~repro_torch.sharding.param_specs`, of a rank's
+    own tensors with the pool's global ``num_slots``), the same for the
+    moments and the error-feedback residual, and a whole step count. What
     :meth:`~repro_torch.checkpoint.CheckpointManager.save` and
     ``restore_sharded`` take under a mesh."""
-    specs = param_specs(state["params"], policy, num_slots=num_slots)
+    specs = param_specs(state["params"], policy, config,
+                        num_slots=num_slots)
     out = {"params": specs, "opt": adamw_state_specs(specs)}
     if "ef_residual" in state:
         out["ef_residual"] = specs
@@ -130,7 +132,7 @@ def make_train_step(config: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
             grads = [a.div_(accum_steps) for a in acc]
         specs = None
         if mesh is not None:
-            specs = param_specs(params, policy, num_slots=num_slots)
+            specs = param_specs(params, policy, config, num_slots=num_slots)
             grads = _reduce_grads(list(grads), params, specs, policy)
         grads = unflatten(params, list(grads))
         if opt_cfg.compress:
@@ -152,17 +154,26 @@ def make_train_step(config: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
 
 def _reduce_grads(grads: list, params, specs, policy) -> list:
     """Sum each rank's gradients (in :func:`leaves` order) over the ranks
-    that hold the leaf alike: the data axes for every leaf (when they
-    shard the batch), and the model axis too for a whole-stored expert
-    stack under a model axis wider than one rank. fp32, in rank order,
-    one leaf at a time.
+    that hold the leaf alike, fp32, in rank order, one leaf at a time.
+    Each leaf's case follows from where the forward uses it:
 
-    Every other whole leaf is computed whole by each rank of the model
-    axis, from the same inputs; on a card its backward adds with atomics
-    (the gathers' and the embedding's), so the ranks' bits may differ,
-    and replicas updated from them would part. Its gradient is taken from
-    the axis's first rank on all of them, before the sum (a broadcast:
-    the same bits on the CPU, where every rank computes them alike)."""
+    * a leaf sharded over the model axis (the projections, the vocabulary,
+      the expert slots) is complete on its rank once the adjoints of its
+      gathers have summed the model ranks' shares
+      (:mod:`repro_torch.kernels.sharded`): summed over the data axes only;
+    * a whole-stored expert stack (a pool the model axis does not divide),
+      whose rows each model rank computes apart: summed over the model
+      axis too;
+    * a whole leaf applied to a rank's block of the sequence (the norm
+      scales under sequence parallelism) arrives summed over every rank's
+      rows already, by its use's adjoint (``scale_rows``); a whole leaf
+      inside a replicated region (the router, and every whole leaf where
+      every rank runs every row) arrives whole on every model rank.
+      Either way the model ranks hold the same gradient, but on a card a
+      backward that adds with atomics (the gathers', the embedding's) may
+      part their last bits, and replicas updated from them would part: it
+      is taken from the axis's first rank on all of them (a broadcast: the
+      same bits on the CPU), then summed over the data axes."""
     mesh = policy.mesh
     data = tuple(policy.batch_axes) if policy.data_axis_size > 1 else ()
     model = policy.model_axis if policy.model_axis_size > 1 else None
@@ -170,9 +181,10 @@ def _reduce_grads(grads: list, params, specs, policy) -> list:
     for path, spec, g in zip(leaf_paths(params), leaves_along(params, specs),
                              grads):
         axes = data
-        if spec is None and is_expert_leaf(path) and model:
+        named = spec_axes(spec)
+        if not named and is_expert_leaf(path) and model:
             axes = data + (model,)
-        elif spec is None and model:
+        elif model and model not in named:
             g = mesh.broadcast(g, model)
         if axes:
             g = mesh.all_reduce(g, axes, dtype=torch.float32)

@@ -77,6 +77,42 @@ def run_jax(entry: str, payload, tmp_path, *, devices: int = 4):
         return pickle.load(f)
 
 
+class MeshAt:
+    """A stand-in for rank ``rank`` of a ``(data, model)`` mesh: the
+    extents and positions the port's specs read (no process group)."""
+
+    def __init__(self, shape, rank):
+        self.shape = {"data": shape[0], "model": shape[1]}
+        self.axis_names = ("data", "model")
+        self.coords = {"data": rank // shape[1], "model": rank % shape[1]}
+
+    def size(self, axis):
+        axes = (axis,) if isinstance(axis, str) else axis
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axis):
+        axes = (axis,) if isinstance(axis, str) else axis
+        return int(np.ravel_multi_index([self.coords[a] for a in axes],
+                                        [self.shape[a] for a in axes]))
+
+
+def spec_of(specs_flat: dict, path: str):
+    """A train-state path's parameter spec (``opt/mu/…``, ``opt/nu/…``,
+    ``ef_residual/…`` and ``params/…`` name their parameter's)."""
+    for prefix in ("opt/mu/", "opt/nu/", "ef_residual/", "params/"):
+        if path.startswith(prefix):
+            path = path[len(prefix):]
+            break
+    return specs_flat.get(path)
+
+
+def rank_shard(whole, spec, shape, rank):
+    """The rank's block of a whole array by its spec."""
+    from repro_torch.sharding import take_shard
+
+    return take_shard(whole, spec, MeshAt(shape, rank))
+
+
 # ----------------------------------------------------------- the transport
 def _transport(mesh):
     """Every collective of the mesh over every axis, on tensors that name

@@ -3,7 +3,8 @@ the CPU: a checkpoint written by the JAX package (granite's smoke params
 in fp32 and bf16, unsharded as JAX stores them) restores onto (1, 4) and
 (2, 2), each rank holding exactly its shard by the port's specs
 (``sharding.param_specs``: the expert stacks' slots of its model rank,
-everything else whole), bit for bit; so does one written by the
+the projections' and the vocabulary's blocks, everything else whole), bit
+for bit; so does one written by the
 single-card port. The restored shard serves: a decode-free check that
 the sharded MoE layer on it gives the single-card layer's output at
 (1, 4), bit for bit.
@@ -27,7 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_mesh import ranks  # noqa: E402
+from test_torch_mesh import MeshAt, rank_shard, ranks, spec_of  # noqa: E402
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
@@ -64,17 +65,33 @@ def _cfg(get_config):
 
 def _skeleton(tree, policy):
     """This rank's shapes and dtypes of the stored tree."""
-    specs = param_specs(tree, policy)
+    specs = param_specs(tree, policy, _cfg(get_smoke_config))
 
     def walk(t, s):
         if isinstance(t, dict):
             return {k: walk(v, s[k] if s else None) for k, v in t.items()}
         shape = list(t.shape)
-        if s is not None:
-            shape[1] //= policy.model_axis_size
+        for dim, axes in enumerate(s or ()):
+            if axes is not None:
+                shape[dim] //= policy.mesh.size(axes)
         return torch.empty(shape, dtype=t.dtype)
 
     return walk(tree, specs), specs
+
+
+def _flat_specs(shape, rank):
+    """``param_specs`` of the 16-expert granite tree, flattened by path."""
+    cfg = _cfg(get_smoke_config)
+    tree = init_params(cfg, device="meta")
+    specs = param_specs(tree, ShardingPolicy(mesh=MeshAt(shape, rank)), cfg)
+    return _flat(specs)
+
+
+def _shard_of(path, whole, shape, rank):
+    """The rank's shard of a whole parameter (or moment, by its
+    parameter's path) by the port's specs."""
+    return rank_shard(whole, spec_of(_flat_specs(shape, rank), path), shape,
+                      rank)
 
 
 def _rank(mesh, root, tree_shapes):
@@ -170,8 +187,7 @@ def test_restore_sharded_keeps_each_ranks_shard(results, shape, name):
         assert res["slots"] == mine
         assert got.keys() == trees[name].keys()
         for k, want in trees[name].items():
-            if k.split("/")[-1] in ("w_gate", "w_up", "w_down"):
-                want = want[:, mine]
+            want = _shard_of(k, want, shape, rank)
             if name == "jax_bf16":  # the stored bf16 bits, as fp32
                 want = torch.from_numpy(want).bfloat16().float().numpy()
             assert np.array_equal(got[k], want), k
@@ -227,7 +243,7 @@ def _trainer(mesh):
     state = init_train_state(params_from_numpy(
         TRAIN["params"], cfg, "cpu", torch.float32, policy=policy), opt)
     step = make_train_step(cfg, opt, policy=policy)
-    specs = train_state_specs(state, policy,
+    specs = train_state_specs(state, policy, cfg,
                               num_slots=cfg.num_virtual_experts)
     return state, step, specs
 
@@ -265,14 +281,18 @@ def _resume_rank(mesh, root):
 
 
 def _gathered(rank_states, shape):
-    """The ranks' shards put back together: the expert stacks' slots over
-    the model ranks of data row 0, every other leaf from rank 0."""
+    """The ranks' shards put back together by the port's specs: a leaf
+    sharded over ``model`` from the model ranks of data row 0 along its
+    sharded dim, every other leaf from rank 0."""
     data, model = shape
     flat = [_flat(s) for s in rank_states]
+    specs = _flat_specs(shape, 0)
     out = {}
     for k, v in flat[0].items():
-        if k.split("/")[-1] in ("w_gate", "w_up", "w_down"):
-            v = np.concatenate([flat[m][k] for m in range(model)], axis=1)
+        spec = spec_of(specs, k) or ()
+        if "model" in spec:
+            v = np.concatenate([flat[m][k] for m in range(model)],
+                               axis=spec.index("model"))
         out[k] = v
     return out
 
@@ -339,10 +359,7 @@ def test_restore_sharded_onto_another_mesh_resumes_training(saved):
                 r["metrics"], straight[SAVE_STEP:]):
             assert loss == pytest.approx(want_loss, rel=1e-5)
             assert norm == pytest.approx(want_norm, rel=1e-4)
-        per = 16 // 4
         for k, v in _flat(r["final"]).items():
-            w = final[k]
-            if k.split("/")[-1] in ("w_gate", "w_up", "w_down"):
-                w = w[:, rank * per:(rank + 1) * per]
+            w = _shard_of(k, final[k], (1, 4), rank)
             err = np.linalg.norm(v - w) / max(float(np.linalg.norm(w)), 1e-30)
             assert err <= 1e-4, (rank, k, err)

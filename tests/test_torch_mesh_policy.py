@@ -21,6 +21,7 @@ from repro_torch.sharding import (  # noqa: E402
     host_policy,
     local_expert_slots,
     param_specs,
+    take_shard,
 )
 
 
@@ -123,7 +124,8 @@ def test_host_policy_matches_jax_and_constrain_is_the_identity():
 @pytest.mark.parametrize("mesh", ["1x4", "2x2", "2x4"])
 def test_port_shard_helpers(mesh):
     """What the port honours: the expert pool's slot dim over ``model``
-    where the axis divides it, every other parameter whole."""
+    where the axis divides it, the vocabulary of a tied embedding over
+    ``model``, every whole leaf a spec of Nones; without a mesh, None."""
 
     class Placed(StubMesh):
         def index(self, axis):
@@ -140,12 +142,15 @@ def test_port_shard_helpers(mesh):
               "blocks": {"moe": {"router": torch.zeros(2, 4, 4),
                                  "w_gate": torch.zeros(2, 4 * m, 4, 3)},
                          "ln1": torch.zeros(2, 4)}}
-    specs = param_specs(params, pol)
-    assert specs == {"embed": None,
-                     "blocks": {"moe": {"router": None,
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")  # tied, attention blocks
+    specs = param_specs(params, pol, cfg)
+    assert specs == {"embed": ("model", None),
+                     "blocks": {"moe": {"router": (None, None, None),
                                         "w_gate": (None, "model", None, None)},
-                                "ln1": None}}
-    assert param_specs(params, host_policy())["blocks"]["moe"]["w_gate"] is None
+                                "ln1": (None, None)}}
+    assert param_specs(params, host_policy(), cfg)["blocks"]["moe"]["w_gate"] is None
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x7b"])
@@ -153,9 +158,10 @@ def test_port_shard_helpers(mesh):
 def test_init_params_keeps_the_ranks_slots_of_one_draw(arch, mesh):
     """``init_params`` under a policy that shards the pool: each model
     rank's expert stacks are its slots ``[d·S/m, (d+1)·S/m)`` of the
-    one-device draw with the same seed, every other leaf equal (fp32 on
-    the CPU, where the layer-at-a-time draw gives the whole draw's
-    values); a pool the axis does not divide is whole."""
+    one-device draw with the same seed, every other leaf its shard of the
+    one-device draw by ``param_specs`` (fp32 on the CPU, where the
+    layer-at-a-time draw gives the whole draw's values); a pool the axis
+    does not divide is whole."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_params
 
@@ -168,6 +174,9 @@ def test_init_params_keeps_the_ranks_slots_of_one_draw(arch, mesh):
             def index(self, axis):
                 return {"data": 0, "model": d}[axis]
 
+            def size(self, axis):
+                return self.shape[axis]
+
         pol = ShardingPolicy(mesh=Placed(dict(shape), tuple(shape)))
         mine = init_params(cfg, seed=3, device="cpu", dtype=torch.float32,
                            policy=pol)
@@ -177,9 +186,15 @@ def test_init_params_keeps_the_ranks_slots_of_one_draw(arch, mesh):
             want = whole["blocks"]["moe"][name]
             got = mine["blocks"]["moe"][name]
             assert torch.equal(got, want if rows is None else want[:, rows])
-        for key in ("embed", "final_norm"):
-            assert torch.equal(mine[key], whole[key])
+        assert torch.equal(mine["final_norm"], whole["final_norm"])
         assert torch.equal(mine["blocks"]["moe"]["router"],
                            whole["blocks"]["moe"]["router"])
-        assert torch.equal(mine["blocks"]["attn"]["wq"],
-                           whole["blocks"]["attn"]["wq"])
+        specs = param_specs(whole, pol, cfg)
+        for key, want in (("embed", whole["embed"]),
+                          ("wq", whole["blocks"]["attn"]["wq"]),
+                          ("wo", whole["blocks"]["attn"]["wo"])):
+            got = (mine["embed"] if key == "embed"
+                   else mine["blocks"]["attn"][key])
+            spec = (specs["embed"] if key == "embed"
+                    else specs["blocks"]["attn"][key])
+            assert torch.equal(got, take_shard(want, spec, pol.mesh)), key

@@ -16,17 +16,19 @@ microbatches ≡ 1 under a mesh where the two are the same math.
 Tolerances, those of the single-card three-step test
 (``tests/test_torch_optim.py::test_three_train_steps_track_jax``): each
 step's loss within ``LOSS_RTOL`` 1e-5 relative, ``grad_norm`` 1e-4,
-``expert_counts`` and the dropped share exact; each rank's leaves after
-step 3 (parameters and moments) against the matching rows of JAX's global
-arrays within ``STATE_RTOL`` 1e-4 relative in norm (5e-3 with
-compression: a rounding boundary moves a whole leaf's scale). An
-element-wise bound of 1e-4 of the leaf's max does not hold after three
-AdamW steps between the packages even on one device: where a gradient
-is near 0 the update's sign follows its last bits. At (1, 4) every
-rank's state is also bit-equal to the port's one-process state, and
-every rank reports the same metrics, bit for bit. Each rank's moments
-hold exactly the bytes of the rank's shard that ``adamw_state_specs``
-names.
+``expert_counts`` and the dropped share exact; each rank's leaves after step
+3 (parameters and moments) against JAX's global arrays within ``STATE_RTOL``
+1e-4 relative in norm (5e-3 with compression: a rounding boundary moves a
+whole leaf's scale): an expert stack's rows on each rank against the same
+rows of JAX's, every other leaf whole, its blocks over ``model`` (the port's
+``param_specs``: the projections and the vocabulary) put together from the
+ranks of a data row. An element-wise bound of 1e-4 of the leaf's max does
+not hold after three AdamW steps between the packages even on one device:
+where a gradient is near 0 the update's sign follows its last bits. At (1,
+4) (16 tokens a row: sequence-parallel, 4 rows a rank) every rank's state is
+also bit-equal to the port's one-process state, and every rank reports the
+same metrics, bit for bit. Each rank's moments hold exactly the bytes of the
+rank's shard that ``adamw_state_specs`` names.
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -36,7 +38,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_mesh import ranks, run_jax  # noqa: E402
+from test_torch_mesh import MeshAt, rank_shard, ranks, run_jax, spec_of  # noqa: E402
 from repro_torch.bridge import params_from_numpy, state_to_numpy  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
@@ -133,7 +135,8 @@ def _train(mesh, name, overrides, opt_kw, accum):
                                 for k, v in batch.items()}, e2s)
         metrics.append({k: (v if isinstance(v, float) else v.numpy().copy())
                         for k, v in m.items()})
-    specs = param_specs(params, policy, num_slots=cfg.num_virtual_experts)
+    specs = param_specs(params, policy, cfg,
+                        num_slots=cfg.num_virtual_experts)
     return {"metrics": metrics, "state": state_to_numpy(state),
             "moment_bytes": _nbytes({k: state["opt"][k] for k in ("mu", "nu")}),
             "state_specs": adamw_state_specs(specs)}
@@ -216,15 +219,36 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _rows(path, want, rank, shape, num_slots):
-    """The rows of JAX's global leaf that this rank holds."""
-    data, model = shape
-    if path.split("/")[-1] in ("w_gate", "w_up", "w_down") and \
-            "/moe/" in f"/{path}" and num_slots % model == 0:
-        per = num_slots // model
-        mr = rank % model
-        return want[:, mr * per:(mr + 1) * per]
-    return want
+def _spec(path, shape, name):
+    specs = param_specs(INPUTS[name]["params"],
+                        ShardingPolicy(mesh=MeshAt(shape, 0)),
+                        _cfg(get_smoke_config, CASES[name][0]))
+    return spec_of(_flat(specs), path)
+
+
+def _rows(path, want, rank, shape, name):
+    """The rank's shard of JAX's global leaf by the port's specs."""
+    return rank_shard(want, _spec(path, shape, name), shape, rank)
+
+
+def _held(ranks_out, path, rank, shape, name):
+    """(what the rank's row of the mesh holds of a leaf, the part of the
+    global leaf it is held against): an expert stack's rows on the rank
+    itself, against the same rows of the global leaf; every other leaf
+    sharded over ``model`` put together from the ranks of the rank's data
+    row (its blocks concatenated), against the whole global leaf, as the
+    leaf was compared when every rank held it whole."""
+    spec = _spec(path, shape, name) or ()
+    mine = _flat(ranks_out[rank][name]["state"])[path]
+    expert = path.split("/")[-1] in ("w_gate", "w_up", "w_down") and \
+        "/moe/" in f"/{path}"
+    if expert or "model" not in spec:
+        return mine, lambda w: _rows(path, w, rank, shape, name)
+    row = rank // shape[1] * shape[1]
+    whole = np.concatenate(
+        [_flat(ranks_out[r][name]["state"])[path]
+         for r in range(row, row + shape[1])], axis=spec.index("model"))
+    return whole, lambda w: w
 
 
 class _Grouped(ShardingPolicy):
@@ -263,7 +287,6 @@ RUNS = [(shape, name) for name, case in CASES.items() for shape in case[4]]
 def test_train_steps_match_jax_mesh_step(results, shape, name):
     port, jax_out = results
     want = jax_out[(shape, name)]
-    num_slots = _cfg(get_smoke_config, CASES[name][0]).num_virtual_experts
     for rank, res in enumerate(port[shape]):
         got = res[name]
         for s, (tm, jm) in enumerate(zip(got["metrics"], want["metrics"])):
@@ -284,13 +307,11 @@ def test_train_steps_match_jax_mesh_step(results, shape, name):
         for tm, t0 in zip(got["metrics"], port[shape][0][name]["metrics"]):
             assert float(tm["loss"]) == float(t0["loss"])
             assert float(tm["grad_norm"]) == float(t0["grad_norm"])
-        g_state, j_state = _flat(got["state"]), _flat(want["state"])
-        for path, w in j_state.items():
+        for path, w in _flat(want["state"]).items():
             if path.startswith("ef_residual"):
                 continue  # the scale's rounding boundaries (see above)
-            w = _rows(path, np.asarray(w, np.float32), rank, shape,
-                      num_slots)
-            g = g_state[path]
+            g, part = _held(port[shape], path, rank, shape, name)
+            w = part(np.asarray(w, np.float32))
             assert g.shape == w.shape, path
             assert np.isfinite(g).all(), path
             tol = COMPRESS_TOL if CASES[name][1].get("compress") else STATE_RTOL
@@ -301,16 +322,16 @@ def test_train_steps_match_jax_mesh_step(results, shape, name):
 @pytest.mark.parametrize("name", ["plain", "ev6"])
 def test_one_by_four_equals_one_process_bit_for_bit(results, name):
     """At (1, 4) each rank computes what one process does: its experts'
-    rows of the same products, gathered, and the same sums."""
+    rows and its blocks of the sequence and the projections, of the same
+    products, gathered, and the same sums."""
     port, _ = results
     metrics, state = _one_process(name)
-    num_slots = _cfg(get_smoke_config, CASES[name][0]).num_virtual_experts
     for rank, res in enumerate(port[(1, 4)]):
         got = res[name]
         assert [(float(m["loss"]), float(m["grad_norm"]))
                 for m in got["metrics"]] == metrics
         for path, g in _flat(got["state"]).items():
-            w = _rows(path, state[path], rank, (1, 4), num_slots)
+            w = _rows(path, state[path], rank, (1, 4), name)
             assert np.array_equal(g, w), (rank, path)
 
 
@@ -325,16 +346,16 @@ def test_two_by_two_tracks_one_process_in_two_groups(results, name):
     port, _ = results
     tol = COMPRESS_TOL if CASES[name][1].get("compress") else STATE_RTOL
     metrics, state = _one_process(name, groups=2)
-    num_slots = _cfg(get_smoke_config, CASES[name][0]).num_virtual_experts
     for rank, res in enumerate(port[(2, 2)]):
         got = res[name]
         for m, (loss, norm) in zip(got["metrics"], metrics):
             assert float(m["loss"]) == pytest.approx(loss, rel=LOSS_RTOL)
             assert float(m["grad_norm"]) == pytest.approx(norm, rel=NORM_RTOL)
-        for path, g in _flat(got["state"]).items():
+        for path in _flat(got["state"]):
             if path.startswith("ef_residual"):
                 continue  # a flipped level moves it by a whole level
-            w = _rows(path, state[path], rank, (2, 2), num_slots)
+            g, part = _held(port[(2, 2)], path, rank, (2, 2), name)
+            w = part(state[path])
             err = np.linalg.norm(g - w) / max(float(np.linalg.norm(w)), 1e-30)
             assert err <= tol, (rank, path, err)
 
@@ -371,9 +392,9 @@ def test_moments_hold_exactly_the_ranks_shard(results, shape, name):
             flat_specs = _flat_specs(specs[moment])
             for path, arr in glob.items():
                 n = arr.size * 4  # fp32 moments of the global leaf
-                spec = flat_specs[path]
-                if spec is not None:
-                    n //= model  # the slot dim over "model"
+                for axes in flat_specs[path] or ():
+                    if axes is not None:
+                        n //= model  # a dim over "model"
                 assert flat_bytes[path] == n, (moment, path)
 
 

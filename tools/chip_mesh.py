@@ -5,15 +5,20 @@ alone on the card(s).
 
 from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. With one card it serves full granite-moe-3b-a800m with 4 gloo
-ranks sharing it, at (1, 4) and (2, 2), against one-process runs, then
-trains granite at 8 layers with 4 gloo ranks at both shapes against one
-process; with four cards the gloo ranks get a card each, and the phases
-also serve in NCCL ``decode_mode="scan"`` and train full granite over
-NCCL at (1, 4). The phases' checks raise on failure; their JSON lines
-are ``chip_smoke.py``'s. The kernels' table rows are not measured here
-(``chip_smoke.py``'s ``kernels`` phase measures them). ``--nccl`` (four
-cards) runs only what needs them: the NCCL ``"scan"`` serve and the NCCL
-training of full granite, each against its one-process run.
+ranks sharing it, at (1, 4) and (2, 2), in JAX's layout (each rank its
+shard of every leaf and its block of the KV cache), against one-process
+runs (in bf16 on one process's router logits and tokens, and in fp32 at
+8 layers as they come), then trains granite at 8 layers with 4 gloo
+ranks at both shapes against one process; with four cards the gloo ranks
+get a card each, and the phases also serve in NCCL ``decode_mode="scan"``
+(bf16, profiling three replays of rank 0's captured step, and fp32 at 8
+layers, held to one process exactly) and train full granite over NCCL
+at (1, 4) (profiling one more step on every rank). The phases' checks
+raise on failure; their JSON lines are ``chip_smoke.py``'s. The kernels'
+table rows are not measured here (``chip_smoke.py``'s ``kernels`` phase
+measures them). ``--nccl`` (four cards) runs only what needs them: the
+NCCL ``"scan"`` serves and the NCCL training of full granite, each
+against its one-process run.
 """
 import sys
 import time
