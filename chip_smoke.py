@@ -25,9 +25,11 @@ runs sixteen phases, each printing JSON lines:
    prompt, and K2 at Mixtral's (8, 8) and (4,090, 8), k 2. K1 is also
    held and timed at one rank's share of the ``mesh`` phase's (1, 4)
    decode, (20, 4, 1536)×(20, 1536, 256), and of the ``mesh_train``
-   phase's forward, (20, 205, 1536)×(20, 1536, 256) at (1, 4) and (40,
-   103, 1536)×(40, 1536, 256) at (2, 2), K2 at that (2, 2) rank's (256,
-   40), k 8.
+   phase's forward, (20, 205, 1536)×(20, 1536, 256) at (1, 4), (40,
+   103, 1536)×(40, 1536, 256) at (2, 2) and (80, 52, 1536)×(80, 1536,
+   256) at FSDP (4, 1) (a rank's one row of the batch, the weights
+   gathered whole over ``data``), K2 at those (2, 2) and (4, 1) ranks'
+   (256, 40) and (128, 40), k 8.
 3. ``parity``  — granite-moe-3b-a800m at full width, 2 layers, fp32: the
    engine on the card (kernels) and on the CPU (plain versions), same
    seeded weights and placement, must give equal greedy tokens. Then the
@@ -156,9 +158,11 @@ runs sixteen phases, each printing JSON lines:
    relative). ``kernels`` also holds and times K1 at the train shape
    (80, 205, 1536)×(80, 1536, 256) and K2 at (512, 40), k 8.
 12. ``dryrun`` — the port's dry run (``repro_torch.launch.dryrun``) of every
-   (arch × shape) cell on the meta device, spread over worker processes
-   that never touch the card: every cell must be ``ok`` (33) or
-   ``skipped`` (7); it prints each cell's line and the sweep's host
+   (arch × shape) cell on the meta device but the SSD families' four
+   4k/32k train and prefill cells (``DRYRUN_HOST_ONLY``: 52–122 host
+   seconds each; the CPU's ``--all`` runs them), spread over worker
+   processes that never touch the card: every cell must be ``ok`` (29)
+   or ``skipped`` (7); it prints each cell's line and the sweep's host
    seconds. Then granite's cells at this card's own shapes — the ``train``
    phase's 4 × 128 at capacity factor 2.0 with remat off, and a dense
    ``decode_step`` of 8 rows over 4,096 positions — each against one eager
@@ -183,80 +187,105 @@ runs sixteen phases, each printing JSON lines:
    layer call, one capture.
 15. ``mesh`` — the data plane across ranks under JAX's layout
    (``repro_torch.launch.mesh``, ``sharding``, ``kernels/sharded.py``):
-   full granite, bf16, the ``collective`` scenario at 32 layers (8 requests
-   of 32 new tokens, GEM's one-shot replan at step 16 under
-   ``migration_via="collective"``), served by 4 ranks that share this card
-   over ``gloo`` (NCCL puts no two ranks on one GPU; the collectives stage
-   through pinned host buffers) in ``decode_mode="python"``, each rank
-   drawing its shard of the same seed-0 weights (the expert stacks a layer
-   at a time). Each rank holds its shard of every leaf by ``param_specs``
-   (the projections and the vocabulary over ``model``, the expert slots)
-   and its block of the dense KV cache's positions. At (1, 4), GEM over the
-   4 emulated devices, each rank holding 20 of the 80 slots, against a
-   one-process run on the card (dense cache, the same draws). bf16 router
-   logits tie, and the layout's summation orders would break some ties
-   the other way, so the ranks run on one process's router logits at
-   every MoE layer (K2 runs on them) and take one process's tokens at
-   every step (:func:`_pin_calls`): the routed counts at every step, the
-   tables and the slot rows after the swap equal one process's, the logits
-   of every prefill and decode step lie within ``MESH_LOGITS_TOL`` of one
-   process's, and a rank's own arg max may differ from one process's token
-   only where one process's top-1 margin lies within that row's |Δ|. Each
-   rank holds 142,642,176 + 1,509,949,440 parameter bytes (every leaf's
-   bytes its shard's) and a quarter of one process's cache bytes, and runs
-   4 collectives a layer and 2 more a decode step (q/k/v, the softmax
-   partials, ``wo``, K1's outputs; the embedding, the logits); its tables
-   are every other rank's and ``argsort`` of its plan; the measured
-   ``cross_rows`` and ``payload_bytes`` equal ``stats_for_dense_sources(src,
-   4, 2,359,296)`` and the ranks shipped exactly those rows, K1/K2 launched
-   32 × (prefills + steps) a rank with K1 on (20, C, 1536)×(20, 1536, 256),
+   granite at full width, bf16, the ``collective`` scenario (8 requests of
+   32 new tokens, GEM's one-shot replan at step 16 under
+   ``migration_via="collective"``) at 16 of its 32 layers, served by 4
+   ranks that share this card over ``gloo`` (NCCL puts no two ranks on one
+   GPU; the collectives stage through pinned host buffers) in
+   ``decode_mode="python"``, each rank drawing its shard of the same seed-0
+   weights (the expert stacks a layer at a time). Each rank holds its
+   shard of every leaf by ``param_specs`` (the projections and the
+   vocabulary over ``model``, the expert slots) and its block of the dense
+   KV cache's positions. At (1, 4), GEM over the 4 emulated devices, each
+   rank holding 20 of the 80 slots, against a one-process run on the card
+   (dense cache, the same draws). bf16 router logits tie, and the layout's
+   summation orders would break some ties the other way, so the ranks run
+   on one process's router logits at every MoE layer (K2 runs on them) and
+   take one process's tokens at every step (:func:`_pin_calls`): the
+   routed counts at every step, the tables and the slot rows after the
+   swap equal one process's, the logits of every prefill and decode step
+   lie within ``MESH_LOGITS_TOL`` of one process's, and a rank's own arg
+   max may differ from one process's token only where one process's top-1
+   margin lies within that row's |Δ|. Each rank holds 90,246,144 +
+   754,974,720 parameter bytes (every leaf's bytes its shard's) and a
+   quarter of one process's cache bytes, and runs 4 collectives a layer
+   and 2 more a decode step (q/k/v, the softmax partials, ``wo``, K1's
+   outputs; the embedding, the logits); its tables are every other rank's
+   and ``argsort`` of its plan; the measured ``cross_rows`` and
+   ``payload_bytes`` equal ``stats_for_dense_sources(src, 4, 2,359,296)``
+   and the ranks shipped exactly those rows, K1/K2 launched 16 ×
+   (prefills + steps) a rank with K1 on (20, C, 1536)×(20, 1536, 256),
    K2's counters are at 0, and an engine in ``"scan"`` over gloo on the
    card raises ``ValueError``. At (2, 2), GEM over 2 devices: the same
    checks against a one-process run that dispatches the batch in 2 groups,
-   each rank holding 281,152,512 + 3,019,898,880 bytes, a quarter of the
+   each rank holding 178,424,832 + 1,509,949,440 bytes, a quarter of the
    cache (half the rows, half the positions) and running 6 collectives a
    layer and 3 more a step (K2's statistics and the dispatch counts over
    ``data``, the logits over ``data``). Then both shapes in fp32 at 8
    layers, as they come (no ties): tokens, every step's routed counts, the
    tables and the rows equal one process's, the logits within
-   ``MESH_FP32_LOGITS_TOL``. NCCL ``"scan"`` at (1, 4) runs only with 4
-   cards (``"not run: N card(s)"`` otherwise): in bf16 (a captured step
-   cannot be pinned: tokens and logits are printed, the tables and rows
-   held to the rank's own plan) with three replays of rank 0's captured
-   step profiled (device time of the port kernels, the collectives, the
-   products and the rest), then in fp32 at 8 layers, held to one process
-   exactly. It prints each run's decode-step medians, walls and staged
-   bytes: times of 4 processes sharing one card, not of a multi-card
-   fleet.
+   ``MESH_FP32_LOGITS_TOL``. Then the FSDP serve: ``policy_for(mesh,
+   step_kind="decode", config=<full granite>)`` at (4, 1), which must give
+   ``fsdp=True``, ``batch_axes=()`` and ``cache_batch_axes=("data",)``
+   (the bf16 model is 6.14 GB a model-axis shard), at 8 layers in bf16:
+   each rank holds 64,048,128 + 377,487,360 bytes (a quarter of the
+   projections', the vocabulary's and the expert stacks', the norms and
+   the router whole) and a quarter of the cache's rows, gathers each
+   layer's blocks over ``data`` before it runs, runs every row as one
+   dispatch group and attends its own cache rows (9 collectives a layer
+   and 1 a step), against one process dispatching one group. That is one
+   device's arithmetic, so the run is not pinned: tokens, routed counts,
+   tables and rows equal one process's and every logit is one process's
+   bit for bit (``MESH_FSDP_LOGITS_TOL``, 0); the replan's swap is each
+   rank's own on a 1-wide model axis. NCCL ``"scan"`` runs only with 4
+   cards (``"not run: N card(s)"`` otherwise), a card a rank, at (1, 4)
+   and under the FSDP policy at (4, 1): full granite in bf16 with three
+   replays of rank 0's captured step profiled (device time of the port
+   kernels, the collectives, the products and the rest), then in fp32 at
+   8 layers, held to one process exactly. A captured step cannot be
+   pinned, so the (1, 4) bf16 run's tokens and logits are printed and its
+   tables and rows held to the rank's own plan; the FSDP bf16 run is held
+   bit for bit as over gloo. It prints each run's decode-step medians,
+   walls and staged bytes: over gloo, times of 4 processes sharing one
+   card, not of a multi-card fleet.
 16. ``mesh_train`` — training under the mesh (``make_train_step(…,
    policy=…)``): granite at full width, 8 of 32 layers (4 ranks share the
    card), bf16 parameters and fp32 moments, seed-0 weights drawn whole and
    placed by the ``train`` phase's seed, its batches (4 × 128 tokens,
    capacity factor 2.0) and optimizer, 5 AdamW steps, remat off, on 4 gloo
-   ranks at (1, 4) and (2, 2), each against one process on the card
-   (dispatched in 2 groups for (2, 2)). The first step's loss within 1e-3
-   relative and grad norm within 1e-2 of one process's, its expert counts
-   and dropped share equal, each rank's gradient (after the reduction over
-   ranks) within 2e-2 of the leaf's max |g| of the one-process rows; the
-   second step's loss within 1e-3 and grad norm within 5e-2; the later
-   losses within 10 % and grad norms within 30 % (bf16 parameters part in
-   their last bits from the first update on, and one process on the card
-   does not repeat itself bit for bit; the later counts are printed); every
-   rank the same metrics; each rank's expert update over the run (p_5 −
-   p_0) at cosine ≥ 0.9 with one process's on its rows, and its expert rows
-   after the last step within twice the share by which a second one-process
-   run parts from the first; the whole leaves (parameters and moments)
-   bit-equal on every rank and each shard on the ranks that hold it;
-   parameter and moment bytes those of the rank's shards by ``param_specs``
-   (441,535,488 and 1,766,141,952 at (1, 4), 882,035,712 and 3,528,142,848
-   at (2, 2)); 128 tokens a row, so the model axis runs the attention
-   sequence-parallel; K1/K2 launched 8 × 5 times a rank, K1 on (E_v/m, C,
-   1536) × (E_v/m, 1536, 256). The (2, 2) ranks then save a checkpoint from
-   the mesh: it restores on one process in JAX's dtypes and each rank's
-   shards have the restored rows' checksums. With 4 cards, full granite (32
-   layers) also trains over NCCL at (1, 4), a card a rank, against one
-   process, and one more step is profiled on every rank (``"not run: N
-   card(s)"`` otherwise). It prints each run's
+   ranks at (1, 4) under ``ShardingPolicy(mesh)`` and at (2, 2) and (4, 1)
+   under the production policy ``policy_for(mesh, step_kind="train")``
+   (ZeRO-3: the projections, the vocabulary and the expert stacks, with
+   their moments, stored over ``data`` too; gathered a layer at a time,
+   their gradients reduce-scattered), each against one process on the
+   card (dispatched in as many groups as data ranks). The first step's
+   loss within 1e-3 relative and grad norm within 1e-2 of one process's,
+   its expert counts and dropped share equal, each rank's gradient (after
+   the reduction over ranks) within 2e-2 of the one-process rows, over
+   the max |g| of the leaf as the rank held it before FSDP (whole over
+   ``data``); the second step's loss within 1e-3 and grad norm within
+   5e-2; the later losses within 10 % and grad norms within 30 % (bf16
+   parameters part in their last bits from the first update on; the
+   later counts are printed); every rank the same metrics; each rank's
+   expert update over the run (p_5 − p_0) at cosine ≥ 0.9 with one
+   process's on its block, and its expert block after the last step
+   within ``MESH_TRAIN_PARAM_TOL`` (0.033, Adam's bound on how far two
+   runs' weights part in 5 warm-up steps) of one process's max; the
+   whole leaves (parameters and moments) bit-equal on every rank and each
+   model-axis shard on the ranks that hold it; parameter and moment bytes
+   those of the rank's shards by ``param_specs`` (441,535,488 and
+   1,766,141,952 at each shape: at (1, 4) its model-axis shards, under
+   FSDP its ZeRO blocks); K1/K2 launched 8 × 5 times a rank, K1 on
+   (E_v/m, C, 1536) × (E_v/m, 1536, 256). The (2, 2) ranks then save a
+   checkpoint from the FSDP mesh; the (4, 1) ranks restore it onto their
+   own blocks (``restore_sharded``) before they train: it restores on one
+   process in JAX's dtypes, and the (2, 2) ranks' blocks and the (4, 1)
+   ranks' restored blocks have the checksums of their blocks of it. With 4
+   cards, full granite (32 layers) also trains over NCCL, a card a rank,
+   at (1, 4) under ``ShardingPolicy(mesh)`` and under FSDP at (2, 2)
+   (1,652,591,616 and 6,610,366,464 bytes a rank), each against one
+   process dispatching as many groups, and one more step is profiled on
+   every rank (``"not run: N card(s)"`` otherwise). It prints each run's
    losses, the per-rank step medians (host clock, steps 2–5) beside one
    process's, staged bytes and peak memory a rank.
 
@@ -492,6 +521,10 @@ def phase_kernels():
     c_train_2x2 = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // 2, cfg,
                                 capacity_factor=2.0, num_slots=S,
                                 replicated=False)
+    # a (4, 1) FSDP rank dispatches its one row of the batch
+    c_train_4x1 = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // 4, cfg,
+                                capacity_factor=2.0, num_slots=S,
+                                replicated=False)
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
     summary = {}
@@ -519,6 +552,9 @@ def phase_kernels():
         ("train_rank", S // MESH_MODEL, c_train, D, F, torch.bfloat16),
         # and one rank's of its (2, 2) forward: 256 tokens on 40 slots
         ("train_rank_2x2", S // 2, c_train_2x2, D, F, torch.bfloat16),
+        # and one rank's of its FSDP (4, 1) forward: 128 tokens on all 80
+        # slots, the weights gathered whole over data
+        ("train_rank_4x1", S, c_train_4x1, D, F, torch.bfloat16),
     ]
     # loops of calls for the timings; the prefill shape takes milliseconds
     # a call (fp32 for the plain version)
@@ -542,7 +578,7 @@ def phase_kernels():
                "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
         if tag in ("decode", "decode_rank", "prefill", "train", "train_rank",
-                   "train_rank_2x2", *c_rep, *m_cap):
+                   "train_rank_2x2", "train_rank_4x1", *c_rep, *m_cap):
             x, wg, wu, wd = args
             n_kernel, n_plain, n_library = iters.get(tag, (50, 20, 50))
 
@@ -570,6 +606,8 @@ def phase_kernels():
                     ("train", TRAIN_BATCH * TRAIN_SEQ, E, k),
                     # a (2, 2) rank of ``mesh_train``: its data half
                     ("train_rank_2x2", TRAIN_BATCH * TRAIN_SEQ // 2, E, k),
+                    # a (4, 1) FSDP rank of ``mesh_train``: its one row
+                    ("train_rank_4x1", TRAIN_BATCH * TRAIN_SEQ // 4, E, k),
                     ("mixtral_decode", SWA_BATCH, mix.num_experts,
                      mix.experts_per_token),
                     ("mixtral_prefill", SWA_PROMPTS[1], mix.num_experts,
@@ -601,7 +639,7 @@ def phase_kernels():
             row = {"kernel": name, "case": tag, "shape": [T, e, kk],
                    "max_abs_err": abs_err, "bit_equal_repeated": True}
             if tag in ("decode", "prefill", "train", "train_rank_2x2",
-                       "mixtral_decode", "mixtral_prefill"):
+                       "train_rank_4x1", "mixtral_decode", "mixtral_prefill"):
                 def kernel():
                     return ops.topk_router(logits, kk, with_stats=with_stats)
 
@@ -2455,6 +2493,13 @@ DRYRUN_WORKERS = 7
 DRYRUN_DECODE_LEN = 4096  # the dense cache's positions a row
 DRYRUN_PEAK_TOL = 0.01
 _SLOW_FIRST = ("mamba2", "zamba2", "internvl2", "qwen3", "mixtral")
+# the sweep's four slowest cells (the SSD scan traced over 4k and 32k
+# tokens: 52–122 host seconds each on an H100 machine's host, against at
+# most 15 for every other cell) are left to the CPU's
+# ``python -m repro_torch.launch.dryrun --all``, to keep the script in its
+# time
+DRYRUN_HOST_ONLY = (("mamba2-1.3b", "train_4k"), ("mamba2-1.3b", "prefill_32k"),
+                    ("zamba2-1.2b", "train_4k"), ("zamba2-1.2b", "prefill_32k"))
 
 
 def _dry_worker_init(src: str) -> None:
@@ -2470,15 +2515,16 @@ def _dry_cell(arch: str, shape: str, hbm) -> dict:
 
 
 def _dry_sweep(src: Path, hbm) -> tuple[dict, float]:
-    """``--all`` on meta, the cells spread over worker processes (spawned:
-    the parent holds a CUDA context); returns the cells by key and the
-    sweep's host seconds."""
+    """``--all`` on meta but :data:`DRYRUN_HOST_ONLY`, the cells spread
+    over worker processes (spawned: the parent holds a CUDA context);
+    returns the cells by key and the sweep's host seconds."""
     import concurrent.futures
     import multiprocessing
 
     from repro_torch.configs import ARCHS, SHAPES
 
-    cells = sorted(((a, s) for a in ARCHS for s in SHAPES),
+    cells = sorted(((a, s) for a in ARCHS for s in SHAPES
+                    if (a, s) not in DRYRUN_HOST_ONLY),
                    key=lambda c: (not c[0].startswith(_SLOW_FIRST),
                                   c[1] not in ("train_4k", "prefill_32k")))
     t0 = time.perf_counter()
@@ -2637,12 +2683,14 @@ def phase_dryrun(src: Path, train_step_ms: float):
     check(status["error"] == 0,
           f"dryrun: cells in error: "
           f"{[k for k, c in cells.items() if c['status'] == 'error']}")
-    check(status == {"ok": 33, "skipped": 7}, f"dryrun: statuses {status}")
+    check(status == {"ok": 33 - len(DRYRUN_HOST_ONLY), "skipped": 7},
+          f"dryrun: statuses {status}")
     fits = sorted(k for k, c in cells.items()
                   if c["status"] == "ok" and c["fits_hbm"])
     emit({"phase": "dryrun", "sweep": "all", "device": "meta",
           "cells": len(cells), "statuses": dict(status),
           "sweep_host_s": sweep_s, "workers": DRYRUN_WORKERS,
+          "left_to_the_cpu_sweep": ["|".join(c) for c in DRYRUN_HOST_ONLY],
           "cell_host_s_max": max(c.get("host_s", 0.0) for c in cells.values()),
           "fits_hbm": fits, "hbm_bytes": hbm[0]})
 
@@ -2894,20 +2942,42 @@ MESH_LOGITS_TOL = 0.25
 # and the logits lie within 1e-3
 MESH_FP32_LAYERS = 8
 MESH_FP32_LOGITS_TOL = 1e-3
-# (full granite) bytes a rank holds at each shape, by param_specs: the
-# non-expert leaves (embedding by vocabulary, projections over model,
-# norms and router whole) and the expert slots
-MESH_PARAM_BYTES = {(1, 4): {"non_expert": 142_642_176,
-                             "expert": 1_509_949_440},
-                    (2, 2): {"non_expert": 281_152_512,
-                             "expert": 3_019_898_880}}
-MESH_ONE_PROCESS_BYTES = {"non_expert": 558_173_184, "expert": 6_039_797_760}
+# the pinned bf16 runs at (1, 4) and (2, 2): granite at full width, 16 of
+# its 32 layers (the phase's time)
+MESH_PINNED_LAYERS = 16
+# bytes a rank holds at each shape (granite at full width, 16 layers), by
+# param_specs: the non-expert leaves (embedding by vocabulary, projections
+# over model, norms and router whole) and the expert slots
+MESH_PARAM_BYTES = {(1, 4): {"non_expert": 90_246_144,
+                             "expert": 754_974_720},
+                    (2, 2): {"non_expert": 178_424_832,
+                             "expert": 1_509_949_440}}
+MESH_ONE_PROCESS_BYTES = {"non_expert": 354_782_208, "expert": 3_019_898_880}
+# the FSDP serve: policy_for(mesh, step_kind="decode", config=<full
+# granite>) at (4, 1) (6.14 GB of bf16 parameters a model-axis shard, past
+# 6 GB: ZeRO-3 over data, the activations replicated, the KV cache's rows
+# over data), served at 8 layers in bf16; a rank holds a quarter of the
+# projections', the vocabulary's and the expert stacks' bytes, the norms
+# and the router whole
+MESH_FSDP_LAYERS = 8
+MESH_FSDP_SHAPE = (4, 1)
+# the FSDP serve runs one device's arithmetic on every row: each layer's
+# weights gathered whole (the same values), the batch one dispatch group
+# as one process dispatches it, each row's attention over its own cache
+# rows: it is held bit for bit to one process, unpinned (logits |Δ| 0;
+# every H100 run, over gloo and NCCL, read 0), tokens, routed
+# counts, tables and rows equal
+MESH_FSDP_LOGITS_TOL = 0.0
+MESH_FSDP_PARAM_BYTES = {"non_expert": 64_048_128, "expert": 377_487_360}
 # collectives a rank runs a decode step, by layer and once a step: (1, 4)
 # the q/k/v gather, the softmax partials' gather, the ``wo`` sum and K1's
 # gather a layer, the embedding's sum and the logits' gather a step; (2,
 # 2) also K2's statistics and the dispatch counts over data a layer and
-# the logits over data a step
-MESH_COLLECTIVES = {(1, 4): (4, 2), (2, 2): (6, 3)}
+# the logits over data a step; FSDP (4, 1) the seven projections' and
+# experts' gathers over data, the attention outputs' gather over the
+# cache rows and K1's (1-wide) gather a layer, the embedding's gather a
+# step
+MESH_COLLECTIVES = {(1, 4): (4, 2), (2, 2): (6, 3), (4, 1): (9, 1)}
 
 
 def _mesh_engine(params, cfg, policy, nd, mode, device=None,
@@ -2996,14 +3066,32 @@ class _MeshAt:
                                         [self.shape[a] for a in axes]))
 
 
-def _specs_by_name(cfg, shape) -> dict:
-    """``param_specs`` of the config's tree at ``shape``, by the dotted
-    leaf name :func:`_leaves` gives (without a prefix)."""
+def _specs_by_name(cfg, shape, fsdp: bool = False) -> dict:
+    """``param_specs`` of the config's tree at ``shape`` (with ``fsdp``,
+    the ZeRO-3 layout's), by the dotted leaf name :func:`_leaves` gives
+    (without a prefix)."""
     from repro_torch.sharding import ShardingPolicy, param_specs
 
     specs = param_specs(_meta_params(cfg),
-                        ShardingPolicy(mesh=_MeshAt(shape, 0)), cfg)
+                        ShardingPolicy(mesh=_MeshAt(shape, 0), fsdp=fsdp),
+                        cfg)
     return dict(_leaves(specs))
+
+
+def _rank_numels(cfg, shape, fsdp: bool = False) -> dict:
+    """The elements of each leaf (by its dotted name) that a rank holds at
+    ``shape`` by ``param_specs``: the global leaf's over the extents its
+    spec names."""
+    specs = _specs_by_name(cfg, shape, fsdp)
+    mesh = _MeshAt(shape, 0)
+    out = {}
+    for name, t in _leaves(_meta_params(cfg)):
+        n = t.numel()
+        for axes in specs[name] or ():
+            if axes is not None:
+                n //= mesh.size(axes)
+        out[name] = n
+    return out
 
 
 def _spec_of(specs: dict, name: str):
@@ -3026,20 +3114,20 @@ def _rank_block(t, spec, shape, rank):
     return take_shard(t, spec, _MeshAt(shape, rank)).contiguous()
 
 
-def _shard_mismatches(params, cfg, shape) -> list:
+def _rank_param_bytes(cfg, shape, fsdp: bool = False, itemsize: int = 2):
+    """:func:`_param_bytes` of a rank's leaves at ``shape``, by the specs."""
+    out = {"non_expert": 0, "expert": 0}
+    for name, n in _rank_numels(cfg, shape, fsdp).items():
+        out["expert" if _moe_leaf(name) else "non_expert"] += n * itemsize
+    return out
+
+
+def _shard_mismatches(params, cfg, shape, fsdp: bool = False) -> list:
     """The leaves whose bytes on this rank are not their shard's by
     ``param_specs`` (the global leaf's bytes over its sharded extents)."""
-    specs = _specs_by_name(cfg, shape)
-    whole = dict(_leaves(_meta_params(cfg)))
-    bad = []
-    for name, t in _leaves(params):
-        n = whole[name].numel()
-        for axes in specs[name] or ():
-            if axes is not None:
-                n //= shape[0] if axes == "data" else shape[1]
-        if t.numel() != n:
-            bad.append((name, t.numel(), n))
-    return bad
+    want = _rank_numels(cfg, shape, fsdp)
+    return [(name, t.numel(), want[name]) for name, t in _leaves(params)
+            if t.numel() != want[name]]
 
 
 def _cache_bytes(caches) -> int:
@@ -3163,22 +3251,30 @@ def _mesh_rank(mesh, sc):
     ``sc["force"]`` it runs on one process's router logits and tokens
     (:func:`_pin_calls`)."""
     import repro_torch.kernels.sharded as sharded
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import policy_for
     from repro_torch.models import init_params
     from repro_torch.sharding import ShardingPolicy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = _mesh_config(sc.get("layers"))
-    policy = ShardingPolicy(mesh=mesh)
+    # the FSDP serve takes the production decode policy of full granite
+    policy = (policy_for(mesh, step_kind="decode", config=_mesh_config())
+              if sc.get("fsdp") else ShardingPolicy(mesh=mesh))
     params = init_params(cfg, seed=0, device=mesh.device,
                          dtype=getattr(torch, sc.get("dtype", "bfloat16")),
                          policy=policy)
     shape = (mesh.size("data"), mesh.size("model"))
     out = {"rank": mesh.rank, "device": str(mesh.device),
            "backend": mesh.backend, "param_bytes": _param_bytes(params),
-           "shard_mismatches": _shard_mismatches(params, cfg, shape)}
+           "policy": {"fsdp": policy.fsdp,
+                      "batch_axes": list(policy.batch_axes),
+                      "cache_batch_axes": (None if policy.cache_batch_axes
+                                           is None else
+                                           list(policy.cache_batch_axes))},
+           "shard_mismatches": _shard_mismatches(params, cfg, shape,
+                                                 policy.fsdp)}
     if sc["guard"]:
         try:
             _mesh_engine(params, cfg, policy, sc["nd"], "scan")
@@ -3225,8 +3321,12 @@ def _mesh_rank(mesh, sc):
             pinned["router_abs_diff"], default=None)
     if sc.get("profile") and eng.decode_graph is not None:
         out["profile"] = _profile_captured(eng)
+    staged = mesh.staged_bytes
     moe = eng.params["blocks"]["moe"]
     out.update(
+        staged_bytes=staged,
+        rows={n: _whole_rows(moe[n], n, policy, cfg)
+              for n in _EXPERT_WEIGHTS},
         tokens={r.uid: list(r.generated) for r in eng.finished},
         tables=eng.placements.cpu().numpy(),
         s2e=np.stack([p.slot_to_expert() for p in eng.current_placements]),
@@ -3235,8 +3335,6 @@ def _mesh_rank(mesh, sc):
         calls=cfg.num_layers * (eng.prefill_count + eng.decode_count),
         prefills=eng.prefill_count, decode_steps=eng.decode_count,
         k1_shapes=sorted(shapes),
-        rows={n: _row_checksums(moe[n]).numpy() for n in _EXPERT_WEIGHTS},
-        staged_bytes=mesh.staged_bytes,
         sent_rows=eng._migrate.sent_rows,
         received_rows=eng._migrate.received_rows,
         step_ms=step_ms, wall_s=wall,
@@ -3251,6 +3349,27 @@ def _mesh_rank(mesh, sc):
                                                          1)),
     )
     return out
+
+
+def _whole_rows(w, name, policy, cfg):
+    """Per-row checksums (:func:`_row_checksums`) of an expert stack's
+    rows on this rank; under FSDP each layer's block of ``d_model`` is
+    gathered whole over ``data`` first, so that the rows compare with one
+    process's."""
+    from repro_torch.sharding import fsdp_dim, fsdp_gather_axis
+
+    axis = fsdp_gather_axis(policy, cfg)
+    if axis is None:
+        return _row_checksums(w).numpy()
+    dim = fsdp_dim(("blocks", "moe", name), w.dim(),
+                   tied=cfg.tie_embeddings) - 1
+    out = []
+    for layer in range(w.shape[0]):
+        whole = torch.cat(list(policy.mesh.all_gather(w[layer], axis)
+                               .unbind(0)), dim=dim)
+        out.append(_row_checksums(whole[None])[0])
+        del whole
+    return torch.stack(out).numpy()
 
 
 def _profile_captured(eng, replays: int = 3) -> dict:
@@ -3366,13 +3485,14 @@ def _mesh_reference(cfg, nd, groups, store: Path, dtype=torch.bfloat16):
 
 
 def _check_mesh_run(tag, res, ref, shape, row_bytes, *, mode,
-                    param_bytes=None):
+                    param_bytes=None, tol=None):
     """What every rank of a mesh run must hold against the one-process
     reference and the other ranks, by ``mode``:
 
-    * ``"exact"`` (fp32, no ties): tokens, every step's routed counts,
-      tables and rows equal one process's, the logits of every decode step
-      and prefill within ``MESH_FP32_LOGITS_TOL``;
+    * ``"exact"`` (fp32, or the FSDP serve's one-device arithmetic: no
+      ties part): tokens, every step's routed counts, tables and rows
+      equal one process's, the logits of every decode step and prefill
+      within ``tol`` (default ``MESH_FP32_LOGITS_TOL``);
     * ``"pinned"`` (bf16, on one process's router logits and tokens):
       routed counts, tables and rows equal one process's, the logits of
       every decode step and prefill within ``MESH_LOGITS_TOL`` (none may go
@@ -3386,7 +3506,10 @@ def _check_mesh_run(tag, res, ref, shape, row_bytes, *, mode,
 
     Every mode holds the tables and rows to the rank's own plan, the
     bytes, the cache, the collectives and the launches. ``param_bytes``:
-    the bytes a rank must hold, where given."""
+    the bytes a rank must hold, where given. On a 1-wide model axis (the
+    FSDP serve at (4, 1)) the pool is not sharded over ranks: the replan's
+    swap is each rank's own, recorded as a host gather, and no row
+    crosses; the rows are held whole (gathered over ``data``)."""
     from repro_torch.kernels.collective import stats_for_dense_sources
 
     if mode not in ("exact", "pinned", "free"):
@@ -3395,7 +3518,8 @@ def _check_mesh_run(tag, res, ref, shape, row_bytes, *, mode,
     first = res[0]
     per = first["rows"]["w_gate"].shape[1]  # the slots a rank stores
     layers, per_step = MESH_COLLECTIVES[shape]
-    tol = MESH_FP32_LOGITS_TOL if mode == "exact" else MESH_LOGITS_TOL
+    if tol is None:
+        tol = MESH_FP32_LOGITS_TOL if mode == "exact" else MESH_LOGITS_TOL
     for r in res:
         if mode != "free":
             steps, pre = r["steps_compared"], r["prefill"]["steps_compared"]
@@ -3468,10 +3592,15 @@ def _check_mesh_run(tag, res, ref, shape, row_bytes, *, mode,
               f"mesh {tag}: K1 shapes {r['k1_shapes']}")
         check(r["counters_at_zero"], f"mesh {tag}: a K2 counter is not 0")
         check(len(r["records"]) == 1 and r["records"][0]["step"] == 16
-              and r["records"][0]["via"] == "collective",
+              and r["records"][0]["via"] == ("collective" if model > 1
+                                             else "host"),
               f"mesh {tag}: records {r['records']}")
     check(bool((first["s2e"] != np.arange(first["s2e"].shape[1])).any()),
           f"mesh {tag}: the placement is identity")
+    if model == 1:
+        check(all(r["sent_rows"] == r["received_rows"] == 0 for r in res),
+              f"mesh {tag}: rows crossed ranks on a 1-wide model axis")
+        return 0
     want = stats_for_dense_sources(first["s2e"], model, row_bytes)
     cross = sum(st.cross_rows for _, st in want)
     rec = first["records"][0]
@@ -3500,60 +3629,82 @@ def _moved_assignments(r, ref) -> int:
                // 2)
 
 
-def _nccl_scan(ref, ref_fp32, store: Path, row_bytes, cards):
-    """The (1, 4) scenario over NCCL, a card a rank, in ``"scan"``: full
-    granite in bf16 against the one-process ``ref`` (``"free"``: a captured
-    step cannot be pinned to one process's routing; rank 0's captured step
-    profiled), then at ``MESH_FP32_LAYERS`` layers in fp32 against
-    ``ref_fp32`` (``"exact"``). Returns (the runs' record, their
-    launches)."""
+def _nccl_scan(store: Path, row_bytes, cards):
+    """The scenario over NCCL, a card a rank, in ``"scan"``, against one
+    process: at (1, 4) under ``ShardingPolicy(mesh)`` and at (4, 1) under
+    the FSDP serve's ``policy_for`` decode policy of full granite (the
+    weights over data, the activations replicated, the KV cache's rows
+    over data). Each in bf16 at full granite (rank 0's captured step
+    profiled: the collectives against K1/K2 and the rest) and at
+    ``MESH_FP32_LAYERS`` layers in fp32 (``"exact"``). The (1, 4) bf16
+    run is ``"free"`` (a captured step cannot be pinned to one process's
+    routing); the FSDP bf16 run is one device's arithmetic and is held
+    bit for bit (``"exact"`` at ``MESH_FSDP_LOGITS_TOL``). Returns (the
+    runs' record, their launches)."""
     from repro_torch.launch.mesh import spawn
 
+    # both shapes dispatch the batch as one group, as these do
+    refs = {"bfloat16": _mesh_reference(_mesh_config(), MESH_MODEL, 1, store),
+            "float32": _mesh_reference(_mesh_config(MESH_FP32_LAYERS),
+                                       MESH_MODEL, 1, store, torch.float32)}
     launches = collections.Counter()
     out = {}
-    for tag, r0, sc in (
-            ("bf16", ref, {"profile": True}),
-            ("fp32", ref_fp32, {"layers": MESH_FP32_LAYERS,
-                                "dtype": "float32"})):
-        res = spawn(_mesh_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
-                    store_dir=store / f"nccl_{tag}",
-                    args=({"nd": MESH_MODEL, "mode": "scan", "guard": False,
-                           "reference": r0["path"], **sc},),
+    for tag, shape, dtype in (
+            ("1x4_bf16", (1, MESH_MODEL), "bfloat16"),
+            ("1x4_fp32", (1, MESH_MODEL), "float32"),
+            ("fsdp_bf16", MESH_FSDP_SHAPE, "bfloat16"),
+            ("fsdp_fp32", MESH_FSDP_SHAPE, "float32")):
+        r0 = refs[dtype]
+        fp32 = dtype == "float32"
+        fsdp = tag.startswith("fsdp")
+        mode = "exact" if fp32 or fsdp else "free"
+        tol = MESH_FSDP_LOGITS_TOL if fsdp and not fp32 else None
+        sc = {"nd": MESH_MODEL, "mode": "scan", "guard": False,
+              "fsdp": fsdp, "reference": r0["path"], "dtype": dtype}
+        if fp32:
+            sc["layers"] = MESH_FP32_LAYERS
+        else:
+            sc["profile"] = True
+        res = spawn(_mesh_rank, *shape, backend="nccl", device="cuda",
+                    store_dir=store / f"nccl_{tag}", args=(sc,),
                     timeout=MESH_TIMEOUT_S)
-        exact = tag == "fp32"
         emit({"phase": "mesh", "run": f"nccl_scan_{tag}",
               "per_rank": [_mesh_rank_summary(r) for r in res]})
-        _check_mesh_run(f"nccl_scan_{tag}", res, r0, (1, MESH_MODEL),
-                        row_bytes * (2 if exact else 1),
-                        mode="exact" if exact else "free",
-                        param_bytes=(None if exact
-                                     else MESH_PARAM_BYTES[(1, MESH_MODEL)]))
+        _check_mesh_run(f"nccl_scan_{tag}", res, r0, shape,
+                        row_bytes * (2 if fp32 else 1), mode=mode, tol=tol,
+                        param_bytes=(None if fp32 else _rank_param_bytes(
+                            _mesh_config(), shape, fsdp)))
         check(all(r["captures"] == {"decode": 1, "prefill": 0, "migrate": 0}
                   for r in res),
               f"mesh nccl scan {tag}: captures {[r['captures'] for r in res]}")
         for r in res:
             launches.update(r["launches"])
         out[tag] = {
+            "shape": list(shape), "policy": res[0]["policy"],
             "ranks": len(res), "cards": cards, "dtype": r0["dtype"],
             "layers": r0["layers"], "devices": [r["device"] for r in res],
-            "mode": "exact" if exact else "free",
+            "mode": mode, "logits_tol": tol,
             "captures_per_rank": 1, "tokens_equal_one_process": all(
                 r["tokens"] == r0["tokens"] for r in res),
             "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
             "argmax_partings": [len(r["argmax_partings"]) for r in res],
             "counts_equal_one_process": [_same_counts(r, r0) for r in res],
+            "param_bytes_per_rank": res[0]["param_bytes"],
+            "cache_bytes_per_rank": res[0]["cache_bytes"],
             "collectives_per_step": res[0]["collectives_per_step"],
             "staged_bytes_per_rank": [r["staged_bytes"] for r in res],
             "launches_per_rank": [r["launches"] for r in res],
             "decode_step_ms_median_per_rank": [
                 statistics.median(r["step_ms"]) for r in res],
+            "one_process_decode_step_ms_median":
+                statistics.median(r0["step_ms"]),
             "wall_s_per_rank": [r["wall_s"] for r in res]}
-        if not exact:
+        if not fp32:
             check("profile" in res[0]
                   and res[0]["profile"]["device_ms_per_step"].get(
                       "port_kernels", 0) > 0,
-                  "mesh nccl scan: the captured step's trace holds no port "
-                  "kernel")
+                  f"mesh nccl scan {tag}: the captured step's trace holds "
+                  "no port kernel")
             out[tag]["rank0_captured_step_profile"] = res[0]["profile"]
         del res
         gc.collect()
@@ -3598,19 +3749,26 @@ def phase_mesh(kernel_summary):
     launches = collections.Counter()
     runs = {}
     try:
-        refs = {}
         for tag, shape, nd, dtype in (
                 ("1x4", (1, MESH_MODEL), MESH_MODEL, "bfloat16"),
                 ("2x2", (2, 2), 2, "bfloat16"),
                 ("1x4_fp32", (1, MESH_MODEL), MESH_MODEL, "float32"),
-                ("2x2_fp32", (2, 2), 2, "float32")):
+                ("2x2_fp32", (2, 2), 2, "float32"),
+                ("4x1_fsdp", MESH_FSDP_SHAPE, MESH_MODEL, "bfloat16")):
             data, model = shape
-            exact = dtype == "float32"
-            mode = "exact" if exact else "pinned"
-            layers = MESH_FP32_LAYERS if exact else None
+            fp32 = dtype == "float32"
+            fsdp = tag.endswith("fsdp")
+            # the FSDP serve is held to one process unpinned, bit for bit
+            mode = "exact" if fp32 or fsdp else "pinned"
+            tol = MESH_FSDP_LOGITS_TOL if fsdp else None
+            layers = (MESH_FP32_LAYERS if fp32 else MESH_FSDP_LAYERS if fsdp
+                      else MESH_PINNED_LAYERS)
             run_cfg = _mesh_config(layers)
+            # the FSDP serve's activations are replicated: one process
+            # dispatches the batch as one group, as every rank does
+            groups = 1 if fsdp else data
             t0 = time.perf_counter()
-            ref = _mesh_reference(run_cfg, nd, data, store,
+            ref = _mesh_reference(run_cfg, nd, groups, store,
                                   getattr(torch, dtype))
             ref_s = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -3619,7 +3777,7 @@ def phase_mesh(kernel_summary):
                         args=({"nd": nd, "mode": "python",
                                "guard": tag == "1x4",
                                "reference": ref["path"],
-                               "force": mode == "pinned",
+                               "force": mode == "pinned", "fsdp": fsdp,
                                "layers": layers, "dtype": dtype},),
                         timeout=MESH_TIMEOUT_S)
             spawn_s = time.perf_counter() - t0
@@ -3629,13 +3787,19 @@ def phase_mesh(kernel_summary):
                   "one_process_cache_bytes": ref["cache_bytes"]})
             cross = _check_mesh_run(
                 tag, res, ref, shape,
-                row_bytes * (2 if exact else 1), mode=mode,
-                param_bytes=None if exact else MESH_PARAM_BYTES[shape])
+                row_bytes * (2 if fp32 else 1), mode=mode, tol=tol,
+                param_bytes=(None if fp32 else MESH_FSDP_PARAM_BYTES if fsdp
+                             else MESH_PARAM_BYTES[shape]))
             Ev = cfg.num_virtual_experts
             for r in res:
                 launches.update(r["launches"])
-            check(exact or ref["param_bytes"] == MESH_ONE_PROCESS_BYTES,
+            check(fp32 or fsdp
+                  or ref["param_bytes"] == MESH_ONE_PROCESS_BYTES,
                   f"mesh {tag}: one process holds {ref['param_bytes']}")
+            check(not fsdp or all(
+                r["policy"] == {"fsdp": True, "batch_axes": [],
+                                "cache_batch_axes": ["data"]} for r in res),
+                  f"mesh {tag}: policy_for gave {res[0]['policy']}")
             check(all(x[2] == cfg.d_model and w == (Ev // model, cfg.d_model, F)
                       for r in res for x, w in r["k1_shapes"]),
                   f"mesh {tag}: K1 shapes {res[0]['k1_shapes']}")
@@ -3661,7 +3825,8 @@ def phase_mesh(kernel_summary):
                 "argmax_partings": [len(r["argmax_partings"])
                                     + len(r["prefill"]["argmax_partings"])
                                     for r in res],
-                "logits_tol": (MESH_FP32_LOGITS_TOL if exact
+                "logits_tol": (tol if tol is not None else
+                               MESH_FP32_LOGITS_TOL if fp32
                                else MESH_LOGITS_TOL),
                 "param_bytes_per_rank": res[0]["param_bytes"],
                 "param_bytes_total_per_rank": sum(
@@ -3694,17 +3859,17 @@ def phase_mesh(kernel_summary):
                 "one_process_decode_step_ms_median":
                     statistics.median(ref["step_ms"]),
                 "one_process_wall_s": ref["wall_s"], "one_process_s": ref_s,
+                "policy": res[0]["policy"],
+                "one_process_param_bytes": ref["param_bytes"],
             }
             if tag == "1x4":
                 runs[tag]["gloo_scan_guard"] = res[0]["guard"]
-            refs[tag] = ref
             emit({"phase": "mesh", "run": tag, **runs[tag]})
             del res
             gc.collect()
         n_cards = torch.cuda.device_count()
         if n_cards >= MESH_MODEL:
-            runs["nccl_scan"], counts = _nccl_scan(
-                refs["1x4"], refs["1x4_fp32"], store, row_bytes, cards)
+            runs["nccl_scan"], counts = _nccl_scan(store, row_bytes, cards)
             launches.update(counts)
         else:
             runs["nccl_scan"] = f"not run: {n_cards} card(s)"
@@ -3740,38 +3905,50 @@ MESH_TRAIN_TIMEOUT_S = 900.0
 # (the rank's rows, after the reduction over ranks) within 2e-2 of the
 # leaf's max |g| (the single-card train tests' bf16 tolerance). The
 # second step, after one update (Adam's first is ±lr a weight, its sign
-# the gradient's), within 1e-3 and 5e-2. From there one process on the
-# card does not repeat itself bit for bit (the embedding's and the
-# gather's backwards add with atomics), the ranks sum in other orders,
-# and an update of lr ≈ 1e-4 is about one bf16 step of a weight, so a
+# the gradient's), within 1e-3 and 5e-2. From there the ranks sum in
+# other orders than one process (which repeats itself bit for bit on the
+# card: the dispatch gather's backward sums in fp32), and
+# an update of lr ≈ 1e-4 is about one bf16 step of a weight, so a
 # gradient near 0 that takes the other sign parts the runs; they part
 # faster as the loss climbs. So the later steps' losses are held within
-# 10 % and their grad norms within 30 % (on an H100 one process run again
-# parts from itself by several per cent in the norm by step 5, sound mesh
-# runs by up to about a tenth; a norm that missed a sum over ranks would
-# be off by a factor), their counts printed; what must hold exactly is
+# 10 % and their grad norms within 30 % (sound mesh runs part from one
+# process by up to about a tenth in the norm by step 5 on an H100; a norm
+# that missed a sum over ranks would be off by a factor), their counts
+# printed; what must hold exactly is
 # that the ranks stay replicas: the same metrics on every rank, every
 # whole leaf (parameters and moments) bit-equal on every rank and every
 # expert shard on the ranks that hold it. Each expert leaf's update over
 # the run on the rank's rows, p_5 − p_0, must point as one process's
-# does: cosine ≥ 0.9 (sound runs read about 0.97–0.98 on an H100, one
-# process run again about 0.96–0.98; ranks whose replicas parted read
-# 0.84–0.86). A second
-# one-process run, at each shape, measures how far the card's own runs
-# part: each rank's expert rows after the last step must lie within twice
-# its largest max |Δ| / max |w| of one process's (an Adam step moves a
-# weight by about lr at most, so both read a few lr over the weights'
-# max).
+# does: cosine ≥ 0.9 (sound runs read about 0.97–0.98 on an H100; ranks
+# whose replicas parted read 0.84–0.86). Each rank's expert rows after
+# the last step must lie within MESH_TRAIN_PARAM_TOL of one process's, as
+# max |Δ| over the leaf's max |w|. The bound is Adam's: a step moves a
+# weight by lr·m̂/√v̂, and |m̂/√v̂| ≤ 1.003 over the first 5 steps (β 0.9,
+# 0.95), so two runs whose updates of a weight disagree part by at most
+# 2·Σ lr = 3.0e-3 (lr 1e-4 … 5e-4 in the warm-up) and by a bf16 step or
+# two of the weight (2^-10 near its max); the expert leaves' max |w| is
+# about 0.15 (N(0, 1/1536) over ~10^8 draws a rank), so 0.020 + 0.013.
+# Sound runs read 0.0149–0.0171 on an H100; a row in another slot's
+# place reads O(1), a block left without its update about 0.01 and a
+# cosine near 0.
 MESH_TRAIN_LOSS_RTOL = (1e-3, 1e-3, 0.1)
 MESH_TRAIN_NORM_RTOL = (1e-2, 5e-2, 0.3)
 MESH_TRAIN_GRAD_TOL = 2e-2
 MESH_TRAIN_UPDATE_COS = 0.9
-MESH_TRAIN_PARAM_SPREAD = 2.0
+MESH_TRAIN_PARAM_TOL = 0.033
+# (bf16 parameter, fp32 moment) bytes a rank holds under FSDP at (2, 2)
+# and (4, 1), 8 layers: a quarter of the projections', the vocabulary's
+# and the expert stacks' 1,762,000,896 B, and the router and the norms
+# (1,035,264 B) whole; and at full depth (32 layers, the NCCL run)
+MESH_TRAIN_FSDP_BYTES = (441_535_488, 1_766_141_952)
+MESH_TRAIN_FSDP_FULL_BYTES = (1_652_591_616, 6_610_366_464)
 # the ``kernels`` phase's rows at the shapes a rank launches: K1 and K2
 # at (1, 4) (all 512 tokens, 20 slots) and at (2, 2) (256 tokens, 40)
 MESH_TRAIN_KERNEL_ROWS = ("moe_ffn/train_rank", "moe_ffn/train_rank_2x2",
+                          "moe_ffn/train_rank_4x1",
                           "topk_router_stats/train",
-                          "topk_router_stats/train_rank_2x2")
+                          "topk_router_stats/train_rank_2x2",
+                          "topk_router_stats/train_rank_4x1")
 
 
 def _mt_build(cfg, device, policy):
@@ -3859,14 +4036,10 @@ def _moe_leaf(path: str) -> bool:
     return is_expert_leaf(path.split("."))
 
 
-def _mt_reference(cfg, groups, store: Path, tensors: bool,
-                  compare_to: str | None = None):
+def _mt_reference(cfg, groups, store: Path, tensors: bool):
     """One process on the card: the steps, and (``tensors``) the first
     step's gradients and the expert leaves after the last step saved
-    under ``store`` for the ranks to hold their rows against; with
-    ``compare_to`` (an earlier run's saved leaves) the least cosine of
-    this run's expert updates with that run's and the largest share by
-    which its expert leaves part from that run's."""
+    under ``store`` for the ranks to hold their rows against."""
     from repro_torch.kernels import ops
 
     policy = _grouped_policy(groups) if groups > 1 else None
@@ -3883,57 +4056,52 @@ def _mt_reference(cfg, groups, store: Path, tensors: bool,
             torch.save({n: g.detach().cpu() for n, g in _leaves(grads)},
                        grads_path)
 
-    start = {n: w.detach().clone() for n, w in _leaves(state["params"])
-             if _moe_leaf(n)} if compare_to else None
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     history, step_ms = _mt_run(state, step, tables, data, dev, save_grads)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    update_cos = param_share = None
-    if compare_to:
-        moved = [(n, w) for n, w in _leaves(state["params"]) if _moe_leaf(n)]
-        Ev = cfg.num_virtual_experts
-        update_cos = _update_cosine(moved, start, compare_to, 0, Ev)
-        param_share = _worst_share(moved, compare_to, lambda _, t: t, dev)
-        del start, moved
     if tensors:
         torch.save({n: w.detach().cpu() for n, w in
                     _leaves(state["params"]) if _moe_leaf(n)}, final_path)
     out = {"history": history, "step_ms": step_ms, "wall_s": wall,
            "launches": launches, "grads": str(grads_path),
-           "final": str(final_path), "update_cos": update_cos,
-           "param_share": param_share, "peak_bytes": torch.cuda.max_memory_allocated()}
+           "final": str(final_path),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _worst_share(got, ref_path, block, device) -> tuple[float, str]:
+def _worst_share(got, ref_path, block, device,
+                 scale=None) -> tuple[float, str]:
     """The largest max |Δ| / max |ref| over ``got``'s leaves against the
     saved one-process tensors (``block(name, t)``: the rank's block of
-    one), and its leaf."""
+    one; ``scale(name, t)``, default ``block``: the part of it whose max
+    |ref| is the scale), and its leaf."""
     ref = torch.load(ref_path, mmap=True, map_location="cpu")
     worst, at = 0.0, ""
     for name, g in got:
         want = block(name, ref[name]).to(device, torch.float32)
+        top = (scale or block)(name, ref[name]).float().abs().max()
         share = ((g.detach().float() - want).abs().max()
-                 / want.abs().max().clamp(min=1e-30)).item()
+                 / top.to(device).clamp(min=1e-30)).item()
         if share > worst:
             worst, at = share, name
         del want
     return worst, at
 
 
-def _update_cosine(moved, start, ref_path, lo, hi) -> tuple[float, str]:
+def _update_cosine(moved, start, ref_path, block) -> tuple[float, str]:
     """The least cosine, over the expert leaves, between this rank's
-    update of its rows over the run and one process's update of them."""
+    update of its rows over the run and one process's update of them
+    (``block(name, t)``: the rank's block of one process's leaf)."""
     ref = torch.load(ref_path, mmap=True, map_location="cpu")
     worst, at = 1.0, ""
     for name, w in moved:
         p0 = start[name].float()
-        want = ref[name][:, lo:hi].to(w.device).float() - p0
+        want = block(name, ref[name]).to(w.device).float() - p0
         got = w.detach().float() - p0
         cos = (torch.sum(got * want) / (got.norm() * want.norm()).clamp(
             min=1e-30)).item()
@@ -3965,28 +4133,51 @@ def _mt_rank(mesh, sc):
     import repro_torch.kernels.sharded as sharded
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import policy_for
     from repro_torch.sharding import ShardingPolicy, local_expert_slots
     from repro_torch.training import train_state_specs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = _mt_config(sc["layers"])
-    policy = ShardingPolicy(mesh=mesh)
+    # the production policy (ZeRO-3 over data) where asked
+    policy = (policy_for(mesh, step_kind="train") if sc.get("fsdp")
+              else ShardingPolicy(mesh=mesh))
     dev = mesh.device
     state, step, tables, data = _mt_build(cfg, dev, policy)
     Ev = cfg.num_virtual_experts
     rows = local_expert_slots(policy, Ev)
     lo, hi = (rows.start, rows.stop) if rows is not None else (0, Ev)
     shape = (mesh.size("data"), mesh.size("model"))
-    specs = _specs_by_name(cfg, shape)
+    specs = _specs_by_name(cfg, shape, policy.fsdp)
 
     def block(name, t):
         return _rank_block(t, _spec_of(specs, name), shape, mesh.rank)
+
+    def scale(name, t):
+        # a ZeRO block is held to its leaf's scale as the rank held the
+        # leaf before FSDP: whole over data
+        spec = _spec_of(specs, name)
+        if spec is not None:
+            spec = tuple(None if a == "data" else a for a in spec)
+        return _rank_block(t, spec, shape, mesh.rank)
     opt = state["opt"]
     out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "fsdp": policy.fsdp,
            "param_bytes": _tree_nbytes(state["params"]),
            "moment_bytes": _tree_nbytes(opt["mu"]) + _tree_nbytes(opt["nu"]),
            "slots": [lo, hi]}
+    if sc.get("restore"):
+        # another mesh's save, restored onto this rank's blocks
+        t0 = time.perf_counter()
+        restored, _, at = CheckpointManager(sc["restore"]).restore_sharded(
+            state, train_state_specs(state, policy, cfg, num_slots=Ev),
+            mesh=mesh)
+        out.update(restored_step=at, restored_sums=_shard_sums(restored),
+                   restore_sharded_s=time.perf_counter() - t0)
+        del restored
+        gc.collect()
+        torch.cuda.empty_cache()
     shapes = set()
     inner = sharded.moe_ffn
 
@@ -3997,7 +4188,7 @@ def _mt_rank(mesh, sc):
     def check_grads(grads):
         if sc["tensors"]:
             out["grad_share"] = _worst_share(_leaves(grads), sc["grads"],
-                                             block, dev)
+                                             block, dev, scale)
 
     start = {n: w.detach().clone() for n, w in _leaves(state["params"])
              if _moe_leaf(n)} if sc["tensors"] else None
@@ -4019,8 +4210,9 @@ def _mt_rank(mesh, sc):
                peak_bytes=torch.cuda.max_memory_allocated(dev))
     moved = [(n, w) for n, w in _leaves(state["params"]) if _moe_leaf(n)]
     if sc["tensors"]:
-        out["param_share"] = _worst_share(moved, sc["final"], block, dev)
-        out["update_cos"] = _update_cosine(moved, start, sc["final"], lo, hi)
+        out["param_share"] = _worst_share(moved, sc["final"], block, dev,
+                                          scale)
+        out["update_cos"] = _update_cosine(moved, start, sc["final"], block)
         del start
     out["sums"] = {n: _checksum({"x": t.reshape(-1)})
                    for n, t in _leaves(state) if n != "opt.step"}
@@ -4056,20 +4248,21 @@ def _mt_config(layers):
                                capacity_factor=2.0)
 
 
-def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
+def _check_mt_run(tag, res, ref, shape, cfg, fsdp: bool = False):
     """What every rank of a ``mesh_train`` run must hold against its
     one-process reference (its expert rows after the last step within
-    ``param_limit`` of the reference's where the ranks measured them)."""
+    ``MESH_TRAIN_PARAM_TOL`` of the reference's where the ranks measured
+    them).
+    With ``fsdp`` the ranks hold ZeRO-3 blocks: a leaf stored over
+    ``data`` is every rank's own, no replica of another's."""
     from repro_torch.models.dispatch import slot_capacity
 
     data, model = shape
     L, Ev = cfg.num_layers, cfg.num_virtual_experts
     F = cfg.expert_d_ff // cfg.expert_tp
-    specs = _specs_by_name(cfg, shape)
+    specs = _specs_by_name(cfg, shape, fsdp)
     # a rank's parameters: each leaf over its sharded extents
-    n_params = sum(t.numel() // (model if specs[n] and "model" in specs[n]
-                                 else 1)
-                   for n, t in _leaves(_meta_params(cfg)))
+    n_params = sum(_rank_numels(cfg, shape, fsdp).values())
     per = Ev // model
     C = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // data, cfg,
                       capacity_factor=2.0, num_slots=Ev, replicated=False)
@@ -4106,16 +4299,21 @@ def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
             check(r["update_cos"][0] >= MESH_TRAIN_UPDATE_COS,
                   f"mesh_train {tag}: rank {r['rank']} expert update "
                   f"{r['update_cos']} does not follow one process's")
-            check(r["param_share"][0] <= param_limit,
+            check(r["param_share"][0] <= MESH_TRAIN_PARAM_TOL,
                   f"mesh_train {tag}: rank {r['rank']} expert rows after "
                   f"the last step {r['param_share']} off one process's "
-                  f"(limit {param_limit})")
+                  f"(limit {MESH_TRAIN_PARAM_TOL})")
+        check(r["fsdp"] == fsdp,
+              f"mesh_train {tag}: rank {r['rank']} fsdp={r['fsdp']}")
         # the ranks are replicas: whole leaves on all, shards on the ranks
-        # of the same model position
+        # of the same model position (a ZeRO block is the rank's alone)
         for name, v in r["sums"].items():
+            spec = _spec_of(specs, name)
+            if data > 1 and spec and "data" in spec:
+                continue
             twin = next(q for q in res
                         if q["rank"] % model == r["rank"] % model)
-            first = twin if _spec_of(specs, name) else res[0]
+            first = twin if spec else res[0]
             check(v == first["sums"][name],
                   f"mesh_train {tag}: rank {r['rank']}'s {name} differs "
                   f"from rank {first['rank']}'s")
@@ -4135,10 +4333,9 @@ def _check_mt_run(tag, res, ref, shape, cfg, param_limit=None):
               f"mesh_train {tag}: K1 shapes {r['k1_shapes']}")
 
 
-def _check_mesh_save(root, res, cfg, shape):
-    """The (2, 2) save restores on one process (the CPU, global shapes,
-    JAX's dtypes) and each rank's shards have the checksums of its blocks
-    of the restored leaves."""
+def _restored_state(root):
+    """One process's restore of a ``mesh_train`` save (the CPU, global
+    shapes, JAX's dtypes), on the card, with its checks and load time."""
     from repro_torch.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(str(root))
@@ -4164,69 +4361,117 @@ def _check_mesh_save(root, res, cfg, shape):
     load_s = time.perf_counter() - t0
     check(step == MESH_TRAIN_STEPS and int(state["opt"]["step"]) == step,
           f"mesh_train save: step {step}")
-    state = _to(state, "cuda")
-    specs = _specs_by_name(cfg, shape)
-    sums = _shard_sums(state)
+    return _to(state, "cuda"), len(dtypes), load_s
+
+
+def _check_blocks(tag, state, ranks_sums, cfg, shape, fsdp):
+    """Each rank's checksums (``ranks_sums``: (rank, its
+    :func:`_shard_sums`)) against its block of the whole ``state`` by the
+    specs at ``shape``: per row for the expert stacks, one a leaf
+    otherwise."""
+    specs = _specs_by_name(cfg, shape, fsdp)
     whole = dict(_leaves(state))
-    for r in res:
-        lo, hi = r["slots"]
-        for k, v in r["shard_sums"].items():
+    for rank, sums in ranks_sums:
+        for k, v in sums.items():
             spec = _spec_of(specs, k)
-            if isinstance(v, np.ndarray):  # an expert stack's rows
-                want = sums[k][:, lo:hi]
-            elif spec is not None:  # the rank's block of the leaf
-                want = _checksum({"x": _rank_block(
-                    whole[k], spec, shape, r["rank"]).reshape(-1)})
-            else:
-                want = sums[k]
+            t = whole[k] if spec is None else _rank_block(whole[k], spec,
+                                                          shape, rank)
+            want = (_row_checksums(t).numpy() if isinstance(v, np.ndarray)
+                    else _checksum({"x": t.reshape(-1)}))
             check(np.array_equal(v, want),
-                  f"mesh_train save: rank {r['rank']}'s {k} differs from "
-                  "the restored rows")
-    nbytes = _tree_nbytes(state)
-    del state, whole
-    return {"leaves": len(dtypes), "bytes": nbytes, "restore_s": load_s}
+                  f"mesh_train {tag}: rank {rank}'s {k} differs from its "
+                  "block of the restored leaf")
+
+
+def _check_mesh_save(root, res, cfg, shape, fsdp, restored=None):
+    """The save from ``shape`` restores on one process, each of its
+    ranks' shards has the checksums of its block of the restored leaves,
+    and (``restored``: (the other shape, its ranks' results)) so do the
+    blocks that ``restore_sharded`` gave the ranks of another mesh."""
+    state, leaves, load_s = _restored_state(root)
+    _check_blocks("save", state, [(r["rank"], r["shard_sums"]) for r in res],
+                  cfg, shape, fsdp)
+    out = {"leaves": leaves, "bytes": _tree_nbytes(state),
+           "restore_s": load_s}
+    if restored is not None:
+        other, ranks = restored
+        check(all(r["restored_step"] == MESH_TRAIN_STEPS for r in ranks),
+              "mesh_train restore_sharded: step")
+        _check_blocks(f"restore_sharded {other}", state,
+                      [(r["rank"], r["restored_sums"]) for r in ranks], cfg,
+                      other, fsdp)
+        out["restore_sharded"] = {
+            "shape": list(other), "equal": True,
+            "s_per_rank": [r["restore_sharded_s"] for r in ranks]}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _nccl_train(store: Path, cards):
-    """Full granite (32 layers) trained at (1, 4) over NCCL, a card a
-    rank, against one process on the first card: (the run's record, its
+    """Full granite (32 layers) trained over NCCL, a card a rank, against
+    one process on the first card (dispatching in as many groups as the
+    mesh's data axis): at (1, 4) under ``ShardingPolicy(mesh)`` and at
+    (2, 2) under FSDP (``policy_for(mesh, step_kind="train")``), each
+    rank's first step traced. Returns (the runs' record, their
     launches)."""
     from repro_torch.launch.mesh import spawn
 
     full = _mt_config(None)
-    ref = _mt_reference(full, 1, store, tensors=False)
-    res = spawn(_mt_rank, 1, MESH_MODEL, backend="nccl", device="cuda",
-                store_dir=store / "nccl_train",
-                args=({"layers": full.num_layers, "tensors": False,
-                       "profile": True},),
-                timeout=MESH_TRAIN_TIMEOUT_S)
-    record = {
-        "layers": full.num_layers, "ranks": len(res), "cards": cards,
-        "devices": [r["device"] for r in res],
-        "losses": [h["loss"] for h in res[0]["history"]],
-        "one_process_losses": [h["loss"] for h in ref["history"]],
-        "grad_norms": [h["grad_norm"] for h in res[0]["history"]],
-        "one_process_grad_norms": [h["grad_norm"] for h in ref["history"]],
-        "launches_per_rank": [r["launches"] for r in res],
-        "peak_bytes_per_rank": [r["peak_bytes"] for r in res],
-        "step_ms_median_per_rank": [
-            statistics.median(r["step_ms"][1:]) for r in res],
-        "one_process_step_ms_median": statistics.median(ref["step_ms"][1:]),
-        "one_process_peak_bytes": ref["peak_bytes"],
-        "rank0_step_profile": res[0].get("profile")}
-    emit({"phase": "mesh_train", "nccl_train": record})
-    _check_mt_run("nccl", res, ref, (1, MESH_MODEL), full)
     launches = collections.Counter()
-    for r in res:
-        launches.update(r["launches"])
-    return record, launches
+    out = {}
+    for shape, fsdp in (((1, MESH_MODEL), False), ((2, 2), True)):
+        data, model = shape
+        tag = f"{data}x{model}" + ("_fsdp" if fsdp else "")
+        ref = _mt_reference(full, data, store, tensors=False)
+        res = spawn(_mt_rank, data, model, backend="nccl", device="cuda",
+                    store_dir=store / f"nccl_train_{tag}",
+                    args=({"layers": full.num_layers, "tensors": False,
+                           "profile": True, "fsdp": fsdp},),
+                    timeout=MESH_TRAIN_TIMEOUT_S)
+        out[tag] = {
+            "layers": full.num_layers, "shape": list(shape),
+            "policy": ("policy_for(mesh, step_kind='train'): fsdp" if fsdp
+                       else "ShardingPolicy(mesh)"),
+            "ranks": len(res), "cards": cards,
+            "param_bytes_per_rank": [r["param_bytes"] for r in res],
+            "moment_bytes_per_rank": [r["moment_bytes"] for r in res],
+            "devices": [r["device"] for r in res],
+            "losses": [h["loss"] for h in res[0]["history"]],
+            "one_process_losses": [h["loss"] for h in ref["history"]],
+            "grad_norms": [h["grad_norm"] for h in res[0]["history"]],
+            "one_process_grad_norms": [h["grad_norm"]
+                                       for h in ref["history"]],
+            "launches_per_rank": [r["launches"] for r in res],
+            "staged_bytes_per_rank": [r["staged_bytes"] for r in res],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in res],
+            "step_ms_median_per_rank": [
+                statistics.median(r["step_ms"][1:]) for r in res],
+            "one_process_step_ms_median": statistics.median(
+                ref["step_ms"][1:]),
+            "one_process_peak_bytes": ref["peak_bytes"],
+            "rank0_step_profile": res[0].get("profile")}
+        emit({"phase": "mesh_train", "nccl_train": tag, **out[tag]})
+        _check_mt_run(f"nccl {tag}", res, ref, shape, full, fsdp=fsdp)
+        check(not fsdp or all((r["param_bytes"], r["moment_bytes"])
+                              == MESH_TRAIN_FSDP_FULL_BYTES for r in res),
+              f"mesh_train nccl {tag}: a rank holds "
+              f"{[(r['param_bytes'], r['moment_bytes']) for r in res]} B, "
+              f"not {MESH_TRAIN_FSDP_FULL_BYTES}")
+        for r in res:
+            launches.update(r["launches"])
+        del res
+        gc.collect()
+    return out, launches
 
 
 def phase_mesh_train(kernel_summary):
-    """Training under the mesh: (1, 4) and (2, 2) meshes of gloo ranks on
-    this card against one-process runs (8 layers), a save from (2, 2)
-    restored on one process; with 4 cards, full granite trained at (1, 4)
-    over NCCL, a card a rank, against one process."""
+    """Training under the mesh: gloo ranks on this card against
+    one-process runs (8 layers) at (1, 4) and under FSDP at (2, 2) and
+    (4, 1), the (2, 2) save restored on one process and at (4, 1); with 4
+    cards, full granite trained over NCCL at (1, 4) and under FSDP at
+    (2, 2), a card a rank, against one process."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
@@ -4244,26 +4489,37 @@ def phase_mesh_train(kernel_summary):
     store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
     launches = collections.Counter()
     runs = {}
+    saved = None
     try:
-        for shape in ((1, MESH_MODEL), (2, 2)):
+        # (1, 4) without FSDP (a 1-wide data axis); (2, 2) and (4, 1) under
+        # the production policy, policy_for(mesh, step_kind="train"):
+        # ZeRO-3 over data. The (2, 2) run saves; the (4, 1) run restores
+        # that save onto its own blocks before it trains
+        for shape, fsdp in (((1, MESH_MODEL), False), ((2, 2), True),
+                            ((4, 1), True)):
             data, model = shape
             tag = f"{data}x{model}"
             t0 = time.perf_counter()
             ref = _mt_reference(cfg, data, store, tensors=True)
             ref_s = time.perf_counter() - t0
             save = store / "ckpt" if shape == (2, 2) else None
+            restore = saved is not None and shape == (4, 1)
             t0 = time.perf_counter()
             res = spawn(_mt_rank, data, model, backend="gloo", device="cuda",
                         store_dir=store / tag,
-                        args=({"layers": L, "tensors": True,
+                        args=({"layers": L, "tensors": True, "fsdp": fsdp,
                                "grads": ref["grads"], "final": ref["final"],
-                               "save": None if save is None else str(save)},),
+                               "save": None if save is None else str(save),
+                               "restore": (str(store / "ckpt") if restore
+                                           else None)},),
                         timeout=MESH_TRAIN_TIMEOUT_S)
             spawn_s = time.perf_counter() - t0
             for r in res:
                 launches.update(r["launches"])
             runs[tag] = {
                 "shape": list(shape), "layers": L, "cards": cards,
+                "policy": ("policy_for(mesh, step_kind='train'): fsdp"
+                           if fsdp else "ShardingPolicy(mesh)"),
                 "ranks": len(res), "backend": "gloo",
                 "transport": "4 processes sharing one card, collectives "
                 "staged through pinned host buffers",
@@ -4286,6 +4542,7 @@ def phase_mesh_train(kernel_summary):
                     for h, w in zip(res[0]["history"], ref["history"])],
                 "grad_share_per_rank": [r["grad_share"] for r in res],
                 "param_share_per_rank": [r["param_share"] for r in res],
+                "param_share_limit": MESH_TRAIN_PARAM_TOL,
                 "update_cos_per_rank": [r["update_cos"] for r in res],
                 "param_bytes_per_rank": res[0]["param_bytes"],
                 "moment_bytes_per_rank": res[0]["moment_bytes"],
@@ -4302,29 +4559,30 @@ def phase_mesh_train(kernel_summary):
                 "wall_s_per_rank": [r["wall_s"] for r in res],
                 "spawn_s": spawn_s, "one_process_s": ref_s,
             }
-            # one process again: how far the card's own runs part
-            again = _mt_reference(cfg, data, store, tensors=False,
-                                  compare_to=ref["final"])
-            param_limit = MESH_TRAIN_PARAM_SPREAD * again["param_share"][0]
-            runs[tag].update(
-                one_process_rerun_losses=[h["loss"] for h in again["history"]],
-                one_process_rerun_grad_norms=[h["grad_norm"]
-                                              for h in again["history"]],
-                one_process_rerun_update_cos=again["update_cos"],
-                one_process_rerun_param_share=again["param_share"],
-                param_share_limit=param_limit)
             emit({"phase": "mesh_train", "run": tag, **runs[tag]})
-            _check_mt_run(tag, res, ref, shape, cfg, param_limit)
+            _check_mt_run(tag, res, ref, shape, cfg, fsdp)
+            if fsdp:
+                check(all((r["param_bytes"], r["moment_bytes"])
+                          == MESH_TRAIN_FSDP_BYTES for r in res),
+                      f"mesh_train {tag}: a rank holds "
+                      f"{[(r['param_bytes'], r['moment_bytes']) for r in res]}"
+                      f" B, not {MESH_TRAIN_FSDP_BYTES}")
             emit({"phase": "mesh_train", "run": tag, "checks": "passed",
                   "replicas_bit_equal": True})
             if save is not None:
+                saved = (tag, res)
+            if restore:
                 t0 = time.perf_counter()
-                runs[tag]["save"] = _check_mesh_save(save, res, cfg, shape)
-                runs[tag]["save"].update(
-                    restored_equal=True, check_s=time.perf_counter() - t0,
-                    save_s_per_rank=[r["save_s"] for r in res])
-                emit({"phase": "mesh_train", "run": tag,
-                      "save": runs[tag]["save"]})
+                save_tag, save_res = saved
+                check_ = _check_mesh_save(store / "ckpt", save_res, cfg,
+                                          (2, 2), True, restored=(shape, res))
+                check_.update(restored_equal=True,
+                              check_s=time.perf_counter() - t0,
+                              save_s_per_rank=[r["save_s"] for r in save_res])
+                runs[save_tag]["save"] = check_
+                emit({"phase": "mesh_train", "run": save_tag,
+                      "save": check_})
+                saved = None
             del res
             gc.collect()
         n_cards = torch.cuda.device_count()
@@ -4350,8 +4608,10 @@ def phase_mesh_train(kernel_summary):
 
 def nccl_paths():
     """The multi-card paths alone (four cards): the ``mesh`` phase's NCCL
-    ``"scan"`` serve and the ``mesh_train`` phase's NCCL training of full
-    granite, each against its one-process run. Returns their launches."""
+    ``"scan"`` serves at (1, 4) and under FSDP at (4, 1) and the
+    ``mesh_train`` phase's NCCL training of full granite at (1, 4) and
+    under FSDP at (2, 2), each against its one-process run. Returns their
+    launches."""
     import shutil
     import tempfile
 
@@ -4370,10 +4630,7 @@ def nccl_paths():
     launches = collections.Counter()
     try:
         t0 = time.perf_counter()
-        ref = _mesh_reference(cfg, MESH_MODEL, 1, store)
-        ref_fp32 = _mesh_reference(_mesh_config(MESH_FP32_LAYERS), MESH_MODEL,
-                                   1, store, torch.float32)
-        record, counts = _nccl_scan(ref, ref_fp32, store, row_bytes, cards)
+        record, counts = _nccl_scan(store, row_bytes, cards)
         launches.update(counts)
         emit({"phase": "mesh", "nccl_scan": record,
               "seconds": time.perf_counter() - t0})
@@ -4473,8 +4730,10 @@ def main(argv=None) -> int:
         k: rank_row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                  "library_ms", "bound_ms", "bound_by",
                                  "device_us", "bound_share")}
-    for i, name, tags in ((0, "moe_ffn", ("train_rank", "train_rank_2x2")),
-                          (1, "topk_router_stats", ("train_rank_2x2",))):
+    for i, name, tags in ((0, "moe_ffn", ("train_rank", "train_rank_2x2",
+                                          "train_rank_4x1")),
+                          (1, "topk_router_stats", ("train_rank_2x2",
+                                                    "train_rank_4x1"))):
         for tag in tags:
             row = summary[f"{name}/{tag}"]
             kernels[i][tag] = {

@@ -62,6 +62,20 @@ sequence sharded over ``model``) adds these, each with its adjoint:
   rank's queries against the gathered K/V) sum their gradients over every
   rank's rows in one device's order: a sequence-parallel step's gradients
   are one device's, bit for bit, wherever the forward's are.
+
+**The data axis's layout** (ZeRO-3, a policy with ``fsdp``) adds
+:func:`gather_fsdp`: a layer's block of a leaf stored over ``data`` is
+gathered whole along its data dim just before the layer uses it, and
+each data rank uses the gathered weight for its own rows (or, in
+replicated-activation decode, for every row alike, with no gradient). Its
+adjoint is a reduce-scatter
+(:meth:`~repro_torch.launch.mesh.Mesh.reduce_scatter`): each rank
+receives every data rank's gradient of its block of the gathered weight
+and sums them in fp32 in rank order, as
+:meth:`~repro_torch.launch.mesh.Mesh.all_reduce` sums, at 1/d of the
+bytes an ``all_reduce`` and a slice would receive. A leaf's gradient so
+leaves the backward complete over ``data`` and sharded as the leaf is;
+the model-axis code above runs on the gathered layer unchanged.
 """
 from __future__ import annotations
 
@@ -71,8 +85,8 @@ from . import autograd as _ag
 from .ops import moe_ffn, topk_router
 
 __all__ = ["moe_ffn_sharded", "topk_router_sharded", "gather_over",
-           "sum_over", "gather_cat", "take_block", "rows_linear", "scale_rows",
-           "rows_attention"]
+           "sum_over", "gather_cat", "gather_fsdp", "take_block",
+           "rows_linear", "scale_rows", "rows_attention"]
 
 
 def _needs_grad(*tensors) -> bool:
@@ -273,6 +287,31 @@ def gather_cat(t, mesh, axis, dim: int):
     if not (torch.is_grad_enabled() and t.requires_grad):
         return _cat(mesh.all_gather(t, axis), dim)
     return _GatherCat.apply(t, mesh, axis, dim)
+
+
+class _GatherFSDP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.block = t.shape[dim]
+        return _cat(mesh.all_gather(t, axis), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim,
+                                       dtype=torch.float32)
+        return mine.to(g.dtype), None, None, None
+
+
+def gather_fsdp(t, mesh, axis, dim: int):
+    """A layer's block ``t`` of a leaf stored over ``axis`` (FSDP's
+    ``data``), gathered whole along ``dim`` in axis order. Backward: the
+    reduce-scatter, every rank's gradient of the whole summed in fp32 in
+    rank order and the rank's block kept, in ``t``'s dtype."""
+    dim = dim % t.dim()
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return _cat(mesh.all_gather(t, axis), dim)
+    return _GatherFSDP.apply(t, mesh, axis, dim)
 
 
 def take_block(t, mesh, axis, dim: int):

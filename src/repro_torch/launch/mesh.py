@@ -14,6 +14,8 @@ The collectives the expert-parallel data plane needs live here, over a
 named axis (or a tuple of axes): :meth:`Mesh.all_gather`,
 :meth:`Mesh.all_reduce` (a gather reduced in rank order: the training
 step's gradient reductions, the model axis's partial sums),
+:meth:`Mesh.reduce_scatter` (the same sum, each rank its block: FSDP's
+gradients),
 :meth:`Mesh.broadcast`,
 :meth:`Mesh.all_to_all_single` and
 :meth:`Mesh.send_recv` (paired point-to-point transfers). Under
@@ -213,6 +215,32 @@ class Mesh:
                 torch.maximum(out, p.to(dtype), out=out)
         return out
 
+    def reduce_scatter(self, t: torch.Tensor, axis, dim: int = 0,
+                       dtype=None) -> torch.Tensor:
+        """This rank's block along ``dim`` (one of ``size(axis)``, in axis
+        order) of the sum of every rank's ``t`` along ``axis``, in
+        ``dtype`` (default ``t``'s): each rank's blocks go to their owners
+        in one :meth:`all_to_all_single` of ``t`` as it is, and the owner
+        adds them in axis order — :meth:`all_reduce`'s sum, bit for bit,
+        of this block alone, at 1/n of its bytes received. A 1-wide axis
+        moves nothing."""
+        dtype = dtype or t.dtype
+        n = self.size(axis)
+        if n == 1:
+            return t.to(dtype)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not "
+                             f"split over {n} ranks")
+        per = t.shape[dim] // n
+        rows = t.movedim(dim, 0)
+        got = self.all_to_all_single(rows.reshape(t.shape[dim], -1), axis,
+                                     [per] * n, [per] * n)
+        parts = got.view(n, per, -1)
+        out = parts[0].to(dtype, copy=True)
+        for p in parts[1:]:
+            out.add_(p.to(dtype))
+        return out.view(per, *rows.shape[1:]).movedim(0, dim)
+
     def all_to_all_single(self, inp: torch.Tensor, axis,
                           in_splits: list[int], out_splits: list[int]
                           ) -> torch.Tensor:
@@ -293,7 +321,16 @@ def policy_for(mesh, *, step_kind: str, global_batch: int | None = None,
       batch sharded over data (``cache_batch_axes``).
 
     The same decisions as JAX's; ``mesh`` needs only ``shape`` and
-    ``axis_names``.
+    ``axis_names``. What the port stores under them
+    (:func:`~repro_torch.sharding.param_specs`): every policy stores the
+    projections, the vocabulary and the expert slots over ``model`` and
+    the dense KV cache's positions over ``kv_seq_axes``; ``fsdp`` (every
+    train step, and inference past 6 GB a model-axis shard) also stores
+    those leaves over ``data`` (ZeRO-3, their moments with them, a layer
+    gathered before it runs); the cache's rows lie over
+    ``cache_batch_axes`` (decode under FSDP: every rank runs every row and
+    holds a 1/d share of the rows) or the batch axes. The SSM and hybrid
+    families keep their leaves and caches whole under every policy.
     """
     from ..sharding.policy import ShardingPolicy
 

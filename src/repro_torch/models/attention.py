@@ -251,7 +251,7 @@ def _combine(s_cache, v_cache, s_new, v_new, mesh, axes):
 
 
 def attention_decode(x, p, k_cache, v_cache, cur_len, config: ModelConfig,
-                     policy=None):
+                     policy=None, *, rows: slice | None = None):
     """One decode step against one layer's dense cache.
 
     x (B, 1, D); ``k_cache``/``v_cache`` (B, S_max, KV, hd), one panel per
@@ -270,9 +270,12 @@ def attention_decode(x, p, k_cache, v_cache, cur_len, config: ModelConfig,
 
     Under a ``policy`` (see the module's notes) the panels are the rank's
     block of S_max positions over ``kv_seq`` and the projections its
-    shards.
+    shards. ``rows``: the rows of x whose panels the cache holds, when it
+    holds only those (:func:`~repro_torch.models.model.decode_cache_rows`,
+    under replicated activations): the rank projects every row, attends and
+    writes its rows, and their outputs are gathered over the policy's
+    cache-batch axes in row order before ``wo``.
     """
-    B = x.shape[0]
     H, KV, hd = config.num_heads, config.num_kv_heads, config.head_dim
     G = H // KV
     S_loc = k_cache.shape[-3]
@@ -281,6 +284,9 @@ def attention_decode(x, p, k_cache, v_cache, cur_len, config: ModelConfig,
     lo = 0 if kv is None else policy.mesh.index(kv) * S_loc
     S_max = S_loc * n
     q, k_new, v_new = _project_qkv(x, p, config, policy)
+    if rows is not None:
+        q, k_new, v_new = q[rows], k_new[rows], v_new[rows]
+    B = q.shape[0]
     cur = cur_len.reshape(1).long()
     cos, sin = rope(cur, hd, config.rope_theta)  # (1, hd/2)
     q = apply_rope(q, cos[None], sin[None])
@@ -321,6 +327,8 @@ def attention_decode(x, p, k_cache, v_cache, cur_len, config: ModelConfig,
     else:
         out = _combine(s_cache, v_cache, s_new, v_new[:, 0], policy.mesh, kv)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
+    if rows is not None:
+        out = gather_cat(out, policy.mesh, policy.cache_batch, 0)
     y = _output(out, p, policy)
 
     if kv is None:

@@ -15,6 +15,10 @@ of tensors, as in the JAX package:
   the capacity-overflow shed pass after the drop.
 * :func:`expert_compute` — gather tokens into (Gd, S, C, D) buffers and
   run the grouped FFN through :func:`repro_torch.kernels.ops.moe_ffn`.
+  The gather's backward adds each token's up to ``k · expert_tp`` slot
+  cotangents in fp32 and rounds once to the input's dtype
+  (:class:`_GatherRows`): ``scatter_add_`` in bf16 on CUDA rounds at
+  every atomic add, in an order that changes from run to run.
 * :func:`combine` — a gather, not a scatter-add: each token sums its
   ``k · expert_tp`` assignment rows, laid out in (k, tp) order, with one
   fixed-shape reduction; dropped rows read a zero sink row. ``index_add_``
@@ -365,6 +369,30 @@ def build_dispatch(router: RouterOutput, expert_to_slot, config: ModelConfig,
     )
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.shape = x.shape
+        return torch.gather(x, 1, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        out = g.new_zeros(ctx.shape, dtype=torch.float32)
+        out.scatter_add_(1, index, g.float())
+        return out.to(g.dtype), None
+
+
+def _gather_rows(x, idx):
+    """``x[g, idx[g, m]]`` for x (G, N, D), idx (G, M) → (G, M, D); under
+    a gradient each row's cotangents are summed in fp32."""
+    index = idx[:, :, None].expand(-1, -1, x.shape[-1])
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.gather(x, 1, index)
+    return _GatherRows.apply(x, index)
+
+
 def expert_compute(xg, plan: DispatchPlan, p, config: ModelConfig,
                    policy=None, *, groups: int | None = None):
     """Gather per-plan into (G, S, C, D) buffers, run the FFN, apply the
@@ -379,9 +407,7 @@ def expert_compute(xg, plan: DispatchPlan, p, config: ModelConfig,
     G, Ng, D = xg.shape
     S, C = plan.num_slots, plan.capacity
     x_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
-    idx = plan.flat_idx.long()
-    x_e = torch.gather(x_pad, 1, idx[:, :, None].expand(G, S * C, D))
-    x_e = x_e.reshape(G, S, C, D)
+    x_e = _gather_rows(x_pad, plan.flat_idx.long()).reshape(G, S, C, D)
     mesh = _mesh(policy)
     data_spec = expert_spec = pad_to = None
     if mesh is not None:

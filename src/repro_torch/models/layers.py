@@ -48,8 +48,7 @@ WHOLE_DRAW_BYTES = 8 << 30
 
 
 def normal_init(shape, scale: float, *, dtype, device,
-                generator: torch.Generator, keep: slice | None = None,
-                shard=None):
+                generator: torch.Generator, keep=None, shard=None):
     """``N(0, 1) · scale`` in ``dtype``, drawn in fp32 from ``generator``.
 
     A weight whose fp32 draw fits in :data:`WHOLE_DRAW_BYTES` is drawn
@@ -58,22 +57,23 @@ def normal_init(shape, scale: float, *, dtype, device,
     the ``dtype`` tensor, so no fp32 copy of the whole stack exists. On the
     CPU the two give the same values when a slice holds a multiple of 16
     elements; on the card the draws differ (the generator's offsets follow
-    each call's size). ``keep``, a slice of dim 1, keeps only those rows
-    of the same draw (a rank's expert slots), drawn a leading slice at a
-    time whatever the size, so that no rank holds a whole stack. On the
-    meta device nothing is drawn (no generator can draw there): the result
-    is an empty meta tensor of the shape (after ``keep``) and ``dtype``,
-    and ``generator`` may be None. ``shard``, a function of the drawn
-    tensor, keeps a rank's block of it after the draw (a contiguous copy,
-    so that the whole draw is freed): the values are the one-device
-    draw's."""
+    each call's size). ``keep``, a function of one leading slice's draw
+    that returns the rank's block of it (its expert slots, and under FSDP
+    its block of ``d_model``), keeps only that of each slice, drawn a
+    leading slice at a time whatever the size, so that no rank holds a
+    whole stack. On the meta device nothing is drawn (no generator can
+    draw there): the result is an empty meta tensor of the shape (after
+    ``keep``) and ``dtype``, and ``generator`` may be None. ``shard``, a
+    function of the drawn tensor, keeps a rank's block of it after the
+    draw (a contiguous copy, so that the whole draw is freed): the values
+    are the one-device draw's."""
     if shard is not None:
         w = normal_init(shape, scale, dtype=dtype, device=device,
                         generator=generator, keep=keep)
         return shard(w).contiguous()
     kept = tuple(shape)
     if keep is not None:
-        kept = (shape[0], len(range(shape[1])[keep]), *shape[2:])
+        kept = (shape[0], *keep(torch.empty(shape[1:], device="meta")).shape)
     if torch.device(device).type == "meta":
         return torch.empty(kept, dtype=dtype, device=device)
     numel = int(np.prod(shape))
@@ -85,7 +85,7 @@ def normal_init(shape, scale: float, *, dtype, device,
     for i in range(shape[0]):
         w = torch.randn(shape[1:], generator=generator, device=device,
                         dtype=torch.float32)
-        out[i].copy_((w if keep is None else w[keep]).mul_(scale))
+        out[i].copy_((w if keep is None else keep(w)).mul_(scale))
     return out
 
 

@@ -42,6 +42,18 @@ applied to a rank's rows (the norm scales) would send back only its
 rows' share of the gradient, so its use sums the gradient over every
 rank's rows (:func:`~repro_torch.kernels.sharded.scale_rows`). The SSM
 and hybrid families keep every leaf and cache whole.
+
+**Under FSDP** (a policy with ``fsdp``, ZeRO-3) the same leaves are also
+stored over ``data``. Each layer's blocks are gathered whole over
+``data`` as the layer starts (:func:`_gather_layer`, inside the remat
+body, so that the backward gathers again rather than keep them), and the
+embedding and the head as the step starts: a stacked leaf is never
+gathered whole, and the model-axis code runs on the gathered layer as
+before. The gathers' adjoints reduce-scatter the gradients, so that each
+leaf's gradient leaves the backward complete and sharded. Under
+replicated-activation decode (``batch_axes=()``, the cache's rows over
+``cache_batch_axes``) every rank runs every row and holds, writes and
+attends only its rows of the dense KV cache (:func:`decode_cache_rows`).
 """
 from __future__ import annotations
 
@@ -54,8 +66,10 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import launches
-from ..kernels.sharded import gather_cat, sum_over, take_block
+from ..kernels.sharded import gather_cat, gather_fsdp, sum_over, take_block
 from ..sharding.policy import (
+    fsdp_dim,
+    fsdp_gather_axis,
     kv_shard,
     layout_policy,
     model_axis,
@@ -86,6 +100,7 @@ from .ssm import init_ssm, ssm_cache_zeros, ssm_decode, ssm_train
 
 __all__ = [
     "data_rows",
+    "decode_cache_rows",
     "init_params",
     "forward_train",
     "loss_fn",
@@ -112,9 +127,10 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
 
     Under a ``policy`` with a mesh every rank makes the same draws and
     keeps its shard of each leaf by :func:`~repro_torch.sharding.
-    param_specs`: each leaf is drawn as one device draws it and sliced at
-    once, and each expert stack (:func:`~repro_torch.models.moe.init_moe`)
-    is drawn a layer at a time."""
+    param_specs` (its ZeRO block under FSDP): each leaf is drawn as one
+    device draws it and sliced at once, and each sharded expert stack
+    (:func:`~repro_torch.models.moe.init_moe`) is drawn a layer at a time,
+    each layer sliced as it is drawn."""
     L, D, V = config.num_layers, config.d_model, config.padded_vocab
     device = resolve_device(device)
     g = None
@@ -126,12 +142,15 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
         specs = param_specs(init_params(config, device="meta", dtype=dtype),
                             policy, config)
 
-    def shard(*path):
+    def shard(*path, layer: bool = False):
+        """The function that keeps the rank's block of a leaf (with
+        ``layer``, of one layer of a stacked leaf), or None."""
         spec = specs
         for k in path:
             spec = spec.get(k, {}) if isinstance(spec, dict) else None
         if not spec_axes(spec if isinstance(spec, tuple) else None):
             return None
+        spec = spec[1:] if layer else spec
         return lambda w: take_shard(w, spec, policy.mesh,
                                     leaf="/".join(path))
 
@@ -162,9 +181,10 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
                                    shard=sharder("blocks", "attn")),
         }
         if config.is_moe:
-            blocks["moe"] = init_moe(config, num_layers=L, dtype=dtype,
-                                     device=device, generator=g,
-                                     policy=policy)
+            blocks["moe"] = init_moe(
+                config, num_layers=L, dtype=dtype, device=device,
+                generator=g,
+                shard=lambda name: shard("blocks", "moe", name, layer=True))
         else:
             blocks["mlp"] = init_gated_mlp(D, config.d_ff, num_layers=L,
                                            dtype=dtype, device=device,
@@ -214,6 +234,41 @@ def _stack_aux(auxes: list[MoEAux]) -> MoEAux:
     ))
 
 
+def _gather_layer(lp, policy, config: ModelConfig):
+    """One layer's leaves (a dict of views of the stacks under
+    ``blocks``) with every block stored over ``data`` gathered whole
+    along its FSDP dim (:func:`~repro_torch.kernels.sharded.gather_fsdp`);
+    ``lp`` itself without FSDP."""
+    axis = fsdp_gather_axis(policy, config)
+    if axis is None:
+        return lp
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        dim = fsdp_dim(path, tree.dim() + 1, tied=config.tie_embeddings)
+        if dim is None:
+            return tree
+        return gather_fsdp(tree, policy.mesh, axis, dim - 1)
+
+    return walk(lp, ("blocks",))
+
+
+def _gather_top(params, policy, config: ModelConfig):
+    """``params`` with the embedding (and an untied head) gathered whole
+    over ``data`` under FSDP, else ``params``."""
+    axis = fsdp_gather_axis(policy, config)
+    if axis is None:
+        return params
+    out = dict(params)
+    for name in ("embed", "lm_head"):
+        if name in params:
+            dim = fsdp_dim((name,), params[name].dim(),
+                           tied=config.tie_embeddings)
+            out[name] = gather_fsdp(params[name], policy.mesh, axis, dim)
+    return out
+
+
 def _embed_input(params, tokens, config: ModelConfig, patches=None,
                  policy=None):
     """tokens (B, S) (+ vision patch embeddings (B, P, D), prepended) →
@@ -255,6 +310,7 @@ def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
     layout = layout_policy(policy, config)
     axis = model_axis(layout)
     rows = (policy.mesh, axis) if seq_sharded and axis is not None else None
+    lp = _gather_layer(lp, policy, config)
     h = rms_norm(x, lp["ln1"], config.norm_eps, rows=rows)
     a, kv = attention_train(h, lp["attn"], config, return_cache=return_cache,
                             policy=layout, seq_sharded=seq_sharded)
@@ -375,6 +431,7 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
     if rows is not None:
         tokens = tokens[rows]
         patches = None if patches is None else patches[rows]
+    params = _gather_top(params, policy, config)
     x = _embed_input(params, tokens, config, patches, policy)
     sp = sequence_shards(policy, config, x.shape[1]) > 1
     if sp:
@@ -481,6 +538,7 @@ def prefill(params, tokens, config: ModelConfig, placements=None, *,
     ``num_slots``: the expert pool's global slot count, which
     :func:`~repro_torch.models.moe.moe_layer` needs under a model axis.
     """
+    params = _gather_top(params, policy, config)
     x = _embed_input(params, tokens, config, patches, policy)
     sp = sequence_shards(policy, config, x.shape[1]) > 1
     if sp:
@@ -572,6 +630,28 @@ def data_rows(policy, batch: int) -> slice | None:
     return slice(lo, lo + rows)
 
 
+def decode_cache_rows(policy, config: ModelConfig, batch: int) -> slice | None:
+    """The rows of a ``batch``-row dense decode cache that this rank
+    holds, or None for all of them: the rows it runs where the batch
+    shards (:func:`data_rows`, every cache of every family); else, for
+    the families laid out on the mesh, its block of the rows over
+    ``cache_batch_axes`` when their extent (> 1) divides ``batch``: the
+    replicated-activation decode of an FSDP policy (``batch_axes=()``),
+    where every rank runs every row and attends only its cache rows."""
+    rows = data_rows(policy, batch)
+    layout = layout_policy(policy, config)
+    if (rows is not None or layout is None or layout.mesh is None
+            or not layout.cache_batch_axes):
+        return rows
+    axes = tuple(layout.cache_batch_axes)
+    n = layout.mesh.size(axes)
+    if n <= 1 or batch % n:
+        return None
+    per = batch // n
+    lo = layout.mesh.index(axes) * per
+    return slice(lo, lo + per)
+
+
 def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
                 placements=None, *, block_tables=None, shed_enables=None,
                 policy=None, num_slots=None):
@@ -598,7 +678,12 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
     the expert pool's global slot count, as :func:`prefill` takes it.
     Under a model axis the projections, the MLP and the vocabulary are
     the rank's shards and the dense caches the rank's block of positions
-    (:func:`~repro_torch.models.attention.attention_decode`).
+    (:func:`~repro_torch.models.attention.attention_decode`). Under FSDP
+    each layer's blocks are gathered whole over ``data`` before it runs.
+    Where every rank runs every row but the dense cache holds only the
+    rank's rows (:func:`decode_cache_rows`: an FSDP policy's replicated
+    activations), each rank attends its rows and the attention outputs
+    are gathered over the cache-batch axes in row order.
     """
     if block_tables is not None and (config.is_ssm or config.is_hybrid):
         raise ValueError("paged decode requires an attention-family arch")
@@ -610,7 +695,12 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
         tokens = tokens[rows]
         if block_tables is not None:
             block_tables, cur_len = block_tables[rows], cur_len[rows]
+    # the dense cache's rows of a batch every rank runs whole
+    kv_rows = None
+    if rows is None and block_tables is None:
+        kv_rows = decode_cache_rows(policy, config, B)
     layout = layout_policy(policy, config)
+    params = _gather_top(params, policy, config)
     x = embed_tokens(tokens, params["embed"], config, layout)
     moe_aux = None
     if config.is_hybrid:
@@ -641,7 +731,7 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
         pools = caches["attn"]
         auxes = []
         for i in range(L):
-            lp = _layer(blocks, i)
+            lp = _gather_layer(_layer(blocks, i), policy, config)
             h = rms_norm(x, lp["ln1"], config.norm_eps)
             if block_tables is not None:
                 a = attention_decode_paged(
@@ -650,7 +740,8 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
                 )
             else:
                 a = attention_decode(h, lp["attn"], pools["k"][i],
-                                     pools["v"][i], cur_len, config, layout)
+                                     pools["v"][i], cur_len, config, layout,
+                                     rows=kv_rows)
             x = x + a
             h2 = rms_norm(x, lp["ln2"], config.norm_eps)
             if config.is_moe:

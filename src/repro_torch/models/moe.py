@@ -20,9 +20,15 @@ off the stacked weights, so one code path serves both pools.
 stores the slots ``[d·S/m, (d+1)·S/m)`` of the pool, d its model-axis
 position (:func:`~repro_torch.sharding.local_expert_slots`; a pool the
 axis does not divide is stored whole), and the router tables name global
-slots. The dispatch groups shard over the data axes, and
-:func:`apply_layer_permutation` moves rows between ranks as collectives
-(:mod:`repro_torch.kernels.collective`).
+slots. Under FSDP each rank also stores its block of ``d_model`` of each
+slot's rows (JAX's ``w_expert`` spec), gathered whole over ``data`` a
+layer at a time before K1 runs (:func:`~repro_torch.models.model.
+decode_step` and the training stack), so K1 always sees whole ``D`` and
+``F`` on the rank's slots, as under JAX's ``shard_map``. The dispatch
+groups shard over the data axes, and :func:`apply_layer_permutation`
+moves rows between ranks as collectives
+(:mod:`repro_torch.kernels.collective`): under FSDP each rank moves its
+``d_model`` block of the rows within its data row.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.sharded import gather_cat, gather_over, take_block
-from ..sharding.policy import local_expert_slots, model_axis
+from ..sharding.policy import model_axis
 from .dispatch import (
     MoEAux,
     build_dispatch,
@@ -56,11 +62,14 @@ __all__ = [
 
 
 def init_moe(config: ModelConfig, *, num_layers: int, dtype, device,
-             generator: torch.Generator, policy=None):
-    """Random MoE weights. Under a policy that shards the pool each
-    expert stack keeps only this rank's slots of each layer's draw
-    (:func:`~repro_torch.models.layers.normal_init` with ``keep``: a
-    layer at a time, so no rank holds a whole stack)."""
+             generator: torch.Generator, shard=None):
+    """Random MoE weights. ``shard``, given a leaf's name, returns the
+    function that keeps a rank's block of one layer of it (its slots of
+    the pool, and under FSDP its block of ``d_model``), or None for a
+    whole leaf: each such expert stack is drawn a layer at a time and
+    keeps only that block of each layer
+    (:func:`~repro_torch.models.layers.normal_init` with ``keep``), so no
+    rank holds a whole stack."""
     D = config.d_model
     E = config.num_experts
     Ev = config.num_virtual_experts
@@ -68,17 +77,16 @@ def init_moe(config: ModelConfig, *, num_layers: int, dtype, device,
     s_in = float(1.0 / np.sqrt(D))
     s_out = float(1.0 / np.sqrt(config.expert_d_ff))
 
-    rows = local_expert_slots(policy, Ev)
-
-    def normal(shape, scale, keep=None):
+    def normal(shape, scale, name=None):
+        keep = None if name is None or shard is None else shard(name)
         return normal_init(shape, scale, dtype=dtype, device=device,
                            generator=generator, keep=keep)
 
     return {
         "router": normal((num_layers, D, E), s_in),
-        "w_gate": normal((num_layers, Ev, D, Fv), s_in, rows),
-        "w_up": normal((num_layers, Ev, D, Fv), s_in, rows),
-        "w_down": normal((num_layers, Ev, Fv, D), s_out, rows),
+        "w_gate": normal((num_layers, Ev, D, Fv), s_in, "w_gate"),
+        "w_up": normal((num_layers, Ev, D, Fv), s_in, "w_up"),
+        "w_down": normal((num_layers, Ev, Fv, D), s_out, "w_down"),
     }
 
 

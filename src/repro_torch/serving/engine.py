@@ -82,7 +82,15 @@ charged by it, as the JAX engine's are. A replicated pool's retarget
 under ``"collective"`` is fig21's two-phase install (one fetch a device
 and new expert, then the local fan-out). ``decode_mode="scan"`` needs
 NCCL on the card (a gloo collective cannot be captured: ``ValueError``);
-on the CPU every mode runs eagerly.
+on the CPU every mode runs eagerly. Under an FSDP decode policy
+(``policy_for`` past 6 GB a model-axis shard: ``fsdp=True``,
+``batch_axes=()``, ``cache_batch_axes=("data",)``) the leaves are also
+stored over ``data`` and gathered a layer at a time, every rank decodes
+every row as one dispatch group, and the dense cache holds the rank's
+rows over ``data`` (:func:`~repro_torch.models.model.decode_cache_rows`):
+the prefill's K/V is seated only by the row's owner, and a migration
+record's ``payload_bytes`` counts each slot's whole row, every data row's
+block of it.
 
 **Telemetry** (:mod:`repro_torch.telemetry`): the engine always holds a
 hub (``telemetry=None`` gives a disabled one, which records counters but
@@ -168,7 +176,7 @@ from ..models.attention import sequence_shards
 from ..models.dispatch import slot_capacity
 from ..models.model import (
     DecodeGraph,
-    data_rows,
+    decode_cache_rows,
     decode_step,
     init_decode_cache,
     init_paged_decode_cache,
@@ -212,6 +220,7 @@ from .kv_cache import (
 )
 from ..sharding.policy import (
     ShardingPolicy,
+    fsdp_gather_axis,
     host_policy,
     kv_shard,
     local_expert_slots,
@@ -405,8 +414,10 @@ class ServingEngine:
         self.params = params
         self.config = config
         self.ecfg = engine_config
-        # the decode rows this rank runs (None: all of them)
-        self._rows = data_rows(policy, engine_config.max_batch)
+        # the dense cache's rows this rank holds (None: all of them): the
+        # rows it decodes, or under replicated activations its cache rows
+        self._rows = decode_cache_rows(policy, config,
+                                       engine_config.max_batch)
         # the telemetry hub, always built (disabled when none is passed):
         # its registry holds the migration records. The clock binds to the
         # simulated time before the online controller is built, whose
@@ -480,7 +491,7 @@ class ServingEngine:
                 dtype=embed.dtype,
             )
         else:
-            # under a data-sharded batch, the rank's rows only
+            # the rank's rows only, where the batch or the cache shards
             rows = self._rows
             self.caches = init_decode_cache(
                 config,
@@ -906,8 +917,13 @@ class ServingEngine:
             self.placements = new_tables  # copied in place (setter)
         if self._collective_axis is None:
             return []
+        # one slot's bytes over every rank of its model rank's column: a
+        # rank stores its block of d_model under FSDP, and each data row
+        # moves its own
         row_bytes = sum(int(np.prod(w.shape[2:])) * w.element_size()
                         for w in ws)
+        row_bytes *= self.policy.mesh.size("data") if fsdp_gather_axis(
+            self.policy, self.config) else 1
         return [st for _, st in stats_for_dense_sources(
             src, self.policy.model_axis_size, row_bytes)]
 

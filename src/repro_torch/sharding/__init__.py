@@ -1,6 +1,8 @@
 """Which dims of which tensors live on which rank of a mesh."""
 from .policy import (
     ShardingPolicy,
+    fsdp_dim,
+    fsdp_gather_axis,
     host_policy,
     is_expert_leaf,
     kv_shard,
@@ -14,7 +16,7 @@ from .policy import (
 )
 
 __all__ = [
-    "ShardingPolicy", "host_policy", "is_expert_leaf", "kv_shard",
-    "layout_policy", "local_expert_slots", "model_axis", "param_specs",
-    "shard_range", "spec_axes", "take_shard",
+    "ShardingPolicy", "fsdp_dim", "fsdp_gather_axis", "host_policy",
+    "is_expert_leaf", "kv_shard", "layout_policy", "local_expert_slots",
+    "model_axis", "param_specs", "shard_range", "spec_axes", "take_shard",
 ]

@@ -8,20 +8,27 @@
   tuple of axis names, or None (replicated), where JAX builds a
   ``PartitionSpec`` from the same entries. Every spec method returns what
   JAX's returns.
-* What the port honours under a mesh (:func:`param_specs`): every leaf
-  JAX's specs shard over ``model`` — ``wq``/``wk``/``wv`` and the gated
-  MLP's gate/up by their flat output dim (``w_col``), ``wo`` and the MLP's
-  down projection by their input dim (``w_row``), the q/k/v biases, the
-  tied embedding by vocabulary, an untied one by ``d_model``, ``lm_head``
-  by vocabulary — and the expert pool's slot dim
-  (:func:`local_expert_slots`); the dense KV cache's sequence over
-  ``kv_seq`` (:func:`kv_shard`); the batch and the MoE dispatch groups
-  over the batch axes (:meth:`ShardingPolicy.moe_shard_spec`). The FSDP
-  entries (``data``) are not honoured: every leaf is whole over the data
-  axes. Two divergences: a pool the model axis does not divide is stored
-  whole (JAX pads it through the dead-slot pad alike), and the SSM and
-  hybrid families keep every leaf and cache whole (their model-axis specs,
-  ``repro/models/ssm.py:63-80``, are not ported yet).
+* What the port honours under a mesh (:func:`param_specs`): JAX's specs
+  leaf for leaf. Over ``model``: ``wq``/``wk``/``wv`` and the gated MLP's
+  gate/up by their flat output dim (``w_col``), ``wo`` and the MLP's down
+  projection by their input dim (``w_row``), the q/k/v biases, the tied
+  embedding by vocabulary, an untied one by ``d_model``, ``lm_head`` by
+  vocabulary, and the expert pool's slot dim (:func:`local_expert_slots`).
+  Under ``fsdp`` (ZeRO-3) the same leaves are also stored over ``data``
+  on their other dim (:func:`fsdp_dim`: the projections' and the
+  experts' ``d_model``, the embedding's and the head's other dim); the
+  model gathers one layer's block whole over ``data`` just before it uses
+  it (:func:`~repro_torch.kernels.sharded.gather_fsdp`, whose adjoint
+  reduce-scatters the gradient). The dense KV cache's sequence is stored
+  over ``kv_seq`` (:func:`kv_shard`) and its rows over the cache-batch
+  axes (:func:`repro_torch.models.model.decode_cache_rows`); the batch
+  and the MoE dispatch groups over the batch axes
+  (:meth:`ShardingPolicy.moe_shard_spec`). Two
+  divergences: a pool the model axis does not divide is whole over
+  ``model`` (JAX pads it through the dead-slot pad alike; its ``data``
+  entry is honoured), and the SSM and hybrid families keep every leaf and
+  cache whole, FSDP included (their specs, ``repro/models/ssm.py:63-80``,
+  are not ported yet).
 * PyTorch runs eagerly: there is no compiler to hand a layout to, so
   :meth:`ShardingPolicy.constrain` and the ``act_*``/``kv_cache`` helpers
   return their input. The model moves data between ranks itself, through
@@ -35,9 +42,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-__all__ = ["ShardingPolicy", "host_policy", "kv_shard", "layout_policy",
-           "local_expert_slots", "model_axis", "model_dim", "param_specs",
-           "shard_range", "spec_axes", "take_shard"]
+__all__ = ["ShardingPolicy", "fsdp_dim", "fsdp_gather_axis",
+           "host_policy", "kv_shard", "layout_policy", "local_expert_slots",
+           "model_axis", "model_dim", "param_specs", "shard_range",
+           "spec_axes", "take_shard"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,28 +317,41 @@ def kv_shard(policy: ShardingPolicy | None, config) -> tuple | None:
     return axes
 
 
+def fsdp_gather_axis(policy: ShardingPolicy | None, config) -> str | None:
+    """``"data"`` when ``policy`` stores the leaves of a ``config`` model
+    over the data axis (ZeRO-3: ``fsdp`` on a mesh whose data axis is
+    wider than one rank, an attention family), else None: the axis over
+    which the model gathers a layer's blocks before it uses them."""
+    policy = layout_policy(policy, config)
+    if policy is None or policy._fsdp_axis() is None:
+        return None
+    return "data" if policy.mesh.size("data") > 1 else None
+
+
 # a leaf's spec by its key path: JAX's ``init_attention``/
-# ``init_gated_mlp``/``init_moe``/``init_params`` specs without the FSDP
-# entries
+# ``init_gated_mlp``/``init_moe``/``init_params`` specs, ``f`` the FSDP
+# axis (None without FSDP)
 _COL = ("wq", "wk", "wv", "w_gate", "w_up")
 _BIAS = ("bq", "bk", "bv")
 
 
-def _leaf_spec(path, ndim: int, m: str, *, tied: bool, pool_divides: bool):
+def _leaf_spec(path, ndim: int, m: str, *, tied: bool, pool_divides: bool,
+               f: str | None = None):
     none = (None,) * ndim
     name = path[-1]
     if path == ("embed",):
-        return (m, None) if tied else (None, m)
+        return (m, f) if tied else (f, m)
     if path == ("lm_head",):
-        return (None, m)
+        return (f, m)
     if is_expert_leaf(path):
-        return (None, m) + (None,) * (ndim - 2) if pool_divides else none
+        e = m if pool_divides else None
+        return (None, e, None, f) if name == "w_down" else (None, e, f, None)
     parent = path[-2] if len(path) >= 2 else None
     if parent in ("attn", "mlp"):
         if name in _COL:
-            return (None, None, m)
+            return (None, f, m)
         if name in ("wo", "w_down"):
-            return (None, m, None)
+            return (None, m, f)
         if name in _BIAS:
             return (None, m)
     return none
@@ -344,20 +365,31 @@ def model_dim(path, ndim: int, *, tied: bool) -> int | None:
     return spec.index("model") if "model" in spec else None
 
 
+def fsdp_dim(path, ndim: int, *, tied: bool) -> int | None:
+    """The dim of a leaf (by its key path; ``ndim`` its stacked rank)
+    that JAX's FSDP specs shard over ``data``, or None for a leaf FSDP
+    keeps whole (the norm scales, the biases, the router)."""
+    spec = _leaf_spec(path, ndim, "model", tied=tied, pool_divides=True,
+                      f="data")
+    return spec.index("data") if "data" in spec else None
+
+
 def param_specs(params, policy: ShardingPolicy | None, config, *,
                 num_slots: int | None = None):
     """The spec of every leaf of ``config``'s parameter tree under
-    ``policy``, mirroring the tree: JAX's ``init_params`` specs less their
-    FSDP (``data``) entries, a tuple with one entry a dim (an axis name,
-    or None for a whole dim). Without a mesh every leaf is None (whole).
+    ``policy``, mirroring the tree: JAX's ``init_params`` specs, a tuple
+    with one entry a dim (an axis name, or None for a whole dim), with
+    FSDP's ``data`` entries where ``policy.fsdp`` is set. Without a mesh
+    every leaf is None (whole).
 
     Two divergences from JAX's specs: a pool the model axis does not
-    divide (:func:`local_expert_slots`) is whole, and the SSM and hybrid
-    families (:func:`layout_policy`) are whole leaf for leaf, None as
-    without a mesh. ``params`` may hold tensors or numpy arrays of the
-    full shapes, or a rank's own tensors with ``num_slots``, the pool's
-    global slot count (a rank's rows of a sharded pool cannot be told
-    from a whole pool by their count)."""
+    divide (:func:`local_expert_slots`) is whole over ``model`` (its
+    ``data`` entry stays), and the SSM and hybrid families
+    (:func:`layout_policy`) are whole leaf for leaf, None as without a
+    mesh. ``params`` may hold tensors or numpy arrays of the full shapes,
+    or a rank's own tensors with ``num_slots``, the pool's global slot
+    count (a rank's rows of a sharded pool cannot be told from a whole
+    pool by their count)."""
     policy = layout_policy(policy, config)
     if policy is None or policy.mesh is None:
         def nothing(tree):
@@ -365,7 +397,7 @@ def param_specs(params, policy: ShardingPolicy | None, config, *,
                 return {k: nothing(v) for k, v in tree.items()}
             return None
         return nothing(params)
-    m = policy.model_axis
+    m, f = policy.model_axis, policy._fsdp_axis()
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -375,9 +407,10 @@ def param_specs(params, policy: ShardingPolicy | None, config, *,
         divides = False
         if is_expert_leaf(path):
             S = int(tree.shape[1]) if num_slots is None else num_slots
-            divides = policy.expert_collective_axis(S) is not None
+            divides = S % policy.model_axis_size == 0
         return _leaf_spec(path, len(tree.shape), m,
-                          tied=config.tie_embeddings, pool_divides=divides)
+                          tied=config.tie_embeddings, pool_divides=divides,
+                          f=f)
 
     return walk(params, ())
 

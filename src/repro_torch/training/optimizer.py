@@ -25,7 +25,9 @@ sums each leaf's squares slice by slice along the dim a model axis may
 shard (:func:`~repro_torch.sharding.model_dim`), and the slices' sums
 in order: a rank computes its block of them and the blocks are gathered,
 so that the norm has the same bits on every rank and on one device,
-whatever the mesh. The max runs over the axes
+whatever the model axis. Under FSDP a slice's square is first summed over
+``data`` from the ranks' partials, in rank order (the same bits on every
+rank; one device's order no longer). The max runs over the axes
 (:meth:`repro_torch.launch.mesh.Mesh.all_reduce`): every rank takes the
 same step.
 """
@@ -119,35 +121,57 @@ def _reduce_sharded(values: list, flat_specs: list, policy, op: str) -> list:
 
 def _squares(grads, specs, policy) -> list:
     """Each leaf's sum of squares (a 0-d fp32 tensor), the same bits on
-    every rank and on one device: per slice along the leaf's
+    every rank: per slice along the leaf's
     :func:`~repro_torch.sharding.model_dim` (the squared norm of each
     slice), the slices' values gathered whole where the leaf is sharded
-    there, then summed in order."""
+    there, then summed in order. A leaf also stored over other axes
+    (FSDP's ``data``, on another dim) has each slice's partial square on
+    each rank: the partials are summed over those axes first, in rank
+    order. Without such axes the bits are one device's."""
     tied = "lm_head" not in grads
     flat = leaves(grads)
-    out: list = [None] * len(flat)
-    by_axes: dict = {}
+    mesh = None if policy is None else policy.mesh
+    parts: list = [None] * len(flat)
+    along: list = [None] * len(flat)  # the slices' axes, where sharded
+    partial: dict = {}  # the axes a leaf's partials sum over → leaves
     for i, (path, g, spec) in enumerate(zip(leaf_paths(grads), flat,
                                             leaves_along(grads, specs))):
         dim = model_dim(path, g.dim(), tied=tied)
         if dim is None:
-            out[i] = torch.square(torch.linalg.vector_norm(
-                g, dtype=torch.float32))
+            parts[i] = torch.square(torch.linalg.vector_norm(
+                g, dtype=torch.float32)).reshape(1)
+        else:
+            others = [d for d in range(g.dim()) if d != dim]
+            parts[i] = torch.square(torch.linalg.vector_norm(
+                g, dim=others, dtype=torch.float32))
+            along[i] = None if spec is None else spec[dim]
+        if mesh is None:
             continue
-        others = [d for d in range(g.dim()) if d != dim]
-        part = torch.square(torch.linalg.vector_norm(g, dim=others,
-                                                     dtype=torch.float32))
-        axes = None if spec is None else spec[dim]
-        if axes is None or policy is None or policy.mesh is None:
+        rest = tuple(a for d, entry in enumerate(spec or ())
+                     if d != dim and entry is not None
+                     for a in spec_axes((entry,)))
+        if rest:
+            partial.setdefault(rest, []).append(i)
+    for axes, idx in partial.items():
+        summed = mesh.all_reduce(torch.cat([parts[i] for i in idx]), axes)
+        lo = 0
+        for i in idx:
+            n = parts[i].numel()
+            parts[i] = summed[lo:lo + n]
+            lo += n
+    out: list = [None] * len(flat)
+    by_axes: dict = {}
+    for i, part in enumerate(parts):
+        if along[i] is None or mesh is None:
             out[i] = torch.sum(part)
         else:
-            by_axes.setdefault(axes, []).append((i, part))
+            by_axes.setdefault(along[i], []).append((i, part))
     for axes, items in by_axes.items():
-        parts = policy.mesh.all_gather(torch.cat([p for _, p in items]), axes)
+        gathered = mesh.all_gather(torch.cat([p for _, p in items]), axes)
         lo = 0
         for i, part in items:
             n = part.numel()
-            out[i] = torch.sum(parts[:, lo:lo + n].reshape(-1))
+            out[i] = torch.sum(gathered[:, lo:lo + n].reshape(-1))
             lo += n
     return out
 

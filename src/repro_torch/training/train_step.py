@@ -16,9 +16,14 @@ backward of its tokens' share of the global loss
 (:func:`~repro_torch.models.loss_fn` under the policy; its rows of the
 batch and, under a model axis, its block of the sequence); then, once a
 step and after accumulation, every leaf's gradient is summed over the
-data axes in fp32 (:func:`_reduce_grads`). The update runs on the rank's
-own leaves, with the global gradient norm (:func:`~repro_torch.training.
-optimizer.adamw_update`).
+data axes in fp32 (:func:`_reduce_grads`). Under FSDP (ZeRO-3:
+``policy.fsdp``, which ``policy_for(mesh, step_kind="train")`` sets) the
+projections, the vocabulary and the expert stacks are also stored over
+``data``, with their moments: the model gathers a layer's blocks before
+it runs, and the gathers' adjoints reduce-scatter the gradients, which
+arrive complete and in the leaves' layout (never whole). The update runs
+on the rank's own leaves, with the global gradient norm
+(:func:`~repro_torch.training.optimizer.adamw_update`).
 """
 from __future__ import annotations
 
@@ -157,6 +162,10 @@ def _reduce_grads(grads: list, params, specs, policy) -> list:
     that hold the leaf alike, fp32, in rank order, one leaf at a time.
     Each leaf's case follows from where the forward uses it:
 
+    * a leaf stored over ``data`` (FSDP, ZeRO-3) arrives summed over the
+      data ranks already, by the adjoints of its gathers
+      (:func:`~repro_torch.kernels.sharded.gather_fsdp`), and is not
+      summed over ``data`` again;
     * a leaf sharded over the model axis (the projections, the vocabulary,
       the expert slots) is complete on its rank once the adjoints of its
       gathers have summed the model ranks' shares
@@ -180,12 +189,13 @@ def _reduce_grads(grads: list, params, specs, policy) -> list:
     out = []
     for path, spec, g in zip(leaf_paths(params), leaves_along(params, specs),
                              grads):
-        axes = data
         named = spec_axes(spec)
-        if not named and is_expert_leaf(path) and model:
-            axes = data + (model,)
-        elif model and model not in named:
-            g = mesh.broadcast(g, model)
+        axes = tuple(a for a in data if a not in named)
+        if model and model not in named:
+            if is_expert_leaf(path):
+                axes += (model,)
+            else:
+                g = mesh.broadcast(g, model)
         if axes:
             g = mesh.all_reduce(g, axes, dtype=torch.float32)
         out.append(g)

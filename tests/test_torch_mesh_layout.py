@@ -6,9 +6,9 @@ refusal of a dim the axis does not divide.
 
 * ``param_specs`` of every attention family's smoke tree equals the
   specs JAX's ``init_params`` returns under a policy over a mesh of the
-  same shape, leaf for leaf, with FSDP's ``data`` entries dropped (the
-  port does not shard over ``data`` yet) and one documented divergence: a
-  pool the model axis does not divide is whole (``ev6``).
+  same shape, leaf for leaf, plain and under FSDP (``data`` entries
+  included), with one documented divergence: a pool the model axis does
+  not divide is whole over ``model`` (``ev6``; its ``data`` entry stays).
 * Each rank's leaves from ``params_from_numpy`` are ``np.split`` of JAX's
   global leaf by JAX's spec (bit for bit, fp32), and ``init_params``
   under the policy keeps leaves of the same shapes and bytes.
@@ -78,15 +78,15 @@ def _jax(case, shape, fsdp=False):
 
 
 def _expected(path, jspec, case, model):
-    """JAX's spec less FSDP's ``data`` entries, with the port's divergence
-    for a pool the model axis does not divide."""
+    """JAX's spec, with the port's divergence for a pool the model axis
+    does not divide: whole over ``model``."""
     arch, overrides = CASES[case]
     cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
-    spec = tuple(None if a == "data" else a for a in jspec)
+    spec = tuple(jspec)
     expert = path.split("/")[-1] in ("w_gate", "w_up", "w_down") and \
         "/moe/" in f"/{path}"
     if expert and cfg.num_virtual_experts % model:
-        return (None,) * len(spec)
+        return tuple(None if a == "model" else a for a in spec)
     return spec
 
 
@@ -97,8 +97,8 @@ def test_param_specs_equal_jax_specs(case, shape, fsdp):
     tree, jspecs = _jax(case, shape, fsdp)
     arch, overrides = CASES[case]
     cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
-    specs = _flat(param_specs(tree, ShardingPolicy(mesh=MeshAt(shape, 0)),
-                              cfg))
+    specs = _flat(param_specs(
+        tree, ShardingPolicy(mesh=MeshAt(shape, 0), fsdp=fsdp), cfg))
     assert specs.keys() == jspecs.keys()
     for path, jspec in jspecs.items():
         assert specs[path] == _expected(path, jspec, case, shape[1]), path

@@ -4,21 +4,29 @@ alone on the card(s).
     python3 tools/chip_mesh.py [--nccl]
 
 from the root of a checkout on a machine with an H100 and the CUDA
-toolkit. With one card it serves full granite-moe-3b-a800m with 4 gloo
-ranks sharing it, at (1, 4) and (2, 2), in JAX's layout (each rank its
-shard of every leaf and its block of the KV cache), against one-process
-runs (in bf16 on one process's router logits and tokens, and in fp32 at
-8 layers as they come), then trains granite at 8 layers with 4 gloo
-ranks at both shapes against one process; with four cards the gloo ranks
-get a card each, and the phases also serve in NCCL ``decode_mode="scan"``
-(bf16, profiling three replays of rank 0's captured step, and fp32 at 8
+toolkit. With one card it serves granite-moe-3b-a800m at full width with
+4 gloo ranks sharing it, at (1, 4) and (2, 2) in JAX's model-axis layout
+(each rank its shard of every leaf and its block of the KV cache), against
+one-process runs (16 layers in bf16 on one process's router logits and
+tokens, and 8 layers in fp32 as they come), then under the FSDP decode
+policy at (4, 1) (``policy_for``'s, for full granite: the weights over
+``data``, the activations replicated, the KV cache's rows over ``data``;
+8 layers, bf16, held to one process bit for bit); then trains granite at
+8 layers with 4 gloo ranks at (1, 4), and under FSDP
+(``policy_for(mesh, step_kind="train")``) at (2, 2) and (4, 1), against
+one process, with a save from FSDP (2, 2) restored at (4, 1). With four
+cards the gloo ranks get a card each, and the phases also serve at
+(1, 4) and under the FSDP decode policy at (4, 1) in NCCL
+``decode_mode="scan"`` (full granite in bf16, profiling three replays of
+rank 0's captured step, the FSDP run held bit for bit; and fp32 at 8
 layers, held to one process exactly) and train full granite over NCCL
-at (1, 4) (profiling one more step on every rank). The phases' checks
-raise on failure; their JSON lines are ``chip_smoke.py``'s. The kernels'
-table rows are not measured here (``chip_smoke.py``'s ``kernels`` phase
-measures them). ``--nccl`` (four cards) runs only what needs them: the
-NCCL ``"scan"`` serves and the NCCL training of full granite, each
-against its one-process run.
+at (1, 4) and under FSDP at (2, 2) (profiling one more step on every
+rank). The phases' checks raise on
+failure; their JSON lines are ``chip_smoke.py``'s. The kernels' table rows
+are not measured here (``chip_smoke.py``'s ``kernels`` phase measures
+them). ``--nccl`` (four cards) runs only what needs them: the NCCL
+``"scan"`` serves and the NCCL training of full granite, each against its
+one-process run.
 """
 import sys
 import time
