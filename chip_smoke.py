@@ -157,13 +157,22 @@ runs sixteen phases, each printing JSON lines:
    against 10, a kill, a restart and 10 more (losses within 1e-4
    relative). ``kernels`` also holds and times K1 at the train shape
    (80, 205, 1536)×(80, 1536, 256) and K2 at (512, 40), k 8.
-12. ``dryrun`` — the port's dry run (``repro_torch.launch.dryrun``) of every
-   (arch × shape) cell on the meta device but the SSD families' four
+12. ``dryrun`` — first the mesh dry run (:func:`mesh_predictions`): each
+   gloo run of the ``mesh`` and ``mesh_train`` phases at its own config,
+   shape, dtype and policy on a metadata mesh (``launch/meta_mesh.py``,
+   rank 0 of a (1, 4), (2, 2) or (4, 1) grid of ranks that do not exist),
+   predicting the parameter, moment and cache bytes a rank holds and the
+   collectives its step runs by kind; granite's must be the bytes and the
+   34 / 51 / 37 collectives a decode step those phases hold, and the later
+   phases hold every gloo run to its prediction. Then the port's dry run
+   (``repro_torch.launch.dryrun``) of every
+   (arch × shape) cell on the meta device, on one card and on rank 0 of
+   JAX's 16×16 mesh, but the SSD families' four
    4k/32k train and prefill cells (``DRYRUN_HOST_ONLY``: 52–122 host
    seconds each; the CPU's ``--all`` runs them), spread over worker
-   processes that never touch the card: every cell must be ``ok`` (29)
-   or ``skipped`` (7); it prints each cell's line and the sweep's host
-   seconds. Then granite's cells at this card's own shapes — the ``train``
+   processes that never touch the card: every cell must be ``ok`` (29 a
+   mesh) or ``skipped`` (7); it prints each cell's line and the sweep's
+   host seconds. Then granite's cells at this card's own shapes — the ``train``
    phase's 4 × 128 at capacity factor 2.0 with remat off, and a dense
    ``decode_step`` of 8 rows over 4,096 positions — each against one eager
    step on the card: the predicted parameter, gradient, moment and cache
@@ -189,7 +198,7 @@ runs sixteen phases, each printing JSON lines:
    (``repro_torch.launch.mesh``, ``sharding``, ``kernels/sharded.py``):
    granite at full width, bf16, the ``collective`` scenario (8 requests of
    32 new tokens, GEM's one-shot replan at step 16 under
-   ``migration_via="collective"``) at 16 of its 32 layers, served by 4
+   ``migration_via="collective"``) at 8 of its 32 layers, served by 4
    ranks that share this card over ``gloo`` (NCCL puts no two ranks on one
    GPU; the collectives stage through pinned host buffers) in
    ``decode_mode="python"``, each rank drawing its shard of the same seed-0
@@ -206,8 +215,8 @@ runs sixteen phases, each printing JSON lines:
    swap equal one process's, the logits of every prefill and decode step
    lie within ``MESH_LOGITS_TOL`` of one process's, and a rank's own arg
    max may differ from one process's token only where one process's top-1
-   margin lies within that row's |Δ|. Each rank holds 90,246,144 +
-   754,974,720 parameter bytes (every leaf's bytes its shard's) and a
+   margin lies within that row's |Δ|. Each rank holds 64,048,128 +
+   377,487,360 parameter bytes (every leaf's bytes its shard's) and a
    quarter of one process's cache bytes, and runs 4 collectives a layer
    and 2 more a decode step (q/k/v, the softmax partials, ``wo``, K1's
    outputs; the embedding, the logits); its tables are every other rank's
@@ -218,7 +227,7 @@ runs sixteen phases, each printing JSON lines:
    K2's counters are at 0, and an engine in ``"scan"`` over gloo on the
    card raises ``ValueError``. At (2, 2), GEM over 2 devices: the same
    checks against a one-process run that dispatches the batch in 2 groups,
-   each rank holding 178,424,832 + 1,509,949,440 bytes, a quarter of the
+   each rank holding 127,060,992 + 754,974,720 bytes, a quarter of the
    cache (half the rows, half the positions) and running 6 collectives a
    layer and 3 more a step (K2's statistics and the dispatch counts over
    ``data``, the logits over ``data``). Then both shapes in fp32 at 8
@@ -227,8 +236,8 @@ runs sixteen phases, each printing JSON lines:
    ``MESH_FP32_LOGITS_TOL``. Then the FSDP serve: ``policy_for(mesh,
    step_kind="decode", config=<full granite>)`` at (4, 1), which must give
    ``fsdp=True``, ``batch_axes=()`` and ``cache_batch_axes=("data",)``
-   (the bf16 model is 6.14 GB a model-axis shard), at 8 layers in bf16:
-   each rank holds 64,048,128 + 377,487,360 bytes (a quarter of the
+   (the bf16 model is 6.14 GB a model-axis shard), at 4 layers in bf16:
+   each rank holds 50,949,120 + 188,743,680 bytes (a quarter of the
    projections', the vocabulary's and the expert stacks', the norms and
    the router whole) and a quarter of the cache's rows, gathers each
    layer's blocks over ``data`` before it runs, runs every row as one
@@ -248,6 +257,24 @@ runs sixteen phases, each printing JSON lines:
    bit for bit as over gloo. It prints each run's decode-step medians,
    walls and staged bytes: over gloo, times of 4 processes sharing one
    card, not of a multi-card fleet.
+   Then the SSM and hybrid families (:data:`MESH_SSM_RUNS`): mamba2-1.3b
+   at full width (64 SSD heads, state 128), 8 of 48 layers, and
+   zamba2-1.2b at full width, 7 layers (one stage of 6 mamba blocks and
+   the shared attention + MLP block, one tail block), served on the dense
+   cache by the gloo ranks (each its SSD heads, its share of the tied
+   vocabulary and the shared block, its heads of the SSM state and its
+   rows over ``data``) at (1, 4) and (2, 2) in fp32 against one process
+   and against the witness of the mesh (one process doing the mesh's
+   sums, :class:`_MeshSums`): tokens equal both, logits within
+   ``MESH_SSM_FP32_LOGITS_TOL`` of one process's and
+   ``MESH_FP32_LOGITS_TOL`` of the witness's; and mamba2 at (1, 4) in
+   bf16 on one process's tokens, logits within ``MESH_LOGITS_TOL`` of the
+   witness's (the notes at :data:`MESH_SSM_RUNS` say why the witness
+   carries the tight bounds here). Each rank's parameter and
+   state bytes and its collectives a decode step (counts and bytes by
+   kind) must be the mesh dry run's. With 4 cards also mamba2 over NCCL
+   in ``"scan"`` at (1, 4), one capture a rank: its whole depth in bf16
+   and 8 layers in fp32 held to one process and to the witness.
 16. ``mesh_train`` — training under the mesh (``make_train_step(…,
    policy=…)``): granite at full width, 8 of 32 layers (4 ranks share the
    card), bf16 parameters and fp32 moments, seed-0 weights drawn whole and
@@ -288,6 +315,13 @@ runs sixteen phases, each printing JSON lines:
    every rank (``"not run: N card(s)"`` otherwise). It prints each run's
    losses, the per-rank step medians (host clock, steps 2–5) beside one
    process's, staged bytes and peak memory a rank.
+   Then mamba2-1.3b at full width, 4 layers, fp32, 3 steps of the same
+   batches on the gloo ranks at (1, 4) and under ``policy_for(mesh,
+   step_kind="train")`` (FSDP) at (2, 2) against one process: step 1's
+   loss within 1e-3 relative, each gradient leaf's block at cosine ≥
+   ``MESH_SSM_TRAIN_GRAD_COS`` with one process's and within
+   ``MESH_SSM_TRAIN_GRAD_TOL`` of its max, every rank the same
+   metrics, and a rank's parameter and moment bytes the mesh dry run's.
 
 Then it prints the ``kernels`` summary line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": …}``. Any failed check
@@ -298,6 +332,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2500,6 +2535,10 @@ _SLOW_FIRST = ("mamba2", "zamba2", "internvl2", "qwen3", "mixtral")
 # time
 DRYRUN_HOST_ONLY = (("mamba2-1.3b", "train_4k"), ("mamba2-1.3b", "prefill_32k"),
                     ("zamba2-1.2b", "train_4k"), ("zamba2-1.2b", "prefill_32k"))
+# the sweep runs each cell on one card and on rank 0 of JAX's 16×16 mesh
+# (2×16×16 is the CPU's: ``python -m repro_torch.launch.dryrun --all
+# --mesh 2x16x16``)
+DRYRUN_MESHES = ("1xgpu", "16x16")
 
 
 def _dry_worker_init(src: str) -> None:
@@ -2508,16 +2547,17 @@ def _dry_worker_init(src: str) -> None:
         sys.path.insert(0, src)
 
 
-def _dry_cell(arch: str, shape: str, hbm) -> dict:
+def _dry_cell(arch: str, shape: str, hbm, mesh: str = "1xgpu") -> dict:
     from repro_torch.launch import dryrun
 
-    return dryrun.run_cell(arch, shape, hbm=hbm)
+    return dryrun.run_cell(arch, shape, hbm=hbm, mesh=mesh)
 
 
 def _dry_sweep(src: Path, hbm) -> tuple[dict, float]:
-    """``--all`` on meta but :data:`DRYRUN_HOST_ONLY`, the cells spread
-    over worker processes (spawned: the parent holds a CUDA context);
-    returns the cells by key and the sweep's host seconds."""
+    """``--all`` on meta but :data:`DRYRUN_HOST_ONLY`, on one card and on
+    rank 0 of the 16×16 production mesh (:data:`DRYRUN_MESHES`), the
+    cells spread over worker processes (spawned: the parent holds a CUDA
+    context); returns the cells by key and the sweep's host seconds."""
     import concurrent.futures
     import multiprocessing
 
@@ -2532,8 +2572,8 @@ def _dry_sweep(src: Path, hbm) -> tuple[dict, float]:
             max_workers=DRYRUN_WORKERS,
             mp_context=multiprocessing.get_context("spawn"),
             initializer=_dry_worker_init, initargs=(str(src),)) as pool:
-        futures = {f"{a}|{s}|1xgpu": pool.submit(_dry_cell, a, s, hbm)
-                   for a, s in cells}
+        futures = {f"{a}|{s}|{m}": pool.submit(_dry_cell, a, s, hbm, m)
+                   for m in DRYRUN_MESHES for a, s in cells}
         out = {k: f.result() for k, f in futures.items()}
     return out, time.perf_counter() - t0
 
@@ -2658,13 +2698,123 @@ def _dry_decode_card(cfg, shape) -> dict:
     return held
 
 
+# the mesh dry run (``dryrun``'s first part): each gloo run of the ``mesh``
+# and ``mesh_train`` phases at its own config, shape and policy, on a
+# metadata mesh (``launch/meta_mesh.py``: rank 0 of a grid of ranks that
+# do not exist), predicting what a rank holds and the collectives its
+# decode step runs. Decode cells: the engines' 8 rows of 128 positions
+MESH_DECODE_SHAPE = ("mesh_decode", 128, 8, "decode")
+# train cells: the ``mesh_train`` batches
+MESH_TRAIN_SHAPE = ("mesh_train", 128, 4, "train")
+
+
+def _ssm_config(arch, layers):
+    """``arch`` (mamba2 or zamba2) at full width, ``layers`` deep."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _mesh_prediction_cells() -> dict:
+    """tag → (arch, config, ShapeSpec, (data, model), dtype, the policy
+    of a mesh): the ``mesh`` and ``mesh_train`` phases' gloo runs."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import policy_for
+    from repro_torch.sharding import ShardingPolicy
+
+    decode, train = ShapeSpec(*MESH_DECODE_SHAPE), ShapeSpec(*MESH_TRAIN_SHAPE)
+
+    def plain(mesh):
+        return ShardingPolicy(mesh=mesh)
+
+    def fsdp_serve(mesh):
+        return policy_for(mesh, step_kind="decode", config=_mesh_config())
+
+    def fsdp_train(mesh):
+        return policy_for(mesh, step_kind="train")
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cells = {
+        "granite_1x4": (ARCH, _mesh_config(MESH_PINNED_LAYERS), decode,
+                        (1, MESH_MODEL), bf16, plain),
+        "granite_2x2": (ARCH, _mesh_config(MESH_PINNED_LAYERS), decode,
+                        (2, 2), bf16, plain),
+        "granite_fsdp_4x1": (ARCH, _mesh_config(MESH_FSDP_LAYERS), decode,
+                             MESH_FSDP_SHAPE, bf16, fsdp_serve),
+        "granite_train_fsdp_2x2": (ARCH, _mt_config(MESH_TRAIN_LAYERS),
+                                   train, (2, 2), bf16, fsdp_train),
+        "mamba2_train_1x4": (MAMBA2, _ssm_config(MAMBA2, MESH_SSM_TRAIN_LAYERS),
+                             train, (1, MESH_MODEL), fp32, plain),
+        "mamba2_train_fsdp_2x2": (MAMBA2,
+                                  _ssm_config(MAMBA2, MESH_SSM_TRAIN_LAYERS),
+                                  train, (2, 2), fp32, fsdp_train),
+    }
+    for tag, arch, layers, shape, dtype in MESH_SSM_RUNS:
+        cells[f"{tag}"] = (arch, _ssm_config(arch, layers), decode, shape,
+                           getattr(torch, dtype), plain)
+    return cells
+
+
+def mesh_predictions() -> dict:
+    """The mesh dry run of every :func:`_mesh_prediction_cells` cell (on
+    meta, in this process): by tag, the bytes a rank holds (parameters,
+    moments, caches) and its step's collectives by kind, with the cell's
+    host seconds."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.meta_mesh import MetaMesh
+
+    out = {}
+    for tag, (arch, cfg, shape, (data, model), dtype, make) in (
+            _mesh_prediction_cells().items()):
+        meta = MetaMesh({"data": data, "model": model})
+        cell = run_cell(arch, shape, config=cfg, remat=False, mesh=meta,
+                        policy=make(meta), dtype=dtype)
+        check(cell["status"] == "ok", f"dryrun mesh {tag}: {cell}")
+        mem = cell["memory"]
+        out[tag] = {"shape": [data, model], "layers": cfg.num_layers,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "params_bytes": mem["params_bytes"],
+                    "moments_bytes": mem["moments_bytes"],
+                    "caches_bytes": mem["caches_bytes"],
+                    "collectives": cell["collectives"],
+                    "policy": cell["policy"], "host_s": cell["host_s"]}
+    return out
+
+
+def _check_granite_predictions(pred) -> None:
+    """The granite cells' predictions against the bytes and collective
+    counts the ``mesh`` and ``mesh_train`` phases have always held."""
+    for tag, shape, layers in (("granite_1x4", (1, MESH_MODEL),
+                                MESH_PINNED_LAYERS),
+                               ("granite_2x2", (2, 2), MESH_PINNED_LAYERS),
+                               ("granite_fsdp_4x1", MESH_FSDP_SHAPE,
+                                MESH_FSDP_LAYERS)):
+        want = (sum(MESH_FSDP_PARAM_BYTES.values()) if "fsdp" in tag
+                else sum(MESH_PARAM_BYTES[shape].values()))
+        per_layer, per_step = MESH_COLLECTIVES[shape]
+        got = pred[tag]
+        check(got["params_bytes"] == want,
+              f"dryrun mesh {tag}: {got['params_bytes']} parameter bytes "
+              f"predicted, the ranks hold {want}")
+        check(got["collectives"]["total_count"] == per_layer * layers
+              + per_step,
+              f"dryrun mesh {tag}: {got['collectives']['counts']} a step, "
+              f"not {per_layer} a layer and {per_step}")
+    got = pred["granite_train_fsdp_2x2"]
+    check((got["params_bytes"], got["moments_bytes"]) == MESH_TRAIN_FSDP_BYTES,
+          f"dryrun mesh granite_train_fsdp_2x2: {got}")
+
+
 def phase_dryrun(src: Path, train_step_ms: float):
     """The meta-device dry run: ``--all`` (every cell ``ok`` or ``skipped``),
     then granite's train cell at the ``train`` phase's shape (4 × 128,
     remat off, capacity factor 2.0) and a dense decode cell of 8 rows,
     each against one eager step on the card: parameter, gradient, moment
     and cache bytes equal (the gradients' from one more autograd pass),
-    the peak within ±1 %. Returns the launch counts of the card steps."""
+    the peak within ±1 %. First the mesh dry run of the ``mesh`` and
+    ``mesh_train`` phases' gloo runs (:func:`mesh_predictions`), granite's
+    held to the bytes and collectives those phases hold. Returns the
+    launch counts of the card steps and the mesh predictions."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
@@ -2674,6 +2824,10 @@ def phase_dryrun(src: Path, train_step_ms: float):
     outside = _outside_bytes()
     emit({"phase": "dryrun", "held_before_phase_bytes": outside,
           "held_by_python": _outside_owners()})
+    pred = mesh_predictions()
+    _check_granite_predictions(pred)
+    emit({"phase": "dryrun", "mesh_predictions": pred,
+          "seconds": time.perf_counter() - t0})
     props = torch.cuda.get_device_properties(0)
     hbm = (int(props.total_memory), f"cuda:0 total_memory ({props.name})")
     cells, sweep_s = _dry_sweep(src, hbm)
@@ -2683,7 +2837,8 @@ def phase_dryrun(src: Path, train_step_ms: float):
     check(status["error"] == 0,
           f"dryrun: cells in error: "
           f"{[k for k, c in cells.items() if c['status'] == 'error']}")
-    check(status == {"ok": 33 - len(DRYRUN_HOST_ONLY), "skipped": 7},
+    n = len(DRYRUN_MESHES)
+    check(status == {"ok": n * (33 - len(DRYRUN_HOST_ONLY)), "skipped": n * 7},
           f"dryrun: statuses {status}")
     fits = sorted(k for k, c in cells.items()
                   if c["status"] == "ok" and c["fits_hbm"])
@@ -2749,7 +2904,7 @@ def phase_dryrun(src: Path, train_step_ms: float):
     emit({"phase": "dryrun", "ok": True, "bytes_equal": True,
           "peak_within": DRYRUN_PEAK_TOL,
           "seconds": time.perf_counter() - t0})
-    return counts
+    return counts, pred
 
 
 # ------------------------------------------------------------------ examples
@@ -2757,7 +2912,6 @@ def _run_example(name: str, argv: list[str]):
     """``examples/<name>`` in this process on the card (runpy), its
     standard output captured and echoed; returns (its globals, its
     lines)."""
-    import contextlib
     import io
     import runpy
 
@@ -2942,24 +3096,26 @@ MESH_LOGITS_TOL = 0.25
 # and the logits lie within 1e-3
 MESH_FP32_LAYERS = 8
 MESH_FP32_LOGITS_TOL = 1e-3
-# the pinned bf16 runs at (1, 4) and (2, 2): granite at full width, 16 of
-# its 32 layers (the phase's time)
-MESH_PINNED_LAYERS = 16
-# bytes a rank holds at each shape (granite at full width, 16 layers), by
+# the pinned bf16 runs at (1, 4) and (2, 2): granite at full width, 8 of
+# its 32 layers (16 until the SSM runs joined the phase: the script's
+# time)
+MESH_PINNED_LAYERS = 8
+# bytes a rank holds at each shape (granite at full width, 8 layers), by
 # param_specs: the non-expert leaves (embedding by vocabulary, projections
 # over model, norms and router whole) and the expert slots
-MESH_PARAM_BYTES = {(1, 4): {"non_expert": 90_246_144,
-                             "expert": 754_974_720},
-                    (2, 2): {"non_expert": 178_424_832,
-                             "expert": 1_509_949_440}}
-MESH_ONE_PROCESS_BYTES = {"non_expert": 354_782_208, "expert": 3_019_898_880}
+MESH_PARAM_BYTES = {(1, 4): {"non_expert": 64_048_128,
+                             "expert": 377_487_360},
+                    (2, 2): {"non_expert": 127_060_992,
+                             "expert": 754_974_720}}
+MESH_ONE_PROCESS_BYTES = {"non_expert": 253_086_720, "expert": 1_509_949_440}
 # the FSDP serve: policy_for(mesh, step_kind="decode", config=<full
 # granite>) at (4, 1) (6.14 GB of bf16 parameters a model-axis shard, past
 # 6 GB: ZeRO-3 over data, the activations replicated, the KV cache's rows
-# over data), served at 8 layers in bf16; a rank holds a quarter of the
-# projections', the vocabulary's and the expert stacks' bytes, the norms
-# and the router whole
-MESH_FSDP_LAYERS = 8
+# over data), served at 4 layers in bf16 (8 until the SSM runs joined the
+# phase: its gloo steps stage every layer's weights through the host, 2.4
+# s a step at 8 layers); a rank holds a quarter of the projections', the
+# vocabulary's and the expert stacks' bytes, the norms and the router whole
+MESH_FSDP_LAYERS = 4
 MESH_FSDP_SHAPE = (4, 1)
 # the FSDP serve runs one device's arithmetic on every row: each layer's
 # weights gathered whole (the same values), the batch one dispatch group
@@ -2968,7 +3124,7 @@ MESH_FSDP_SHAPE = (4, 1)
 # every H100 run, over gloo and NCCL, read 0), tokens, routed
 # counts, tables and rows equal
 MESH_FSDP_LOGITS_TOL = 0.0
-MESH_FSDP_PARAM_BYTES = {"non_expert": 64_048_128, "expert": 377_487_360}
+MESH_FSDP_PARAM_BYTES = {"non_expert": 50_949_120, "expert": 188_743_680}
 # collectives a rank runs a decode step, by layer and once a step: (1, 4)
 # the q/k/v gather, the softmax partials' gather, the ``wo`` sum and K1's
 # gather a layer, the embedding's sum and the logits' gather a step; (2,
@@ -2978,6 +3134,9 @@ MESH_FSDP_PARAM_BYTES = {"non_expert": 64_048_128, "expert": 377_487_360}
 # cache rows and K1's (1-wide) gather a layer, the embedding's gather a
 # step
 MESH_COLLECTIVES = {(1, 4): (4, 2), (2, 2): (6, 3), (4, 1): (9, 1)}
+# the runs the mesh dry run predicts (``dryrun``'s first part)
+_GRANITE_PREDICTION = {"1x4": "granite_1x4", "2x2": "granite_2x2",
+                       "4x1_fsdp": "granite_fsdp_4x1"}
 
 
 def _mesh_engine(params, cfg, policy, nd, mode, device=None,
@@ -3134,29 +3293,6 @@ def _cache_bytes(caches) -> int:
     return sum(t.nelement() * t.element_size() for _, t in _leaves(caches))
 
 
-def _count_collectives(mesh):
-    """Wrap the mesh's collectives so that each top-level call counts
-    (an ``all_reduce`` once, not its inner gather) while ``on[0]``:
-    returns (counter, on)."""
-    counts, on, depth = collections.Counter(), [False], [0]
-
-    def counted(name, fn):
-        def call(*a, **kw):
-            if on[0] and depth[0] == 0:
-                counts[name] += 1
-            depth[0] += 1
-            try:
-                return fn(*a, **kw)
-            finally:
-                depth[0] -= 1
-        return call
-
-    for name in ("all_gather", "all_reduce", "broadcast",
-                 "all_to_all_single", "send_recv"):
-        setattr(mesh, name, counted(name, getattr(mesh, name)))
-    return counts, on
-
-
 def _logits_against(logits, ref) -> dict:
     """A rank's logits (one (B, V) tensor a step) against one process's on
     the same inputs: the largest |Δ| at each step, and each (step, row)
@@ -3253,6 +3389,7 @@ def _mesh_rank(mesh, sc):
     import repro_torch.kernels.sharded as sharded
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import policy_for
+    from repro_torch.launch.meta_mesh import record_collectives
     from repro_torch.models import init_params
     from repro_torch.sharding import ShardingPolicy
 
@@ -3296,15 +3433,18 @@ def _mesh_rank(mesh, sc):
     undo = _pin_calls(pinned, ref if sc.get("force") else None,
                       mesh.index("data"), router=sc["mode"] == "python")
     eng = _mesh_engine(params, cfg, policy, sc["nd"], sc["mode"])
-    counts, counting = _count_collectives(mesh)
+    # each top-level collective of a decode step, by JAX's kind names
+    log = record_collectives(mesh)
+    log.on = False
+    log.reset()
     decode = eng._decode
 
     def counted_step(*a, **kw):
-        counting[0] = True
+        log.on = True
         try:
             return decode(*a, **kw)
         finally:
-            counting[0] = False
+            log.on = False
 
     eng._decode = counted_step
     ops.reset_launch_counts()
@@ -3342,11 +3482,12 @@ def _mesh_rank(mesh, sc):
         counters_at_zero=_counters_at_zero(),
         cache_bytes=_cache_bytes(eng.caches),
         expert_counts=counts_trace,
-        collectives=dict(counts),
+        collectives=log.stats()["counts"],
+        collective_bytes=log.stats()["bytes"],
         # a captured step's replays call no Python: counted in "python"
         collectives_per_step=(None if eng.decode_graph is not None else
-                              sum(counts.values()) / max(eng.decode_count,
-                                                         1)),
+                              log.stats()["total_count"]
+                              / max(eng.decode_count, 1)),
     )
     return out
 
@@ -3358,7 +3499,7 @@ def _whole_rows(w, name, policy, cfg):
     process's."""
     from repro_torch.sharding import fsdp_dim, fsdp_gather_axis
 
-    axis = fsdp_gather_axis(policy, cfg)
+    axis = fsdp_gather_axis(policy)
     if axis is None:
         return _row_checksums(w).numpy()
     dim = fsdp_dim(("blocks", "moe", name), w.dim(),
@@ -3723,10 +3864,12 @@ def _mesh_rank_summary(r) -> dict:
     return out
 
 
-def phase_mesh(kernel_summary):
+def phase_mesh(kernel_summary, pred):
     """The expert-parallel data plane across ranks: (1, 4) and (2, 2)
     meshes of gloo ranks on this card in ``"python"`` against one-process
-    runs, the gloo + ``"scan"`` guard, and NCCL ``"scan"`` where 4 cards
+    runs, the gloo + ``"scan"`` guard, then the SSM and hybrid families
+    (:data:`MESH_SSM_RUNS`), each held to the mesh dry run's ``pred``
+    (:func:`mesh_predictions`), and NCCL ``"scan"`` where 4 cards
     exist."""
     import tempfile
 
@@ -3793,6 +3936,17 @@ def phase_mesh(kernel_summary):
             Ev = cfg.num_virtual_experts
             for r in res:
                 launches.update(r["launches"])
+            want = pred.get(_GRANITE_PREDICTION.get(tag))
+            check(want is None or all(
+                sum(r["param_bytes"].values()) == want["params_bytes"]
+                and r["cache_bytes"] == want["caches_bytes"]
+                and r["collectives_per_step"]
+                == want["collectives"]["total_count"]
+                and all(v / r["decode_steps"] == want["collectives"]["counts"][k]
+                        for k, v in r["collectives"].items())
+                for r in res),
+                  f"mesh {tag}: the ranks hold or run other than the mesh "
+                  f"dry run predicts: {want}")
             check(fp32 or fsdp
                   or ref["param_bytes"] == MESH_ONE_PROCESS_BYTES,
                   f"mesh {tag}: one process holds {ref['param_bytes']}")
@@ -3867,13 +4021,17 @@ def phase_mesh(kernel_summary):
             emit({"phase": "mesh", "run": tag, **runs[tag]})
             del res
             gc.collect()
+        runs["ssm"] = _mesh_ssm(store, cards, pred)
         n_cards = torch.cuda.device_count()
         if n_cards >= MESH_MODEL:
             runs["nccl_scan"], counts = _nccl_scan(store, row_bytes, cards)
             launches.update(counts)
+            runs["nccl_scan_ssm"] = _nccl_ssm_scan(store, cards)
         else:
-            runs["nccl_scan"] = f"not run: {n_cards} card(s)"
-        emit({"phase": "mesh", "nccl_scan": runs["nccl_scan"]})
+            runs["nccl_scan"] = runs["nccl_scan_ssm"] = \
+                f"not run: {n_cards} card(s)"
+        emit({"phase": "mesh", "nccl_scan": runs["nccl_scan"],
+              "nccl_scan_ssm": runs["nccl_scan_ssm"]})
     finally:
         import shutil
 
@@ -3994,11 +4152,13 @@ def _mt_build(cfg, device, policy):
     return state, step, torch.as_tensor(e2s, device=device), data
 
 
-def _mt_run(state, step, tables, data, device, on_grads):
-    """``MESH_TRAIN_STEPS`` steps, each synchronised and timed on the host
-    clock; ``on_grads(grads)`` sees the first step's gradients as the
-    update gets them (the reduced ones under a mesh). Returns the
-    per-step metrics on the host and the step times (ms)."""
+def _mt_run(state, step, tables, data, device, on_grads,
+            steps: int = MESH_TRAIN_STEPS):
+    """``steps`` steps, each synchronised and timed on the host clock;
+    ``on_grads(grads)`` sees the first step's gradients as the update
+    gets them (the reduced ones under a mesh). Returns the per-step
+    metrics on the host (a MoE config's dropped share and expert counts
+    too) and the step times (ms)."""
     import repro_torch.training.train_step as train_step_module
 
     inner = train_step_module.adamw_update
@@ -4013,7 +4173,7 @@ def _mt_run(state, step, tables, data, device, on_grads):
     train_step_module.adamw_update = update
     history, step_ms = [], []
     try:
-        for _ in range(MESH_TRAIN_STEPS):
+        for _ in range(steps):
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in next(data).items()}
             torch.cuda.synchronize()
@@ -4021,10 +4181,11 @@ def _mt_run(state, step, tables, data, device, on_grads):
             state, m = step(state, batch, tables)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            history.append({"loss": float(m["loss"]),
-                            "grad_norm": float(m["grad_norm"]),
-                            "dropped": float(m["moe_dropped"]),
-                            "expert_counts": m["expert_counts"].cpu().numpy()})
+            h = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+            if "moe_dropped" in m:
+                h.update(dropped=float(m["moe_dropped"]),
+                         expert_counts=m["expert_counts"].cpu().numpy())
+            history.append(h)
     finally:
         train_step_module.adamw_update = inner
     return history, step_ms
@@ -4466,7 +4627,7 @@ def _nccl_train(store: Path, cards):
     return out, launches
 
 
-def phase_mesh_train(kernel_summary):
+def phase_mesh_train(kernel_summary, pred):
     """Training under the mesh: gloo ranks on this card against
     one-process runs (8 layers) at (1, 4) and under FSDP at (2, 2) and
     (4, 1), the (2, 2) save restored on one process and at (4, 1); with 4
@@ -4585,6 +4746,7 @@ def phase_mesh_train(kernel_summary):
                 saved = None
             del res
             gc.collect()
+        runs["ssm"] = _mesh_train_ssm(store, cards, pred)
         n_cards = torch.cuda.device_count()
         if n_cards >= MESH_MODEL:
             runs["nccl_train"], counts = _nccl_train(store, cards)
@@ -4604,6 +4766,712 @@ def phase_mesh_train(kernel_summary):
                                for key in MESH_TRAIN_KERNEL_ROWS)},
           "seconds": time.perf_counter() - start})
     return dict(launches)
+
+
+# ------------------------------------------------------------ mesh: SSM
+# The SSM and hybrid families under JAX's layout: mamba2-1.3b at
+# full width (d_model 2048, 64 SSD heads of 64, state 128), 8 of its 48
+# layers, and zamba2-1.2b at full width, 7 of its 38 layers (one stage of
+# 6 mamba blocks and the shared attention + MLP block, then one tail
+# block), served by the 4 gloo ranks on this card: each rank its heads of
+# every SSD block (z/x/dt columns, its conv_x channels, its rows of
+# out_proj; the B/C projections whole), its shard of the tied vocabulary
+# and of the shared block, its heads of the SSM state and its rows over
+# ``data``. The engine's dense cache (the families' only one), the linear
+# placement (no MoE layer), the ``mesh`` scenario's 8 requests of 32 new
+# tokens; the runs of one mesh shape share its 4 ranks. Each run is held
+# to one process and to its witness (:class:`_MeshSums`: one process doing
+# the mesh's sums, its rows and head blocks one after another). At full
+# width the SSD block's per-head RMS norm scales heads whose output nearly
+# cancels up to unit size, and with them any change in the order of a sum:
+# the witness parts from one process by what the ranks do (H100: 0.0054 /
+# 0.0618 / 0.0103 / 0.0122 in fp32, mamba2 then zamba2 at (1, 4) and
+# (2, 2); 2.09 in bf16, 46 arg max partings inside |Δ|), while the ranks
+# stay within 2.5e-4 of it in fp32 and equal it in bf16. fp32 runs as
+# they come: tokens equal one process's and the witness's, logits within
+# ``MESH_FP32_LOGITS_TOL`` of the witness's and ``MESH_SSM_FP32_LOGITS_TOL``
+# of one process's (the readings' largest, 0.0618 at mamba2 (2, 2), ×2).
+# mamba2 in bf16 at (1, 4) pinned to one process's tokens: logits within
+# ``MESH_LOGITS_TOL`` of the witness's (one process's |Δ| printed), an arg
+# max parting from one process's only where its top-1 margin lies within
+# that row's |Δ|. A wrong layout (a mutation check: ``out_proj``'s
+# partials left unsummed) reads 6.72 in fp32 and 6.84 in bf16 against the
+# witness, 6.72 / 6.80 against one process, and parts the tokens.
+MAMBA2, ZAMBA2 = "mamba2-1.3b", "zamba2-1.2b"
+MESH_SSM_FP32_LOGITS_TOL = 0.125
+# (tag, arch, layers, mesh shape, dtype)
+MESH_SSM_RUNS = (("mamba2_1x4_fp32", MAMBA2, 8, (1, MESH_MODEL), "float32"),
+                 ("mamba2_2x2_fp32", MAMBA2, 8, (2, 2), "float32"),
+                 ("zamba2_1x4_fp32", ZAMBA2, 7, (1, MESH_MODEL), "float32"),
+                 ("zamba2_2x2_fp32", ZAMBA2, 7, (2, 2), "float32"),
+                 ("mamba2_1x4_bf16", MAMBA2, 8, (1, MESH_MODEL), "bfloat16"))
+# mamba2 over NCCL on four cards, "scan": its whole depth in bf16, and 8
+# layers in fp32 held to one process
+MESH_SSM_NCCL_LAYERS = (48, 8)
+# mesh_train: mamba2 at full width, 4 layers, 3 steps of the ``train``
+# phase's batches, at (1, 4) and under FSDP at (2, 2), in fp32 (in bf16
+# the layout's rounding orders, each rank's partial rounded to bf16 before
+# the sums, part the step-1 gradients further still). Step 1's loss within
+# ``MESH_TRAIN_LOSS_RTOL[0]``; each gradient leaf, the rank's block after
+# the reduction over ranks, at cosine ≥ ``MESH_SSM_TRAIN_GRAD_COS`` with
+# one process's block and within ``MESH_SSM_TRAIN_GRAD_TOL`` of the leaf's
+# max |g|. Granite's ``MESH_TRAIN_GRAD_TOL`` (2e-2) is under what the
+# ranks read on the H100 (the per-head norm above): cosines ≥ 0.99958,
+# shares ≤ 0.058; a gradient short of its sum over ranks (a mutation
+# check: the B/C cotangents unsummed) reads cosines 0.10 / 0.12 and
+# shares 1.00 / 1.10 at (1, 4) / (2, 2).
+MESH_SSM_TRAIN_LAYERS = 4
+MESH_SSM_TRAIN_STEPS = 3
+MESH_SSM_TRAIN_GRAD_COS = 0.999
+MESH_SSM_TRAIN_GRAD_TOL = 0.1
+
+
+def _ssm_engine(params, cfg, policy, mode, device=None):
+    """The dense engine of an SSM or hybrid config (linear placement, 8
+    slots of 128 positions) with the ``mesh`` scenario's 8 requests."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    eng = ServingEngine(
+        params, cfg,
+        EngineConfig(max_batch=8, max_len=128, placement_policy="linear",
+                     other_time_per_step=2e-4, decode_mode=mode,
+                     kv_mode="dense"),
+        policy=policy, device=device)
+    rng = np.random.default_rng(0)
+    for _ in range(MESH_REQUESTS):
+        eng.submit(rng.integers(0, cfg.vocab_size,
+                                size=int(rng.integers(8, 32))),
+                   max_new_tokens=MESH_NEW)
+    return eng
+
+
+# the leaves of one SSD layer a rank of the model axis holds a block of,
+# and the dim it is cut on (JAX's specs, ``repro/models/ssm.py:63-80``):
+# the rest (B/C projections and convolutions) are whole on every rank
+_SSD_HEAD_DIMS = {"wz": 1, "wx": 1, "wdt": 1, "dt_bias": 0, "A_log": 0,
+                  "D": 0, "conv_x_w": 1, "conv_x_b": 0, "gate_norm": 0,
+                  "out_proj": 0}
+
+
+def _head_block(p, m: int, model: int) -> dict:
+    """One SSD layer's leaves ``p`` as rank ``m`` of ``model`` holds them."""
+    return {k: t if k not in _SSD_HEAD_DIMS
+            else t.chunk(model, _SSD_HEAD_DIMS[k])[m].contiguous()
+            for k, t in p.items()}
+
+
+def _sum_in_order(parts, dtype):
+    """``Mesh.all_reduce``'s sum of ``parts``: fp32, in rank order, cast
+    once to ``dtype``."""
+    out = parts[0].to(torch.float32, copy=True)
+    for q in parts[1:]:
+        out.add_(q)
+    return out.to(dtype)
+
+
+# the batch dim of each dense cache tree of the SSM and hybrid families
+# (``models/model.py::init_decode_cache``)
+_CACHE_ROW_DIM = {"ssm": 1, "ssm_staged": 2, "attn": 1, "ssm_tail": 1}
+
+
+class _MeshSums:
+    """The witness of an SSM mesh run: one process that does the
+    arithmetic of a (``data``, ``model``) mesh's ranks. A decode step runs
+    as ``data`` steps, one a block of rows (each a data rank's rows and
+    its rows of the caches), the logits concatenated. Each SSD block runs
+    as ``model`` head blocks one after another (each a rank's slice of the
+    weights, of the state and of ``conv_x``'s buffer; B/C whole), and
+    ``out_proj``'s fp32 partials are summed in rank order and cast once;
+    where the model axis divides a prefill's S, B and C are projected on
+    its S/``model`` row blocks by ``[wb | wc]``, as ``rows_linear``
+    projects them. The rest of each row block's step (norms, vocabulary,
+    zamba2's shared attention and MLP) runs as one process runs it. Used
+    as a context manager around one process's engine, from its build on."""
+
+    def __init__(self, data: int, model: int):
+        self.data, self.model = data, model
+
+    def __enter__(self):
+        import repro_torch.models.model as mm
+        import repro_torch.models.ssm as ssm
+        import repro_torch.serving.engine as engine
+
+        self._mods = (mm, ssm, engine)
+        self._saved = (mm.ssm_train, mm.ssm_decode, ssm._project,
+                       ssm._out_proj, engine.decode_step)
+        train, decode, project, _, step = self._saved
+        model, data, bc = self.model, self.data, []
+
+        def projected(x, p):
+            z, xs, Bp, Cp, dt = project(x, p)
+            return (z, xs, *bc, dt) if bc else (z, xs, Bp, Cp, dt)
+
+        def partial(y, p, policy, *, scatter=False):
+            return torch.matmul(y.float(), p["out_proj"].float())
+
+        def blocked_train(x, p, config, *, return_cache=False, policy=None,
+                          seq_sharded=False):
+            if model > 1 and x.shape[1] % model == 0:
+                wbc = torch.cat([p["wb"], p["wc"]], dim=-1)
+                rows = torch.cat([torch.matmul(b, wbc)
+                                  for b in x.chunk(model, 1)], 1)
+                bc[:] = rows.split(p["wb"].shape[-1], dim=-1)
+            outs = [train(x, _head_block(p, m, model), config,
+                          return_cache=return_cache) for m in range(model)]
+            bc.clear()
+            cache = None
+            if return_cache:
+                cs = [c for _, c in outs]
+                cache = {"state": torch.cat([c["state"] for c in cs], 1),
+                         "conv_x": torch.cat([c["conv_x"] for c in cs], -1),
+                         "conv_b": cs[0]["conv_b"], "conv_c": cs[0]["conv_c"]}
+            return _sum_in_order([o for o, _ in outs], x.dtype), cache
+
+        def blocked_decode(x, p, cache, config, policy=None, *, rows=None):
+            nh, di = cache["state"].shape[1], cache["conv_x"].shape[-1]
+            bufs = {k: cache[k] for k in ("conv_b", "conv_c")}
+            parts = []
+            for m in range(model):
+                hs = slice(m * nh // model, (m + 1) * nh // model)
+                cs = slice(m * di // model, (m + 1) * di // model)
+                c = {"state": cache["state"][:, hs],
+                     "conv_x": cache["conv_x"][:, :, cs],
+                     **{k: b.clone() for k, b in bufs.items()}}
+                parts.append(decode(x, _head_block(p, m, model), c, config))
+            for k, b in bufs.items():
+                b.copy_(c[k])
+            return _sum_in_order(parts, x.dtype)
+
+        def rowed_step(params, caches, cur_len, tokens, config, *a, **kw):
+            per, logits = tokens.shape[0] // data, []
+            for r in range(data):
+                mine = {k: None if sub is None else
+                        {n: t.narrow(_CACHE_ROW_DIM[k], r * per, per)
+                         for n, t in sub.items()}
+                        for k, sub in caches.items()}
+                logits.append(step(params, mine, cur_len,
+                                   tokens[r * per:(r + 1) * per], config,
+                                   *a, **kw)[0])
+            return torch.cat(logits, 0), caches, None
+
+        mm.ssm_train, mm.ssm_decode = blocked_train, blocked_decode
+        ssm._project, ssm._out_proj = projected, partial
+        if data > 1:
+            engine.decode_step = rowed_step
+        return self
+
+    def __exit__(self, *exc):
+        mm, ssm, engine = self._mods
+        (mm.ssm_train, mm.ssm_decode, ssm._project, ssm._out_proj,
+         engine.decode_step) = self._saved
+        return False
+
+
+def _ssm_reference(arch, layers, dtype: str, store: Path, *, sums=None,
+                   force=None):
+    """The scenario in one process on the card (``"python"``): tokens,
+    each step's and each prefill's logits (saved for the ranks), the
+    parameter and cache bytes. ``sums`` ((data, model)): the witness of a
+    mesh of that shape (:class:`_MeshSums`); ``force``: a saved run's
+    path, whose tokens and prefill logits the engine takes
+    (:func:`_pin_calls`)."""
+    from repro_torch.models import init_params
+
+    cfg = _ssm_config(arch, layers)
+    params = init_params(cfg, seed=0, device="cuda",
+                         dtype=getattr(torch, dtype))
+    pin = None if force is None else torch.load(force)
+    logits, pinned = [], {}
+    with _MeshSums(*sums) if sums else contextlib.nullcontext():
+        eng = _ssm_engine(params, cfg, None, "python", device="cuda")
+        undo = _pin_calls(pinned, pin, router=False)
+        step_ms, wall = _mesh_drive(eng, logits, None,
+                                    None if pin is None else pin["logits"])
+        undo()
+    tag = "one" if sums is None else "x".join(map(str, sums))
+    path = store / f"ssm_{arch}_{layers}_{dtype}_{tag}.pt"
+    torch.save({"logits": logits, "prefill": pinned["prefill"]}, path)
+    ref = {"tokens": {r.uid: list(r.generated) for r in eng.finished},
+           "path": str(path), "step_ms": step_ms, "wall_s": wall,
+           "param_bytes": _tree_nbytes(params),
+           "cache_bytes": _cache_bytes(eng.caches)}
+    del eng, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _mesh_ssm_rank(mesh, scs):
+    """:func:`_mesh_ssm_run` of each scenario of ``scs`` on this rank, in
+    turn."""
+    return [_mesh_ssm_run(mesh, sc) for sc in scs]
+
+
+def _mesh_ssm_run(mesh, sc):
+    """One rank of an SSM mesh run: its shard of the seed-0 draw (as one
+    process draws it), the scenario served in ``sc["mode"]``, on one
+    process's tokens with ``sc["force"]``; returns what the parent checks
+    (tokens, logits against one process's, bytes, collectives a decode
+    step by kind, captures, times)."""
+    from repro_torch.launch.meta_mesh import record_collectives
+    from repro_torch.models import init_params
+    from repro_torch.sharding import ShardingPolicy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _ssm_config(sc["arch"], sc["layers"])
+    policy = ShardingPolicy(mesh=mesh)
+    params = init_params(cfg, seed=0, device=mesh.device,
+                         dtype=getattr(torch, sc["dtype"]), policy=policy)
+    shape = (mesh.size("data"), mesh.size("model"))
+    ref = torch.load(sc["reference"])
+    pinned = {}
+    undo = _pin_calls(pinned, ref if sc["force"] else None,
+                      mesh.index("data"), router=False)
+    eng = _ssm_engine(params, cfg, policy, sc["mode"])
+    log = record_collectives(mesh)
+    log.on = False
+    log.reset()
+    decode = eng._decode
+
+    def counted_step(*a, **kw):
+        log.on = True
+        try:
+            return decode(*a, **kw)
+        finally:
+            log.on = False
+
+    eng._decode = counted_step
+    mesh.staged_bytes = 0
+    logits = []
+    step_ms, wall = _mesh_drive(eng, logits, None,
+                                ref["logits"] if sc["force"] else None)
+    undo()
+    stats, n = log.stats(), max(eng.decode_count, 1)
+    finite = all(bool(torch.isfinite(t[:, :cfg.vocab_size]).all())
+                 for t in logits + pinned["prefill"])
+    # a captured step's replays call no Python: counted in "python"
+    eager = eng.decode_graph is None
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "logits_finite": finite, "param_bytes": _tree_nbytes(params),
+           "cache_bytes": _cache_bytes(eng.caches),
+           "shard_mismatches": _shard_mismatches(params, cfg, shape),
+           "tokens": {r.uid: list(r.generated) for r in eng.finished},
+           "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
+           "step_ms": step_ms, "wall_s": wall,
+           "staged_bytes": mesh.staged_bytes,
+           "captures": eng.graph_capture_counts,
+           "collectives_per_step": ({k: v / n for k, v in
+                                     stats["counts"].items()}
+                                    if eager else None),
+           "collective_bytes_per_step": ({k: v / n for k, v in
+                                          stats["bytes"].items()}
+                                         if eager else None)}
+    out.update(_logits_against(logits, ref["logits"]))
+    out["prefill"] = _logits_against(pinned["prefill"], ref["prefill"])
+    if sc.get("witness"):
+        wit = torch.load(sc["witness"])
+        out["witness"] = _logits_against(logits, wit["logits"])
+        out["witness"]["prefill"] = _logits_against(pinned["prefill"],
+                                                    wit["prefill"])
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _witness_against(wit, ref) -> dict:
+    """A witness run (:class:`_MeshSums`) against one process's run of the
+    same draw: the largest |Δ| of its decode and prefill logits, its arg
+    max partings, and whether its tokens are one process's."""
+    w, r = torch.load(wit["path"]), torch.load(ref["path"])
+    dec = _logits_against(w["logits"], r["logits"])
+    pre = _logits_against(w["prefill"], r["prefill"])
+    return {"logits_max_abs_diff": dec["logits_max_abs_diff"],
+            "prefill_logits_max_abs_diff": pre["logits_max_abs_diff"],
+            "argmax_partings": len(dec["argmax_partings"])
+            + len(pre["argmax_partings"]),
+            "tokens_equal": wit["tokens"] == ref["tokens"]}
+
+
+def _check_ssm_run(tag, res, ref, pred, mode, tol, wit=None,
+                   wtol=None) -> None:
+    """An SSM run's ranks against one process, the witness of its mesh
+    (``wit``, :class:`_MeshSums`; None where there is none) and the mesh
+    dry run's prediction (``pred``, None where there is none):
+    ``"exact"`` (fp32, unpinned) tokens equal one process's and the
+    witness's, logits within ``tol`` of one process's and ``wtol`` of the
+    witness's; ``"pinned"`` (bf16, one process's tokens) logits within
+    ``wtol`` of the witness's (``tol`` None: one process's |Δ| printed),
+    an arg max that parts from one process's only inside that row's |Δ|;
+    ``"free"`` (bf16 ``"scan"``, which cannot be pinned) printed. Every
+    rank: its leaves its shards' bytes, finite logits, the predicted
+    parameter and cache bytes and collectives a decode step (counts and
+    bytes by kind)."""
+    for r in res:
+        check(r["logits_finite"],
+              f"mesh {tag}: rank {r['rank']}'s logits are not finite")
+        check(not r["shard_mismatches"],
+              f"mesh {tag}: rank {r['rank']}'s leaves are not its shards: "
+              f"{r['shard_mismatches']}")
+        if mode != "free":
+            steps, pre = r["steps_compared"], r["prefill"]["steps_compared"]
+            worst = max(r["logits_max_abs_diff"] or 0.0,
+                        r["prefill"]["logits_max_abs_diff"] or 0.0)
+            check(steps == len(ref["step_ms"]) > 0
+                  and pre == r["prefills"] > 0,
+                  f"mesh {tag}: rank {r['rank']} compared {steps} decode "
+                  f"steps and {pre} prefills with one process's")
+            check(tol is None or worst <= tol,
+                  f"mesh {tag}: rank {r['rank']}'s logits part from one "
+                  f"process's by {worst} > {tol}")
+            check(r["tokens"] == ref["tokens"],
+                  f"mesh {tag}: rank {r['rank']}'s tokens part from one "
+                  "process's")
+            partings = (r["argmax_partings"]
+                        + r["prefill"]["argmax_partings"])
+            check(mode == "pinned" or not partings,
+                  f"mesh {tag}: rank {r['rank']}'s arg max parts: {partings}")
+            check(all(p["one_process_top1_margin"] <= p["abs_diff"]
+                      for p in partings),
+                  f"mesh {tag}: rank {r['rank']}'s arg max parts outside "
+                  f"its deviation: {partings}")
+        if wit is not None:
+            w = r["witness"]
+            steps, pre = w["steps_compared"], w["prefill"]["steps_compared"]
+            worst = max(w["logits_max_abs_diff"] or 0.0,
+                        w["prefill"]["logits_max_abs_diff"] or 0.0)
+            check(steps == len(wit["step_ms"]) > 0
+                  and pre == r["prefills"] > 0 and worst <= wtol,
+                  f"mesh {tag}: rank {r['rank']}'s logits part from its "
+                  f"witness's by {worst} > {wtol} ({steps} decode steps, "
+                  f"{pre} prefills compared)")
+            check(mode == "pinned" or r["tokens"] == wit["tokens"],
+                  f"mesh {tag}: rank {r['rank']}'s tokens part from its "
+                  "witness's")
+        if pred is None:
+            continue
+        check(r["param_bytes"] == pred["params_bytes"]
+              and r["cache_bytes"] == pred["caches_bytes"],
+              f"mesh {tag}: rank {r['rank']} holds {r['param_bytes']} + "
+              f"{r['cache_bytes']} B, the dry run predicts "
+              f"{pred['params_bytes']} + {pred['caches_bytes']}")
+        check(r["collectives_per_step"] in (None,
+                                            pred["collectives"]["counts"])
+              and r["collective_bytes_per_step"] in (
+                  None, pred["collectives"]["bytes"]),
+              f"mesh {tag}: rank {r['rank']} runs "
+              f"{r['collectives_per_step']} collectives a step "
+              f"({r['collective_bytes_per_step']} B), the dry run predicts "
+              f"{pred['collectives']}")
+
+
+def _ssm_bounds(dtype: str) -> tuple:
+    """(mode, bound against one process, bound against the witness) of an
+    SSM mesh run in ``dtype``: bf16 is held to its witness alone."""
+    if dtype == "float32":
+        return "exact", MESH_SSM_FP32_LOGITS_TOL, MESH_FP32_LOGITS_TOL
+    return "pinned", None, MESH_LOGITS_TOL
+
+
+def _mesh_ssm(store: Path, cards, pred) -> dict:
+    """The gloo SSM runs of :data:`MESH_SSM_RUNS` (the runs of one mesh
+    shape on one spawn of its ranks), each against one process (one
+    reference per config and dtype), the witness of its mesh and the mesh
+    dry run's prediction."""
+    from repro_torch.launch.mesh import spawn
+
+    refs, wits, runs = {}, {}, {}
+    for arch, layers, dtype in dict.fromkeys(
+            (a, n, d) for _, a, n, _, d in MESH_SSM_RUNS):
+        t0 = time.perf_counter()
+        refs[(arch, layers, dtype)] = _ssm_reference(arch, layers, dtype,
+                                                     store)
+        refs[(arch, layers, dtype)]["s"] = time.perf_counter() - t0
+    for tag, arch, layers, shape, dtype in MESH_SSM_RUNS:
+        ref = refs[(arch, layers, dtype)]
+        wits[tag] = _ssm_reference(
+            arch, layers, dtype, store, sums=shape,
+            force=ref["path"] if dtype == "bfloat16" else None)
+    for shape in dict.fromkeys(r[3] for r in MESH_SSM_RUNS):
+        tags = [r for r in MESH_SSM_RUNS if r[3] == shape]
+        scs = [{"arch": arch, "layers": layers, "dtype": dtype,
+                "mode": "python", "force": dtype == "bfloat16",
+                "reference": refs[(arch, layers, dtype)]["path"],
+                "witness": wits[tag]["path"]}
+               for tag, arch, layers, _, dtype in tags]
+        t0 = time.perf_counter()
+        res = spawn(_mesh_ssm_rank, *shape, backend="gloo", device="cuda",
+                    store_dir=store / f"ssm_{shape[0]}x{shape[1]}",
+                    args=(scs,), timeout=MESH_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        for i, (tag, arch, layers, _, dtype) in enumerate(tags):
+            ref, wit = refs[(arch, layers, dtype)], wits[tag]
+            rr = [r[i] for r in res]
+            mode, tol, wtol = _ssm_bounds(dtype)
+            runs[tag] = {
+                "arch": arch, "shape": list(shape), "layers": layers,
+                "dtype": dtype, "cards": cards, "ranks": len(rr),
+                "backend": "gloo", "decode_mode": "python", "mode": mode,
+                "logits_tol": tol, "witness_logits_tol": wtol,
+                "tokens_equal_one_process": all(
+                    r["tokens"] == ref["tokens"] for r in rr),
+                "logits_max_abs_diff": [r["logits_max_abs_diff"]
+                                        for r in rr],
+                "prefill_logits_max_abs_diff": [
+                    r["prefill"]["logits_max_abs_diff"] for r in rr],
+                "argmax_partings": [len(r["argmax_partings"])
+                                    + len(r["prefill"]["argmax_partings"])
+                                    for r in rr],
+                "witness_logits_max_abs_diff": [
+                    r["witness"]["logits_max_abs_diff"] for r in rr],
+                "witness_prefill_logits_max_abs_diff": [
+                    r["witness"]["prefill"]["logits_max_abs_diff"]
+                    for r in rr],
+                "witness_against_one_process": _witness_against(wit, ref),
+                "param_bytes_per_rank": rr[0]["param_bytes"],
+                "state_bytes_per_rank": rr[0]["cache_bytes"],
+                "one_process_param_bytes": ref["param_bytes"],
+                "one_process_state_bytes": ref["cache_bytes"],
+                "predicted": {k: pred[tag][k] for k in ("params_bytes",
+                                                        "caches_bytes")},
+                "collectives_per_step_by_kind":
+                    rr[0]["collectives_per_step"],
+                "collective_bytes_per_step_by_kind":
+                    rr[0]["collective_bytes_per_step"],
+                "prefills": rr[0]["prefills"],
+                "decode_steps": rr[0]["decode_steps"],
+                "staged_bytes": [r["staged_bytes"] for r in rr],
+                "decode_step_ms_median_per_rank": [
+                    statistics.median(r["step_ms"]) for r in rr],
+                "one_process_decode_step_ms_median":
+                    statistics.median(ref["step_ms"]),
+                "witness_decode_step_ms_median":
+                    statistics.median(wit["step_ms"]),
+                "wall_s_per_rank": [r["wall_s"] for r in rr],
+                "spawn_s_of_the_shape": spawn_s,
+                "one_process_s": ref["s"]}
+            emit({"phase": "mesh", "run": tag, **runs[tag]})
+            _check_ssm_run(tag, rr, ref, pred[tag], mode, tol, wit, wtol)
+        del res
+        gc.collect()
+    return runs
+
+
+def _nccl_ssm_scan(store: Path, cards) -> dict:
+    """mamba2 over NCCL, a card a rank, at (1, 4) in ``"scan"`` (one
+    capture a rank): its whole depth in bf16 (``"free"``: a captured step
+    cannot be pinned) and 8 layers in fp32 held to one process and to the
+    witness of the mesh."""
+    from repro_torch.launch.mesh import spawn
+
+    out = {}
+    for layers, dtype in zip(MESH_SSM_NCCL_LAYERS, ("bfloat16", "float32")):
+        ref = _ssm_reference(MAMBA2, layers, dtype, store)
+        fp32 = dtype == "float32"
+        wit = (_ssm_reference(MAMBA2, layers, dtype, store,
+                              sums=(1, MESH_MODEL)) if fp32 else None)
+        tag = f"nccl_scan_mamba2_{layers}_{dtype}"
+        res = spawn(_mesh_ssm_rank, 1, MESH_MODEL, backend="nccl",
+                    device="cuda", store_dir=store / tag,
+                    args=([{"arch": MAMBA2, "layers": layers,
+                            "dtype": dtype, "mode": "scan", "force": False,
+                            "reference": ref["path"],
+                            "witness": wit and wit["path"]}],),
+                    timeout=MESH_TIMEOUT_S)
+        res = [r[0] for r in res]
+        mode = "exact" if fp32 else "free"
+        out[tag] = {
+            "layers": layers, "dtype": dtype, "mode": mode, "cards": cards,
+            "devices": [r["device"] for r in res], "captures_per_rank": 1,
+            "tokens_equal_one_process": all(r["tokens"] == ref["tokens"]
+                                            for r in res),
+            "logits_max_abs_diff": [r["logits_max_abs_diff"] for r in res],
+            "witness_logits_max_abs_diff": [
+                r["witness"]["logits_max_abs_diff"] if fp32 else None
+                for r in res],
+            "param_bytes_per_rank": res[0]["param_bytes"],
+            "state_bytes_per_rank": res[0]["cache_bytes"],
+            "decode_step_ms_median_per_rank": [
+                statistics.median(r["step_ms"]) for r in res],
+            "one_process_decode_step_ms_median":
+                statistics.median(ref["step_ms"])}
+        emit({"phase": "mesh", "run": tag, **out[tag]})
+        _check_ssm_run(tag, res, ref, None, mode, MESH_SSM_FP32_LOGITS_TOL,
+                       wit, MESH_FP32_LOGITS_TOL)
+        check(all(r["captures"] == {"decode": 1, "prefill": 0, "migrate": 0}
+                  for r in res),
+              f"mesh {tag}: captures {[r['captures'] for r in res]}")
+        del res
+        gc.collect()
+    return out
+
+
+def _mt_ssm_build(cfg, device, policy):
+    """mamba2's fp32 train state on this process (the seed-0 draw, the
+    rank's shards under ``policy``), its step (the launcher's optimizer,
+    remat off) and the ``train`` phase's batches."""
+    from repro_torch.models import init_params
+    from repro_torch.training import (
+        AdamWConfig,
+        DataConfig,
+        SyntheticTokenStream,
+        init_train_state,
+        make_train_step,
+    )
+
+    params = init_params(cfg, seed=0, device=device, dtype=torch.float32,
+                         policy=policy)
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=10,
+                      total_steps=TRAIN_STEPS)
+    state = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, policy=policy, remat=False)
+    data = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    return state, step, data
+
+
+def _mt_ssm_reference(cfg, store: Path) -> dict:
+    """One process on the card: the steps, and the first step's gradients
+    saved for the ranks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    state, step, data = _mt_ssm_build(cfg, dev, None)
+    path = store / "ssm_train_grads.pt"
+
+    def save(grads):
+        torch.save({n: g.detach().float().cpu() for n, g in _leaves(grads)},
+                   path)
+
+    history, step_ms = _mt_run(state, step, None, data, dev, save,
+                               steps=MESH_SSM_TRAIN_STEPS)
+    out = {"history": history, "step_ms": step_ms, "grads": str(path),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_ssm_rank(mesh, sc):
+    """One rank of mamba2's training: the steps, its first step's reduced
+    gradients against one process's blocks (each leaf's cosine, and max
+    |Δ| over the whole leaf's max |g|), its parameter and moment bytes."""
+    from repro_torch.launch.mesh import policy_for
+    from repro_torch.sharding import ShardingPolicy, param_specs, take_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _ssm_config(MAMBA2, sc["layers"])
+    policy = (policy_for(mesh, step_kind="train") if sc["fsdp"]
+              else ShardingPolicy(mesh=mesh))
+    state, step, data = _mt_ssm_build(cfg, mesh.device, policy)
+    specs = dict(_leaves(param_specs(state["params"], policy, cfg)))
+    ref = torch.load(sc["grads"])
+    shares, cosines = {}, {}
+
+    def held(grads):
+        for name, g in _leaves(grads):
+            whole = ref[name]
+            want = take_shard(whole, specs[name], mesh).double()
+            got = g.detach().cpu().double()
+            shares[name] = float((got - want).abs().max()
+                                 / max(float(whole.abs().max()), 1e-30))
+            cosines[name] = float(torch.nn.functional.cosine_similarity(
+                got.flatten(), want.flatten(), dim=0))
+
+    mesh.staged_bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms = _mt_run(state, step, None, data, mesh.device, held,
+                               steps=MESH_SSM_TRAIN_STEPS)
+    worst = max(shares, key=shares.get)
+    least = min(cosines, key=cosines.get)
+    return {"rank": mesh.rank, "history": history, "step_ms": step_ms,
+            "grad_share": shares[worst], "grad_share_leaf": worst,
+            "grad_cos": cosines[least], "grad_cos_leaf": least,
+            "param_bytes": _tree_nbytes(state["params"]),
+            "moment_bytes": _tree_nbytes({k: state["opt"][k]
+                                          for k in ("mu", "nu")}),
+            "staged_bytes": mesh.staged_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _mesh_train_ssm(store: Path, cards, pred) -> dict:
+    """mamba2 trained at (1, 4) and under FSDP at (2, 2) on the gloo ranks
+    against one process: step 1's loss and gradients' cosines, every rank
+    the same metrics, the bytes the mesh dry run predicts."""
+    from repro_torch.launch.mesh import spawn
+
+    cfg = _ssm_config(MAMBA2, MESH_SSM_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    ref = _mt_ssm_reference(cfg, store)
+    ref_s = time.perf_counter() - t0
+    runs = {}
+    for tag, shape, fsdp in (("mamba2_train_1x4", (1, MESH_MODEL), False),
+                             ("mamba2_train_fsdp_2x2", (2, 2), True)):
+        t0 = time.perf_counter()
+        res = spawn(_mt_ssm_rank, *shape, backend="gloo", device="cuda",
+                    store_dir=store / tag,
+                    args=({"layers": cfg.num_layers, "fsdp": fsdp,
+                           "grads": ref["grads"]},),
+                    timeout=MESH_TRAIN_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        want = (pred[tag]["params_bytes"], pred[tag]["moments_bytes"])
+        loss, ref_loss = (res[0]["history"][0]["loss"],
+                          ref["history"][0]["loss"])
+        runs[tag] = {
+            "shape": list(shape), "layers": cfg.num_layers, "cards": cards,
+            "policy": ("policy_for(mesh, step_kind='train'): fsdp" if fsdp
+                       else "ShardingPolicy(mesh)"),
+            "steps": MESH_SSM_TRAIN_STEPS,
+            "losses": [h["loss"] for h in res[0]["history"]],
+            "one_process_losses": [h["loss"] for h in ref["history"]],
+            "grad_norms": [h["grad_norm"] for h in res[0]["history"]],
+            "one_process_grad_norms": [h["grad_norm"]
+                                       for h in ref["history"]],
+            "step1_loss_rel_diff": abs(loss / ref_loss - 1.0),
+            "grad_share_per_rank": [r["grad_share"] for r in res],
+            "grad_share_leaf_per_rank": [r["grad_share_leaf"] for r in res],
+            "grad_cos_per_rank": [r["grad_cos"] for r in res],
+            "grad_cos_leaf_per_rank": [r["grad_cos_leaf"] for r in res],
+            "grad_cos_limit": MESH_SSM_TRAIN_GRAD_COS,
+            "grad_share_limit": MESH_SSM_TRAIN_GRAD_TOL,
+            "param_bytes_per_rank": res[0]["param_bytes"],
+            "moment_bytes_per_rank": res[0]["moment_bytes"],
+            "predicted": list(want),
+            "staged_bytes_per_rank": [r["staged_bytes"] for r in res],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in res],
+            "one_process_peak_bytes": ref["peak_bytes"],
+            "step_ms_median_per_rank": [
+                statistics.median(r["step_ms"][1:]) for r in res],
+            "one_process_step_ms_median": statistics.median(
+                ref["step_ms"][1:]),
+            "spawn_s": spawn_s, "one_process_s": ref_s}
+        emit({"phase": "mesh_train", "run": tag, **runs[tag]})
+        check(abs(loss / ref_loss - 1.0) <= MESH_TRAIN_LOSS_RTOL[0],
+              f"mesh_train {tag}: step 1's loss {loss} against one "
+              f"process's {ref_loss}")
+        check(all(r["grad_cos"] >= MESH_SSM_TRAIN_GRAD_COS for r in res),
+              f"mesh_train {tag}: a gradient leaf's cosine with one "
+              f"process's is {runs[tag]['grad_cos_per_rank']} "
+              f"({runs[tag]['grad_cos_leaf_per_rank']}), under "
+              f"{MESH_SSM_TRAIN_GRAD_COS}")
+        check(all(r["grad_share"] <= MESH_SSM_TRAIN_GRAD_TOL for r in res),
+              f"mesh_train {tag}: a gradient leaf parts from one process's "
+              f"by {runs[tag]['grad_share_per_rank']} of its max "
+              f"({runs[tag]['grad_share_leaf_per_rank']}), over "
+              f"{MESH_SSM_TRAIN_GRAD_TOL}")
+        check(all(r["history"] == res[0]["history"] for r in res),
+              f"mesh_train {tag}: the ranks' metrics differ")
+        check(all((r["param_bytes"], r["moment_bytes"]) == want
+                  for r in res),
+              f"mesh_train {tag}: a rank holds "
+              f"{[(r['param_bytes'], r['moment_bytes']) for r in res]} B, "
+              f"the dry run predicts {want}")
+        del res
+        gc.collect()
+    return runs
 
 
 def nccl_paths():
@@ -4633,6 +5501,9 @@ def nccl_paths():
         record, counts = _nccl_scan(store, row_bytes, cards)
         launches.update(counts)
         emit({"phase": "mesh", "nccl_scan": record,
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        emit({"phase": "mesh", "nccl_scan_ssm": _nccl_ssm_scan(store, cards),
               "seconds": time.perf_counter() - t0})
         t0 = time.perf_counter()
         _, counts = _nccl_train(store, cards)
@@ -4686,11 +5557,11 @@ def main(argv=None) -> int:
     swa_launches = phase_swa()
     families_launches = phase_families()
     train_launches, train_step_ms = phase_train()
-    dryrun_launches = phase_dryrun(src, train_step_ms)
+    dryrun_launches, mesh_pred = phase_dryrun(src, train_step_ms)
     examples_launches = phase_examples()
     collective_launches = phase_collective()
-    mesh_launches = phase_mesh(summary)
-    mesh_train_launches = phase_mesh_train(summary)
+    mesh_launches = phase_mesh(summary, mesh_pred)
+    mesh_train_launches = phase_mesh_train(summary, mesh_pred)
 
     sources = {
         "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",

@@ -62,9 +62,9 @@ def params_from_numpy(tree: dict[str, Any], config: ModelConfig, device,
 
     Under a ``policy`` with a mesh each rank gets exactly its shard of
     every leaf by :func:`~repro_torch.sharding.param_specs` (the
-    projections and the vocabulary over the model axis, the expert stacks'
-    slots, and under FSDP their blocks over ``data`` too), the stacked
-    leaves converted a layer at a time."""
+    projections, the SSD heads and the vocabulary over the model axis, the
+    expert stacks' slots, and under FSDP their blocks over ``data`` too),
+    the stacked leaves converted a layer at a time."""
     missing = [k for k in _EXPECTED if k not in tree]
     if missing:
         raise KeyError(f"params tree lacks {missing}")

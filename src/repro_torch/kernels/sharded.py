@@ -63,6 +63,28 @@ sequence sharded over ``model``) adds these, each with its adjoint:
   rank's rows in one device's order: a sequence-parallel step's gradients
   are one device's, bit for bit, wherever the forward's are.
 
+**The SSD heads over the model axis** (the SSM and hybrid families: each
+rank runs its heads over every row, the B/C projections and convolutions
+whole and alike on every rank) add two:
+
+* :func:`sum_grads_over` marks a value every rank of the axis holds alike
+  as the input of a region where each rank computes only its part (its
+  heads): the identity forward, its adjoint sums the parts' cotangents
+  over the axis (fp32, rank order), so that the value's gradient is
+  complete and the same on every rank. The B/C activations enter the
+  heads through it in fp32, so the B/C convolutions and projections take
+  one complete cotangent, rounded once, and their weights' gradients are
+  whole and alike on every rank, as a whole leaf's;
+* :func:`scatter_sum` is the sequence-parallel out-projection: each
+  rank's fp32 partial of the whole sequence is summed over the axis in
+  rank order and the rank keeps its block of rows (a reduce-scatter,
+  rounded once); its adjoint gathers the cotangent's blocks, so every
+  rank's partial gets the whole cotangent. The block's entry is
+  :func:`gather_fsdp` on the rank's normalised rows for the heads'
+  projections (the adjoint sums the ranks' partial cotangents and keeps
+  the rank's block), and :func:`rows_linear` of the whole B/C weights on
+  the rank's rows, gathered with :func:`gather_cat`.
+
 **The data axis's layout** (ZeRO-3, a policy with ``fsdp``) adds
 :func:`gather_fsdp`: a layer's block of a leaf stored over ``data`` is
 gathered whole along its data dim just before the layer uses it, and
@@ -86,7 +108,8 @@ from .ops import moe_ffn, topk_router
 
 __all__ = ["moe_ffn_sharded", "topk_router_sharded", "gather_over",
            "sum_over", "gather_cat", "gather_fsdp", "take_block",
-           "rows_linear", "scale_rows", "rows_attention"]
+           "rows_linear", "scale_rows", "rows_attention", "scatter_sum",
+           "sum_grads_over"]
 
 
 def _needs_grad(*tensors) -> bool:
@@ -153,7 +176,7 @@ class _TakeBlock(torch.autograd.Function):
 
 
 def _rows_forward(x, w, b, mesh, axis, wdim, transpose):
-    w_all = _cat(mesh.all_gather(w, axis), wdim)
+    w_all = w if wdim is None else _cat(mesh.all_gather(w, axis), wdim)
     y = torch.matmul(x, w_all.t() if transpose else w_all)
     if b is not None:
         y = y + _cat(mesh.all_gather(b, axis), 0)
@@ -167,7 +190,8 @@ class _RowsLinear(torch.autograd.Function):
         ctx.save_for_backward(x, w_all)
         ctx.mesh, ctx.axis, ctx.wdim = mesh, axis, wdim
         ctx.transpose = transpose
-        ctx.block, ctx.bias = w.shape[wdim], b is not None
+        ctx.block = None if wdim is None else w.shape[wdim]
+        ctx.bias = b is not None
         return y
 
     @staticmethod
@@ -185,21 +209,25 @@ class _RowsLinear(torch.autograd.Function):
         x2, g2 = xs.reshape(-1, xs.shape[-1]), gs.reshape(-1, gs.shape[-1])
         dw = x2.t().mm(g2)
         dw = dw.t() if ctx.transpose else dw
-        lo = mesh.index(axis) * block
         db = None
-        if ctx.bias:
-            db = gs.sum_to_size(gs.shape[-1]).narrow(0, lo, block)
-        return (dx, dw.narrow(wdim, lo, block), db, None, None, None, None)
+        if wdim is not None:  # the rank's block of a gathered weight
+            lo = mesh.index(axis) * block
+            dw = dw.narrow(wdim, lo, block)
+            if ctx.bias:
+                db = gs.sum_to_size(gs.shape[-1]).narrow(0, lo, block)
+        return (dx, dw, db, None, None, None, None)
 
 
-def rows_linear(x, w, b, mesh, axis, *, wdim: int, transpose: bool = False):
+def rows_linear(x, w, b, mesh, axis, *, wdim: int | None,
+                transpose: bool = False):
     """``x · W (+ b)`` for x the rank's block of rows (B, S/m, ·) and W
     gathered whole over ``axis`` from the rank's shard ``w`` along
     ``wdim`` (0: its rows of the input dim, 1: its columns of the output
-    dim, with ``b`` the bias's block); with ``transpose`` the gathered
-    weight is stored (out, in) and used transposed (the tied embedding as
-    the head). Backward: ``dx`` from the whole weight; W's and b's
-    gradients over every rank's rows, the rank's block kept."""
+    dim, with ``b`` the bias's block; None: ``w`` is whole on every rank
+    and nothing is gathered); with ``transpose`` the gathered weight is
+    stored (out, in) and used transposed (the tied embedding as the
+    head). Backward: ``dx`` from the whole weight; W's and b's gradients
+    over every rank's rows, the rank's block kept (all of a whole W)."""
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in (x, w, b))):
         return _rows_forward(x, w, b, mesh, axis, wdim, transpose)[0]
@@ -307,11 +335,59 @@ def gather_fsdp(t, mesh, axis, dim: int):
     """A layer's block ``t`` of a leaf stored over ``axis`` (FSDP's
     ``data``), gathered whole along ``dim`` in axis order. Backward: the
     reduce-scatter, every rank's gradient of the whole summed in fp32 in
-    rank order and the rank's block kept, in ``t``'s dtype."""
+    rank order and the rank's block kept, in ``t``'s dtype. The SSD block
+    gathers its sequence-parallel input rows with it too: each rank's
+    heads give a part of the whole input's cotangent."""
     dim = dim % t.dim()
     if not (torch.is_grad_enabled() and t.requires_grad):
         return _cat(mesh.all_gather(t, axis), dim)
     return _GatherFSDP.apply(t, mesh, axis, dim)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, dtype):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.dtype = mesh, axis, dim, t.dtype
+        return mesh.reduce_scatter(t, axis, dim, dtype=torch.float32).to(
+            dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = _cat(ctx.mesh.all_gather(g.contiguous(), ctx.axis), ctx.dim)
+        return whole.to(ctx.dtype), None, None, None, None
+
+
+def scatter_sum(t, mesh, axis, dim: int, dtype):
+    """The rank's block along ``dim`` of every rank's ``t`` summed over
+    ``axis`` (fp32, in rank order: :meth:`~repro_torch.launch.mesh.Mesh.
+    reduce_scatter`), cast once to ``dtype``. Backward: the cotangent's
+    blocks gathered whole, so that each rank's ``t`` gets all of it."""
+    dim = dim % t.dim()
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return mesh.reduce_scatter(t, axis, dim, dtype=torch.float32).to(
+            dtype)
+    return _ScatterSum.apply(t, mesh, axis, dim, dtype)
+
+
+class _SumGradsOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_reduce(g, ctx.axis, dtype=torch.float32).to(
+            g.dtype), None, None)
+
+
+def sum_grads_over(t, mesh, axis):
+    """``t`` (the same on every rank of ``axis``), whose backward sums the
+    ranks' cotangents over the axis in fp32 in rank order: the entry of a
+    region where each rank computes its own part."""
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _SumGradsOver.apply(t, mesh, axis)
 
 
 def take_block(t, mesh, axis, dim: int):

@@ -23,10 +23,13 @@ is allocated or computed, and reports:
   tensors included; a view adds nothing). The CUDA caching allocator
   rounds each block up to 512 bytes and holds cuBLAS's workspace, which
   this count leaves out.
-* ``ops`` — the number of ops dispatched.
-
-There is no collective on one card, so unlike the JAX dry run a cell has
-no ``collectives`` field.
+* ``ops`` — the number of ops dispatched;
+* ``collectives`` (given the step's ``mesh``) — what the rank's step
+  calls of the mesh's collectives, by JAX's kind names
+  (:func:`~repro_torch.launch.meta_mesh.record_collectives`), as JAX's
+  ``collective_stats`` reports them beside ``compute_stats``. A
+  collective's own work is not in ``flops`` or ``bytes`` (a metadata
+  mesh dispatches only the stand-in it returns).
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
+
+from .meta_mesh import record_collectives
 
 __all__ = ["StepTracker", "trace_cost", "tree_bytes"]
 
@@ -88,18 +93,26 @@ class StepTracker(TorchDispatchMode):
         return out
 
 
-def trace_cost(fn, *args, **kwargs):
+def trace_cost(fn, *args, mesh=None, **kwargs):
     """``fn(*args, **kwargs)`` once under the counters: (its result, a dict
-    of ``flops``, ``bytes``, ``peak_bytes`` and ``ops``). The tensors in
-    the arguments count as live from the start."""
+    of ``flops``, ``bytes``, ``peak_bytes`` and ``ops``, and with
+    ``mesh`` the ``collectives`` the step calls on it). The tensors in the
+    arguments count as live from the start."""
     flops = FlopCounterMode(display=False)
     tracker = StepTracker()
     tracker.hold((args, kwargs))
+    log = None
+    if mesh is not None:
+        log = record_collectives(mesh)
+        log.reset()
     with flops, tracker:
         out = fn(*args, **kwargs)
-    return out, {
+    cost = {
         "flops": int(flops.get_total_flops()),
         "bytes": int(tracker.bytes),
         "peak_bytes": int(tracker.peak_bytes),
         "ops": int(tracker.ops),
     }
+    if log is not None:
+        cost["collectives"] = log.stats()
+    return out, cost

@@ -323,14 +323,15 @@ def policy_for(mesh, *, step_kind: str, global_batch: int | None = None,
     The same decisions as JAX's; ``mesh`` needs only ``shape`` and
     ``axis_names``. What the port stores under them
     (:func:`~repro_torch.sharding.param_specs`): every policy stores the
-    projections, the vocabulary and the expert slots over ``model`` and
-    the dense KV cache's positions over ``kv_seq_axes``; ``fsdp`` (every
-    train step, and inference past 6 GB a model-axis shard) also stores
-    those leaves over ``data`` (ZeRO-3, their moments with them, a layer
-    gathered before it runs); the cache's rows lie over
-    ``cache_batch_axes`` (decode under FSDP: every rank runs every row and
-    holds a 1/d share of the rows) or the batch axes. The SSM and hybrid
-    families keep their leaves and caches whole under every policy.
+    projections, the SSD heads, the vocabulary and the expert slots over
+    ``model``, the dense KV cache's positions over ``kv_seq_axes`` and
+    the SSM state's heads over ``model``; ``fsdp`` (every train step, and
+    inference past 6 GB a model-axis shard) also stores those leaves over
+    ``data`` (ZeRO-3, their moments with them, a layer gathered before it
+    runs); the caches' rows lie over ``cache_batch_axes`` (decode under
+    FSDP: every rank runs every row and holds a 1/d share of the rows) or
+    the batch axes. Every family alike. ``mesh`` may be a
+    :class:`~repro_torch.launch.meta_mesh.MetaMesh` (the dry run's).
     """
     from ..sharding.policy import ShardingPolicy
 

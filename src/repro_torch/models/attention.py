@@ -20,7 +20,7 @@ from ..kernels.sharded import (
     rows_linear,
     sum_over,
 )
-from ..sharding.policy import kv_shard, layout_policy, model_axis
+from ..sharding.policy import kv_shard, model_axis
 from .layers import apply_rope, normal_init, rms_norm, rope
 
 __all__ = [
@@ -125,13 +125,12 @@ def _gathered(p, policy):
     return out
 
 
-def sequence_shards(policy, config: ModelConfig, seq_len: int) -> int:
+def sequence_shards(policy, seq_len: int) -> int:
     """M, the blocks the model axis cuts a ``seq_len``-row sequence into
     in prefill and training: the axis's extent where it divides
     ``seq_len`` (JAX's ``S % M`` condition), else 1. Always 1 without a
-    model axis and for the families the port keeps whole
-    (:func:`~repro_torch.sharding.layout_policy`)."""
-    if model_axis(layout_policy(policy, config)) is None:
+    model axis."""
+    if model_axis(policy) is None:
         return 1
     m = policy.model_axis_size
     return m if seq_len % m == 0 else 1
@@ -279,7 +278,7 @@ def attention_decode(x, p, k_cache, v_cache, cur_len, config: ModelConfig,
     H, KV, hd = config.num_heads, config.num_kv_heads, config.head_dim
     G = H // KV
     S_loc = k_cache.shape[-3]
-    kv = kv_shard(policy, config)
+    kv = kv_shard(policy)
     n = 1 if kv is None else policy.mesh.size(kv)
     lo = 0 if kv is None else policy.mesh.index(kv) * S_loc
     S_max = S_loc * n

@@ -71,7 +71,6 @@ from ..sharding.policy import (
     fsdp_dim,
     fsdp_gather_axis,
     kv_shard,
-    layout_policy,
     model_axis,
     param_specs,
     shard_range,
@@ -171,7 +170,8 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
     if config.ssm_state > 0:
         blocks = {"ln": zeros(L, D),
                   "ssm": init_ssm(config, num_layers=L, dtype=dtype,
-                                  device=device, generator=g)}
+                                  device=device, generator=g,
+                                  shard=sharder("blocks", "ssm"))}
     else:
         blocks = {
             "ln1": zeros(L, D),
@@ -196,9 +196,11 @@ def init_params(config: ModelConfig, *, seed: int = 0, device=None,
             "ln1": zeros(1, D),
             "ln2": zeros(1, D),
             "attn": init_attention(config, num_layers=1, dtype=dtype,
-                                   device=device, generator=g),
+                                   device=device, generator=g,
+                                   shard=sharder("shared", "attn")),
             "mlp": init_gated_mlp(D, config.d_ff, num_layers=1, dtype=dtype,
-                                  device=device, generator=g),
+                                  device=device, generator=g,
+                                  shard=sharder("shared", "mlp")),
         }
     return params
 
@@ -239,7 +241,7 @@ def _gather_layer(lp, policy, config: ModelConfig):
     ``blocks``) with every block stored over ``data`` gathered whole
     along its FSDP dim (:func:`~repro_torch.kernels.sharded.gather_fsdp`);
     ``lp`` itself without FSDP."""
-    axis = fsdp_gather_axis(policy, config)
+    axis = fsdp_gather_axis(policy)
     if axis is None:
         return lp
 
@@ -257,7 +259,7 @@ def _gather_layer(lp, policy, config: ModelConfig):
 def _gather_top(params, policy, config: ModelConfig):
     """``params`` with the embedding (and an untied head) gathered whole
     over ``data`` under FSDP, else ``params``."""
-    axis = fsdp_gather_axis(policy, config)
+    axis = fsdp_gather_axis(policy)
     if axis is None:
         return params
     out = dict(params)
@@ -273,8 +275,7 @@ def _embed_input(params, tokens, config: ModelConfig, patches=None,
                  policy=None):
     """tokens (B, S) (+ vision patch embeddings (B, P, D), prepended) →
     (B, P + S, D), whole on every rank."""
-    x = embed_tokens(tokens, params["embed"], config,
-                     layout_policy(policy, config))
+    x = embed_tokens(tokens, params["embed"], config, policy)
     if config.frontend == "vision" and patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     return x
@@ -293,9 +294,16 @@ def _remat(body, on: bool):
     return recomputed
 
 
-def _ssm_block_train(x, lp, config: ModelConfig, *, return_cache: bool):
-    h = rms_norm(x, lp["ln"], config.norm_eps)
-    y, cache = ssm_train(h, lp["ssm"], config, return_cache=return_cache)
+def _ssm_block_train(x, lp, config: ModelConfig, *, return_cache: bool,
+                     policy=None, seq_sharded: bool = False):
+    """ln → mamba2; with ``seq_sharded`` x is the rank's block of the
+    sequence over the model axis (the block gathers it whole)."""
+    axis = model_axis(policy)
+    rows = (policy.mesh, axis) if seq_sharded and axis is not None else None
+    lp = _gather_layer(lp, policy, config)
+    h = rms_norm(x, lp["ln"], config.norm_eps, rows=rows)
+    y, cache = ssm_train(h, lp["ssm"], config, return_cache=return_cache,
+                         policy=policy, seq_sharded=seq_sharded)
     return x + y, cache
 
 
@@ -307,13 +315,12 @@ def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
     and zamba2's shared block); returns (x, {"k", "v"} | None, MoEAux |
     None). With ``seq_sharded`` x is the rank's block of the sequence
     over the model axis."""
-    layout = layout_policy(policy, config)
-    axis = model_axis(layout)
+    axis = model_axis(policy)
     rows = (policy.mesh, axis) if seq_sharded and axis is not None else None
     lp = _gather_layer(lp, policy, config)
     h = rms_norm(x, lp["ln1"], config.norm_eps, rows=rows)
     a, kv = attention_train(h, lp["attn"], config, return_cache=return_cache,
-                            policy=layout, seq_sharded=seq_sharded)
+                            policy=policy, seq_sharded=seq_sharded)
     cache = {"k": kv[0], "v": kv[1]} if return_cache else None
     x = x + a
     h2 = rms_norm(x, lp["ln2"], config.norm_eps, rows=rows)
@@ -324,7 +331,7 @@ def _attn_block_train(x, lp, placement_l, config: ModelConfig, *,
                            seq_sharded=seq_sharded)
     else:
         y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation,
-                      policy=layout, rows="block" if seq_sharded else "all")
+                      policy=policy, rows="block" if seq_sharded else "all")
     return x + y, cache, aux
 
 
@@ -345,14 +352,15 @@ def _stack_forward(x, params, placements, config: ModelConfig, *,
     over a pool of ``num_slots`` slots: on the whole batch ``x`` with
     ``global_batch=None``, or on this rank's rows of a batch of
     ``global_batch`` (:func:`~repro_torch.models.moe.moe_layer`). With
-    ``seq_sharded`` (the attention families under a model axis that
-    divides S) ``x`` and the result are the rank's block of the sequence,
-    and the caches its block of positions."""
+    ``seq_sharded`` (a model axis that divides S) ``x`` and the result
+    are the rank's block of the sequence, the K/V caches its block of
+    positions and the SSM caches its heads over the whole sequence."""
     L = config.num_layers
     blocks = _unbind(params["blocks"])
 
     def ssm_block(xc, lp):
-        return _ssm_block_train(xc, lp, config, return_cache=return_cache)
+        return _ssm_block_train(xc, lp, config, return_cache=return_cache,
+                                policy=policy, seq_sharded=seq_sharded)
 
     def attn_block(xc, lp, placement_l):
         return _attn_block_train(xc, lp, placement_l, config,
@@ -433,7 +441,7 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
         patches = None if patches is None else patches[rows]
     params = _gather_top(params, policy, config)
     x = _embed_input(params, tokens, config, patches, policy)
-    sp = sequence_shards(policy, config, x.shape[1]) > 1
+    sp = sequence_shards(policy, x.shape[1]) > 1
     if sp:
         x = take_block(x, policy.mesh, policy.model_axis, 1)
     x, _, auxes = _stack_forward(
@@ -442,8 +450,8 @@ def forward_train(params, batch, config: ModelConfig, placements=None, *,
         global_batch=None if rows is None else B, seq_sharded=sp)
     x = rms_norm(x, params["final_norm"], config.norm_eps,
                  rows=(policy.mesh, policy.model_axis) if sp else None)
-    logits = lm_logits(x, params, config, layout_policy(policy, config),
-                       mode="train", seq_sharded=sp)
+    logits = lm_logits(x, params, config, policy, mode="train",
+                       seq_sharded=sp)
     aux = {}
     if auxes is not None:
         moe = _stack_aux(auxes)
@@ -490,7 +498,7 @@ def loss_fn(params, batch, config: ModelConfig, placements=None, *,
     if rows is not None:
         labels = labels[rows]
         mask = None if mask is None else mask[rows]
-    if sequence_shards(policy, config, S) > 1:
+    if sequence_shards(policy, S) > 1:
         # the rows' losses whole on every model rank, reduced as one
         # device reduces them; each rank's backward keeps its block
         axis = policy.model_axis
@@ -540,7 +548,7 @@ def prefill(params, tokens, config: ModelConfig, placements=None, *,
     """
     params = _gather_top(params, policy, config)
     x = _embed_input(params, tokens, config, patches, policy)
-    sp = sequence_shards(policy, config, x.shape[1]) > 1
+    sp = sequence_shards(policy, x.shape[1]) > 1
     if sp:
         x = take_block(x, policy.mesh, policy.model_axis, 1)
     x, caches, _ = _stack_forward(x, params, placements, config,
@@ -550,7 +558,7 @@ def prefill(params, tokens, config: ModelConfig, placements=None, *,
     last = rms_norm(x[:, -1:], params["final_norm"], config.norm_eps)
     if sp:  # the last position is the last rank's
         last = policy.mesh.all_gather(last, policy.model_axis)[-1]
-    logits = lm_logits(last, params, config, layout_policy(policy, config))
+    logits = lm_logits(last, params, config, policy)
     return logits[:, 0], caches
 
 
@@ -565,7 +573,7 @@ def init_decode_cache(config: ModelConfig, batch: int, max_len: int, *,
     block of the S_max positions (raises where they do not divide)."""
     window = config.sliding_window
     attn_len = min(window, max_len) if window else max_len
-    kv_axes = kv_shard(policy, config)
+    kv_axes = kv_shard(policy)
     if kv_axes is not None:
         block = shard_range(attn_len, kv_axes, policy.mesh,
                             leaf="the dense KV cache", dim=2)
@@ -579,7 +587,7 @@ def init_decode_cache(config: ModelConfig, batch: int, max_len: int, *,
 
     def ssm(*leading):
         return ssm_cache_zeros(config, batch, leading, dtype=dtype,
-                               device=device)
+                               device=device, policy=policy)
 
     if config.is_hybrid:
         staged, leftover = _hybrid_split(config)
@@ -610,9 +618,10 @@ def init_paged_decode_cache(config: ModelConfig, num_blocks: int,
     }}
 
 
-def _ssm_block_decode(x, lp, cache, config: ModelConfig):
+def _ssm_block_decode(x, lp, cache, config: ModelConfig, policy, rows):
+    lp = _gather_layer(lp, policy, config)
     h = rms_norm(x, lp["ln"], config.norm_eps)
-    return x + ssm_decode(h, lp["ssm"], cache, config)
+    return x + ssm_decode(h, lp["ssm"], cache, config, policy, rows=rows)
 
 
 def data_rows(policy, batch: int) -> slice | None:
@@ -630,25 +639,24 @@ def data_rows(policy, batch: int) -> slice | None:
     return slice(lo, lo + rows)
 
 
-def decode_cache_rows(policy, config: ModelConfig, batch: int) -> slice | None:
+def decode_cache_rows(policy, batch: int) -> slice | None:
     """The rows of a ``batch``-row dense decode cache that this rank
     holds, or None for all of them: the rows it runs where the batch
-    shards (:func:`data_rows`, every cache of every family); else, for
-    the families laid out on the mesh, its block of the rows over
+    shards (:func:`data_rows`); else its block of the rows over
     ``cache_batch_axes`` when their extent (> 1) divides ``batch``: the
     replicated-activation decode of an FSDP policy (``batch_axes=()``),
-    where every rank runs every row and attends only its cache rows."""
+    where every rank runs every row and attends (or steps the SSM state
+    of) only its cache rows. Every cache of every family."""
     rows = data_rows(policy, batch)
-    layout = layout_policy(policy, config)
-    if (rows is not None or layout is None or layout.mesh is None
-            or not layout.cache_batch_axes):
+    if (rows is not None or policy is None or policy.mesh is None
+            or not policy.cache_batch_axes):
         return rows
-    axes = tuple(layout.cache_batch_axes)
-    n = layout.mesh.size(axes)
+    axes = tuple(policy.cache_batch_axes)
+    n = policy.mesh.size(axes)
     if n <= 1 or batch % n:
         return None
     per = batch // n
-    lo = layout.mesh.index(axes) * per
+    lo = policy.mesh.index(axes) * per
     return slice(lo, lo + per)
 
 
@@ -698,33 +706,37 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
     # the dense cache's rows of a batch every rank runs whole
     kv_rows = None
     if rows is None and block_tables is None:
-        kv_rows = decode_cache_rows(policy, config, B)
-    layout = layout_policy(policy, config)
+        kv_rows = decode_cache_rows(policy, B)
     params = _gather_top(params, policy, config)
-    x = embed_tokens(tokens, params["embed"], config, layout)
+    x = embed_tokens(tokens, params["embed"], config, policy)
     moe_aux = None
     if config.is_hybrid:
         staged, _ = _hybrid_split(config)
         n_stages = staged // config.attn_every
-        sp = _layer(params["shared"], 0)
         attn = caches["attn"]
+        sp = _gather_layer(_layer(params["shared"], 0), policy, config)
         for s in range(n_stages):
             for j in range(config.attn_every):
                 x = _ssm_block_decode(
                     x, _layer(blocks, s * config.attn_every + j),
-                    _layer(caches["ssm_staged"], (s, j)), config)
+                    _layer(caches["ssm_staged"], (s, j)), config, policy,
+                    kv_rows)
             h = rms_norm(x, sp["ln1"], config.norm_eps)
             x = x + attention_decode(h, sp["attn"], attn["k"][s],
-                                     attn["v"][s], cur_len, config)
+                                     attn["v"][s], cur_len, config, policy,
+                                     rows=kv_rows)
             h2 = rms_norm(x, sp["ln2"], config.norm_eps)
-            x = x + gated_mlp(h2, sp["mlp"], activation=config.mlp_activation)
+            x = x + gated_mlp(h2, sp["mlp"], activation=config.mlp_activation,
+                              policy=policy)
         for t, i in enumerate(range(staged, L)):
             x = _ssm_block_decode(x, _layer(blocks, i),
-                                  _layer(caches["ssm_tail"], t), config)
+                                  _layer(caches["ssm_tail"], t), config,
+                                  policy, kv_rows)
     elif config.is_ssm:
         for i in range(L):
             x = _ssm_block_decode(x, _layer(blocks, i),
-                                  _layer(caches["ssm"], i), config)
+                                  _layer(caches["ssm"], i), config, policy,
+                                  kv_rows)
     else:
         if config.is_moe and placements is None:
             placements = identity_placement(config, L, device=tokens.device)
@@ -736,11 +748,11 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
             if block_tables is not None:
                 a = attention_decode_paged(
                     h, lp["attn"], pools["k"][i], pools["v"][i], block_tables,
-                    cur_len, config, layout,
+                    cur_len, config, policy,
                 )
             else:
                 a = attention_decode(h, lp["attn"], pools["k"][i],
-                                     pools["v"][i], cur_len, config, layout,
+                                     pools["v"][i], cur_len, config, policy,
                                      rows=kv_rows)
             x = x + a
             h2 = rms_norm(x, lp["ln2"], config.norm_eps)
@@ -755,12 +767,12 @@ def decode_step(params, caches, cur_len, tokens, config: ModelConfig,
                 auxes.append(aux)
             else:
                 y = gated_mlp(h2, lp["mlp"], activation=config.mlp_activation,
-                              policy=layout)
+                              policy=policy)
             x = x + y
         if auxes:
             moe_aux = _stack_aux(auxes)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = lm_logits(x, params, config, layout)[:, 0]
+    logits = lm_logits(x, params, config, policy)[:, 0]
     if rows is not None:
         logits = policy.mesh.all_gather(logits, policy.batch).reshape(B, -1)
     return logits, caches, moe_aux

@@ -63,9 +63,11 @@ its own shard of the parameters, :func:`repro_torch.models.init_params` or
 :func:`repro_torch.bridge.params_from_numpy` with the policy). The expert
 pool's slots shard over ``model`` (placement device d is model rank d),
 the decode batch and the dispatch groups over ``data``, and the
-projections and the vocabulary over ``model``
+projections, the SSD heads and the vocabulary over ``model``
 (:func:`~repro_torch.sharding.param_specs`). The KV cache is dense and
-holds the rank's rows and its block of positions over ``kv_seq``; every
+holds the rank's rows and its block of positions over ``kv_seq`` (the
+SSM state its rows and heads: the SSM and hybrid families serve on the
+dense cache alone, ``kv_mode="dense"``); every
 rank prefills every request (its MoE layers collapse to one group,
 sequence-parallel over ``model`` where the axis divides the prompt) and
 keeps the rows and positions it decodes. Every rank runs the same host
@@ -416,8 +418,7 @@ class ServingEngine:
         self.ecfg = engine_config
         # the dense cache's rows this rank holds (None: all of them): the
         # rows it decodes, or under replicated activations its cache rows
-        self._rows = decode_cache_rows(policy, config,
-                                       engine_config.max_batch)
+        self._rows = decode_cache_rows(policy, engine_config.max_batch)
         # the telemetry hub, always built (disabled when none is passed):
         # its registry holds the migration records. The clock binds to the
         # simulated time before the online controller is built, whose
@@ -714,9 +715,11 @@ class ServingEngine:
     def _whole_prompt_cache(self, caches, prompt_len: int):
         """The prefill's K/V whole over the prompt's positions: under a
         model axis that divides the prompt each rank holds its block, and
-        the blocks are gathered (every rank prefills, so all call it)."""
+        the blocks are gathered (every rank prefills, so all call it). The
+        SSM caches are whole over the prompt already (the rank's heads)."""
         policy = self.policy
-        if sequence_shards(policy, self.config, prompt_len) == 1:
+        if ("attn" not in caches
+                or sequence_shards(policy, prompt_len) == 1):
             return caches
         whole = {name: torch.cat(list(policy.mesh.all_gather(
             t, policy.model_axis).unbind(0)), dim=-3)
@@ -744,7 +747,7 @@ class ServingEngine:
         if rows is not None:  # the rank holds only the rows it decodes
             local = slot - rows.start
         lo, n_kv = 0, 1
-        kv = kv_shard(self.policy, self.config)
+        kv = kv_shard(self.policy)
         if "attn" in c and kv is not None:
             n_kv = self.policy.mesh.size(kv)
             lo = self.policy.mesh.index(kv) * c["attn"]["k"].shape[-3]
@@ -922,8 +925,8 @@ class ServingEngine:
         # moves its own
         row_bytes = sum(int(np.prod(w.shape[2:])) * w.element_size()
                         for w in ws)
-        row_bytes *= self.policy.mesh.size("data") if fsdp_gather_axis(
-            self.policy, self.config) else 1
+        if fsdp_gather_axis(self.policy):
+            row_bytes *= self.policy.mesh.size("data")
         return [st for _, st in stats_for_dense_sources(
             src, self.policy.model_axis_size, row_bytes)]
 

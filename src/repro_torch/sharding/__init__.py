@@ -6,7 +6,6 @@ from .policy import (
     host_policy,
     is_expert_leaf,
     kv_shard,
-    layout_policy,
     local_expert_slots,
     model_axis,
     param_specs,
@@ -17,6 +16,6 @@ from .policy import (
 
 __all__ = [
     "ShardingPolicy", "fsdp_dim", "fsdp_gather_axis", "host_policy",
-    "is_expert_leaf", "kv_shard", "layout_policy", "local_expert_slots",
+    "is_expert_leaf", "kv_shard", "local_expert_slots",
     "model_axis", "param_specs", "shard_range", "spec_axes", "take_shard",
 ]

@@ -9,26 +9,31 @@
   ``PartitionSpec`` from the same entries. Every spec method returns what
   JAX's returns.
 * What the port honours under a mesh (:func:`param_specs`): JAX's specs
-  leaf for leaf. Over ``model``: ``wq``/``wk``/``wv`` and the gated MLP's
-  gate/up by their flat output dim (``w_col``), ``wo`` and the MLP's down
-  projection by their input dim (``w_row``), the q/k/v biases, the tied
-  embedding by vocabulary, an untied one by ``d_model``, ``lm_head`` by
-  vocabulary, and the expert pool's slot dim (:func:`local_expert_slots`).
+  leaf for leaf, every family. Over ``model``: ``wq``/``wk``/``wv`` and
+  the gated MLP's gate/up by their flat output dim (``w_col``), ``wo``
+  and the MLP's down projection by their input dim (``w_row``), the
+  q/k/v biases, the tied embedding by vocabulary, an untied one by
+  ``d_model``, ``lm_head`` by vocabulary, the expert pool's slot dim
+  (:func:`local_expert_slots`), and the SSD blocks by head
+  (``repro/models/ssm.py:63-80``: ``wz``/``wx``/``wdt`` by their output
+  dim, ``dt_bias``/``A_log``/``D``/``conv_x_b``/``gate_norm`` and
+  ``conv_x_w``'s channels, ``out_proj`` by its input dim; the B/C
+  projections and their convolutions whole). zamba2's shared block
+  (leading dim 1) is laid out as the attention families' blocks are.
   Under ``fsdp`` (ZeRO-3) the same leaves are also stored over ``data``
-  on their other dim (:func:`fsdp_dim`: the projections' and the
-  experts' ``d_model``, the embedding's and the head's other dim); the
-  model gathers one layer's block whole over ``data`` just before it uses
-  it (:func:`~repro_torch.kernels.sharded.gather_fsdp`, whose adjoint
+  on their other dim (:func:`fsdp_dim`: the projections', the SSD
+  projections' (``wb``/``wc`` too) and the experts' ``d_model``, the
+  embedding's and the head's other dim); the model gathers one layer's
+  block whole over ``data`` just before it uses it
+  (:func:`~repro_torch.kernels.sharded.gather_fsdp`, whose adjoint
   reduce-scatters the gradient). The dense KV cache's sequence is stored
-  over ``kv_seq`` (:func:`kv_shard`) and its rows over the cache-batch
-  axes (:func:`repro_torch.models.model.decode_cache_rows`); the batch
-  and the MoE dispatch groups over the batch axes
-  (:meth:`ShardingPolicy.moe_shard_spec`). Two
-  divergences: a pool the model axis does not divide is whole over
-  ``model`` (JAX pads it through the dead-slot pad alike; its ``data``
-  entry is honoured), and the SSM and hybrid families keep every leaf and
-  cache whole, FSDP included (their specs, ``repro/models/ssm.py:63-80``,
-  are not ported yet).
+  over ``kv_seq`` (:func:`kv_shard`), the SSM state's heads and
+  ``conv_x``'s channels over ``model``, and every cache's rows over the
+  cache-batch axes (:func:`repro_torch.models.model.decode_cache_rows`);
+  the batch and the MoE dispatch groups over the batch axes
+  (:meth:`ShardingPolicy.moe_shard_spec`). One divergence: a pool the
+  model axis does not divide is whole over ``model`` (JAX pads it
+  through the dead-slot pad alike; its ``data`` entry is honoured).
 * PyTorch runs eagerly: there is no compiler to hand a layout to, so
   :meth:`ShardingPolicy.constrain` and the ``act_*``/``kv_cache`` helpers
   return their input. The model moves data between ranks itself, through
@@ -43,9 +48,9 @@ import dataclasses
 from typing import Any
 
 __all__ = ["ShardingPolicy", "fsdp_dim", "fsdp_gather_axis",
-           "host_policy", "kv_shard", "layout_policy", "local_expert_slots",
-           "model_axis", "model_dim", "param_specs", "shard_range",
-           "spec_axes", "take_shard"]
+           "host_policy", "kv_shard", "local_expert_slots", "model_axis",
+           "model_dim", "param_specs", "shard_range", "spec_axes",
+           "take_shard"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,22 +259,10 @@ def local_expert_slots(policy: ShardingPolicy | None,
     return slice(d * per, (d + 1) * per)
 
 
-def layout_policy(policy: ShardingPolicy | None,
-                  config) -> ShardingPolicy | None:
-    """The policy by which a model of ``config`` lays out its leaves and
-    caches: ``policy``, or None (every leaf and cache whole on every rank)
-    for the SSM and hybrid families, whose model-axis specs
-    (``repro/models/ssm.py:63-80``) the port does not honour yet. The one
-    place that decides it: :func:`param_specs`, :func:`kv_shard`, the
-    model's sequence parallelism and its layers all ask here."""
-    return None if config.family in ("ssm", "hybrid") else policy
-
-
 def model_axis(policy: ShardingPolicy | None) -> str | None:
     """The model axis when ``policy`` has a mesh whose model axis is wider
-    than one rank (the projections and the vocabulary are then stored
-    sharded over it), else None. Pass a model's policy through
-    :func:`layout_policy` first."""
+    than one rank (the projections, the SSD heads and the vocabulary are
+    then stored sharded over it), else None."""
     if policy is None or policy.mesh is None or policy.model_axis_size <= 1:
         return None
     return policy.model_axis
@@ -303,12 +296,10 @@ def take_shard(arr, spec, mesh, *, leaf: str = "tensor"):
     return arr
 
 
-def kv_shard(policy: ShardingPolicy | None, config) -> tuple | None:
+def kv_shard(policy: ShardingPolicy | None) -> tuple | None:
     """The axes over which the dense KV cache's sequence is sharded
     (``policy.kv_seq_axes``), or None where each rank holds it whole: no
-    mesh, an extent of 1, or a family whose caches the port keeps whole
-    (:func:`layout_policy`)."""
-    policy = layout_policy(policy, config)
+    mesh, or an extent of 1."""
     if policy is None or policy.mesh is None:
         return None
     axes = tuple(policy.kv_seq_axes)
@@ -317,22 +308,26 @@ def kv_shard(policy: ShardingPolicy | None, config) -> tuple | None:
     return axes
 
 
-def fsdp_gather_axis(policy: ShardingPolicy | None, config) -> str | None:
-    """``"data"`` when ``policy`` stores the leaves of a ``config`` model
-    over the data axis (ZeRO-3: ``fsdp`` on a mesh whose data axis is
-    wider than one rank, an attention family), else None: the axis over
-    which the model gathers a layer's blocks before it uses them."""
-    policy = layout_policy(policy, config)
+def fsdp_gather_axis(policy: ShardingPolicy | None) -> str | None:
+    """``"data"`` when ``policy`` stores a model's leaves over the data
+    axis (ZeRO-3: ``fsdp`` on a mesh whose data axis is
+    wider than one rank), else None: the axis over which the model
+    gathers a layer's blocks before it uses them."""
     if policy is None or policy._fsdp_axis() is None:
         return None
     return "data" if policy.mesh.size("data") > 1 else None
 
 
 # a leaf's spec by its key path: JAX's ``init_attention``/
-# ``init_gated_mlp``/``init_moe``/``init_params`` specs, ``f`` the FSDP
-# axis (None without FSDP)
+# ``init_gated_mlp``/``init_moe``/``init_ssm``/``init_params`` specs, ``f``
+# the FSDP axis (None without FSDP)
 _COL = ("wq", "wk", "wv", "w_gate", "w_up")
 _BIAS = ("bq", "bk", "bv")
+# the SSD block's leaves (``repro/models/ssm.py:63-80``): by head over
+# ``model``, or whole over it (the B/C projections and convolutions,
+# shared by every head)
+_SSM_COL = ("wz", "wx", "wdt")
+_SSM_HEAD = ("dt_bias", "A_log", "D", "conv_x_b", "gate_norm")
 
 
 def _leaf_spec(path, ndim: int, m: str, *, tied: bool, pool_divides: bool,
@@ -354,7 +349,19 @@ def _leaf_spec(path, ndim: int, m: str, *, tied: bool, pool_divides: bool,
             return (None, m, f)
         if name in _BIAS:
             return (None, m)
+    if parent == "ssm":
+        if name in _SSM_COL:
+            return (None, f, m)
+        if name in ("wb", "wc"):
+            return (None, f, None)
+        if name in _SSM_HEAD:
+            return (None, m)
+        if name == "conv_x_w":
+            return (None, None, m)
+        if name == "out_proj":
+            return (None, m, f)
     return none
+
 
 
 def model_dim(path, ndim: int, *, tied: bool) -> int | None:
@@ -382,15 +389,12 @@ def param_specs(params, policy: ShardingPolicy | None, config, *,
     FSDP's ``data`` entries where ``policy.fsdp`` is set. Without a mesh
     every leaf is None (whole).
 
-    Two divergences from JAX's specs: a pool the model axis does not
+    One divergence from JAX's specs: a pool the model axis does not
     divide (:func:`local_expert_slots`) is whole over ``model`` (its
-    ``data`` entry stays), and the SSM and hybrid families
-    (:func:`layout_policy`) are whole leaf for leaf, None as without a
-    mesh. ``params`` may hold tensors or numpy arrays of the full shapes,
-    or a rank's own tensors with ``num_slots``, the pool's global slot
-    count (a rank's rows of a sharded pool cannot be told from a whole
-    pool by their count)."""
-    policy = layout_policy(policy, config)
+    ``data`` entry stays). ``params`` may hold tensors or numpy arrays of
+    the full shapes, or a rank's own tensors with ``num_slots``, the
+    pool's global slot count (a rank's rows of a sharded pool cannot be
+    told from a whole pool by their count)."""
     if policy is None or policy.mesh is None:
         def nothing(tree):
             if isinstance(tree, dict):

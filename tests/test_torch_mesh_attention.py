@@ -102,7 +102,7 @@ def _policy(mesh, name):
 def _cache_block(policy, cfg, batch, S):
     """(rows, positions) of the global dense cache that the rank holds."""
     rows = data_rows(policy, batch) or slice(None)
-    axes = kv_shard(policy, cfg)
+    axes = kv_shard(policy)
     pos = slice(None) if axes is None else shard_range(S, axes, policy.mesh)
     return rows, pos
 

@@ -157,7 +157,7 @@ def test_cache_rows_follow_the_cache_batch_axes():
     cfg = get_smoke_config("granite-moe-3b-a800m")
 
     def rows(policy, batch):
-        return decode_cache_rows(policy, cfg, batch)
+        return decode_cache_rows(policy, batch)
 
     for rank in range(4):
         mesh = MeshAt((4, 1), rank)

@@ -94,8 +94,8 @@ INPUTS = _inputs()
 
 def _cache_block(policy, cfg):
     """(rows, positions) of the global dense cache that the rank holds."""
-    rows = decode_cache_rows(policy, cfg, B) or slice(None)
-    axes = kv_shard(policy, cfg)
+    rows = decode_cache_rows(policy, B) or slice(None)
+    axes = kv_shard(policy)
     pos = (slice(None) if axes is None
            else shard_range(MAX_LEN, axes, policy.mesh))
     return rows, pos

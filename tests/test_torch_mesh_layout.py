@@ -4,11 +4,12 @@ ranks but the embedding test's): ``sharding.param_specs``, what
 the dense KV cache's block, the vocabulary-parallel embedding and the
 refusal of a dim the axis does not divide.
 
-* ``param_specs`` of every attention family's smoke tree equals the
-  specs JAX's ``init_params`` returns under a policy over a mesh of the
-  same shape, leaf for leaf, plain and under FSDP (``data`` entries
-  included), with one documented divergence: a pool the model axis does
-  not divide is whole over ``model`` (``ev6``; its ``data`` entry stays).
+* ``param_specs`` of every family's smoke tree (the SSM and hybrid ones
+  included) equals the specs JAX's ``init_params`` returns under a policy
+  over a mesh of the same shape, leaf for leaf, plain and under FSDP
+  (``data`` entries included), with one documented divergence: a pool
+  the model axis does not divide is whole over ``model`` (``ev6``; its
+  ``data`` entry stays).
 * Each rank's leaves from ``params_from_numpy`` are ``np.split`` of JAX's
   global leaf by JAX's spec (bit for bit, fp32), and ``init_params``
   under the policy keeps leaves of the same shapes and bytes.
@@ -39,7 +40,6 @@ from repro_torch.models.attention import sequence_shards  # noqa: E402
 from repro_torch.sharding import (  # noqa: E402
     ShardingPolicy,
     kv_shard,
-    layout_policy,
     param_specs,
     take_shard,
 )
@@ -47,9 +47,8 @@ from repro_torch.sharding import (  # noqa: E402
 torch.set_num_threads(1)
 
 SHAPES = [(1, 4), (2, 2)]
-ATTENTION = [a for a, c in ARCHS.items() if c.family not in ("ssm", "hybrid")]
 # name: (arch, config overrides); ev6's 6 experts do not divide 4 ranks
-CASES = {a: (a, {}) for a in ATTENTION}
+CASES = {a: (a, {}) for a in ARCHS}
 CASES["ev6"] = ("granite-moe-3b-a800m", dict(num_experts=6))
 
 
@@ -154,30 +153,35 @@ def test_dense_cache_holds_the_ranks_block_of_positions(shape, batch, cut):
     for name in ("k", "v"):
         assert mine["attn"][name].shape[2] == 32 // cut
         assert mine["attn"][name].numel() * cut == one["attn"][name].numel()
-    # the SSM and hybrid families keep their caches whole
-    ssm = get_smoke_config("zamba2-1.2b")
-    assert init_decode_cache(ssm, batch, 32, device="meta", policy=policy)[
-        "attn"]["k"].shape == init_decode_cache(ssm, batch, 32,
-                                                device="meta")["attn"]["k"].shape
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_one_predicate_keeps_the_ssm_and_hybrid_families_whole(arch):
-    """``layout_policy`` alone decides which families the port keeps whole
-    under a mesh (SSM and hybrid, whose model-axis specs are not ported):
-    for those, ``param_specs`` gives every leaf None, ``kv_shard`` None and
-    the sequence is not split; every other family is laid out over
-    ``model``."""
+    """No family is kept whole under a mesh any more (the name is the
+    test's history: the SSM and hybrid families once were). Every
+    family's ``param_specs`` name ``model`` (the SSD heads among them for
+    the SSM families), its dense KV cache (where it has one) and its SSM
+    state are cut over the axis, and its sequence splits; without a mesh
+    nothing is."""
     cfg = get_smoke_config(arch)
     policy = ShardingPolicy(mesh=MeshAt((1, 4), 0))
-    whole = cfg.family in ("ssm", "hybrid")
-    assert (layout_policy(policy, cfg) is None) == whole
-    assert layout_policy(None, cfg) is None
     specs = _flat(param_specs(init_params(cfg, device="meta"), policy, cfg))
     named = {p for p, spec in specs.items() if spec and "model" in spec}
-    assert (not named) == whole, named
-    assert (kv_shard(policy, cfg) is None) == whole
-    assert (sequence_shards(policy, cfg, 16) == 1) == whole
+    assert "embed" in named, named
+    if cfg.ssm_state:
+        assert {"blocks/ssm/wz", "blocks/ssm/out_proj",
+                "blocks/ssm/A_log"} <= named, named
+        assert "blocks/ssm/wb" not in named
+    assert kv_shard(policy) == ("model",)
+    assert kv_shard(None) is None
+    assert sequence_shards(policy, 16) == 4
+    assert sequence_shards(None, 16) == 1
+    one = init_decode_cache(cfg, 2, 32, device="meta")
+    mine = init_decode_cache(cfg, 2, 32, device="meta", policy=policy)
+    for key, sub in one.items():
+        for name, t in sub.items():
+            cut = 4 if name in ("k", "v", "state", "conv_x") else 1
+            assert mine[key][name].numel() * cut == t.numel(), (key, name)
 
 
 def test_a_dim_the_axis_does_not_divide_raises():

@@ -14,7 +14,16 @@ policy at (4, 1) (``policy_for``'s, for full granite: the weights over
 8 layers, bf16, held to one process bit for bit); then trains granite at
 8 layers with 4 gloo ranks at (1, 4), and under FSDP
 (``policy_for(mesh, step_kind="train")``) at (2, 2) and (4, 1), against
-one process, with a save from FSDP (2, 2) restored at (4, 1). With four
+one process, with a save from FSDP (2, 2) restored at (4, 1). The SSM
+and hybrid families follow (each rank its SSD heads): mamba2-1.3b at full
+width, 8 layers, and zamba2-1.2b at full width, 7 layers (one stage and
+the shared attention + MLP block, one tail block), served at (1, 4) and
+(2, 2) in fp32 against one process, mamba2 also at (1, 4) in bf16 pinned
+to one process's tokens, each also against its witness (one process
+doing the mesh's sums, ``chip_smoke._MeshSums``); mamba2 at 4 layers
+trained at (1, 4) and under FSDP at (2, 2). Every gloo run is first predicted by the mesh dry run
+(``chip_smoke.mesh_predictions``, a metadata mesh: the bytes a rank holds
+and the collectives a decode step runs), and held to it. With four
 cards the gloo ranks get a card each, and the phases also serve at
 (1, 4) and under the FSDP decode policy at (4, 1) in NCCL
 ``decode_mode="scan"`` (full granite in bf16, profiling three replays of
@@ -25,8 +34,13 @@ rank). The phases' checks raise on
 failure; their JSON lines are ``chip_smoke.py``'s. The kernels' table rows
 are not measured here (``chip_smoke.py``'s ``kernels`` phase measures
 them). ``--nccl`` (four cards) runs only what needs them: the NCCL
-``"scan"`` serves and the NCCL training of full granite, each against its
-one-process run.
+``"scan"`` serves (granite, then mamba2 at its whole depth in bf16 and
+at 8 layers in fp32 held to one process and to its witness, one capture
+a rank) and the
+NCCL training of full granite, each against its one-process run. A rank
+function that captured a graph with NCCL inside frees it before the
+process group is destroyed (``launch/mesh.py::spawn``): NCCL's teardown
+hangs behind a live graph.
 """
 import sys
 import time
@@ -47,12 +61,17 @@ if __name__ == "__main__":
         print(chip_smoke.nccl_paths(), flush=True)
         sys.exit(0)
     t0 = time.perf_counter()
+    pred = chip_smoke.mesh_predictions()
+    chip_smoke._check_granite_predictions(pred)
+    chip_smoke.emit({"phase": "dryrun", "mesh_predictions": pred})
+    print("mesh predictions seconds", time.perf_counter() - t0, flush=True)
+    t0 = time.perf_counter()
     unmeasured = dict.fromkeys(("shape", "ms", "device_us", "plain_ms",
                                 "library_ms", "bound_ms", "bound_by",
                                 "bound_share"))
-    print(chip_smoke.phase_mesh({"moe_ffn/decode_rank": unmeasured}))
+    print(chip_smoke.phase_mesh({"moe_ffn/decode_rank": unmeasured}, pred))
     print("mesh phase seconds", time.perf_counter() - t0, flush=True)
     t0 = time.perf_counter()
     print(chip_smoke.phase_mesh_train(
-        dict.fromkeys(chip_smoke.MESH_TRAIN_KERNEL_ROWS, unmeasured)))
+        dict.fromkeys(chip_smoke.MESH_TRAIN_KERNEL_ROWS, unmeasured), pred))
     print("mesh_train phase seconds", time.perf_counter() - t0, flush=True)
