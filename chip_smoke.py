@@ -13,9 +13,16 @@ runs sixteen phases, each printing JSON lines:
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card at the serving path's full-width shapes, at every row-tile
-   boundary of K1 (C = 1 … 64), at ragged edges and the router's limits
-   and at many-block router shapes (T = 1000, 4096); check that K1 gives
-   the same bytes twice and under a permutation of its slots, and that
+   boundary of K1 (C = 1 … 64; C_MIN − 1, C_MIN, C_MIN + 1, 65, 128, 129
+   around the threshold of its ``wgmma``/TMA path and that path's 128-row
+   tiles; C = 1,279 over 8 slots), at ragged edges (D = 520, F = 264 on
+   both bf16 paths) and the router's limits and at many-block router
+   shapes (T = 1000, 4096); check that K1 gives the same bytes twice and
+   under a permutation of its slots, that one profiler trace shows each
+   case on its path's kernel (``ffn_wgmma_kernel`` from C_MIN rows on,
+   ``ffn_mma_kernel`` below, ``grouped_gemm_kernel`` for fp32), that a
+   call's rows equal the same rows of a larger-C call bit for bit within
+   a path (printing the |Δ| of one row across the threshold), and that
    K2's statistics are bit-equal from call to call; time kernel, plain
    version and one library call with CUDA events, and the kernels alone
    with torch.profiler, next to the card's bound for the same work. K1 is
@@ -230,7 +237,7 @@ runs sixteen phases, each printing JSON lines:
    each rank holding 127,060,992 + 754,974,720 bytes, a quarter of the
    cache (half the rows, half the positions) and running 6 collectives a
    layer and 3 more a step (K2's statistics and the dispatch counts over
-   ``data``, the logits over ``data``). Then both shapes in fp32 at 8
+   ``data``, the logits over ``data``). Then both shapes in fp32 at 4
    layers, as they come (no ties): tokens, every step's routed counts, the
    tables and the rows equal one process's, the logits within
    ``MESH_FP32_LOGITS_TOL``. Then the FSDP serve: ``policy_for(mesh,
@@ -384,9 +391,14 @@ PEAK_OPS_PER_S = {  # dense, H100 SXM data sheet
 }
 
 
-# CUDA kernel names of the port: K1 bf16 (tensor cores), K1 fp32 (and K1
-# bf16 before the tensor-core redesign), K2/K3
-PORT_KERNELS = ("ffn_mma_kernel", "grouped_gemm_kernel", "router_kernel")
+# CUDA kernel names of the port: K1 bf16 (tensor cores: mma.sync below
+# C_MIN token rows a slot, wgmma/TMA from it), K1 fp32 (and K1 bf16 before
+# the tensor-core redesign), K2/K3
+PORT_KERNELS = ("ffn_mma_kernel", "ffn_wgmma_kernel", "grouped_gemm_kernel",
+                "router_kernel")
+# the profiler's kernel name of each K1 path (kernels.moe_gemm.kernel_path)
+K1_PATH_KERNEL = {"mma.sync": "ffn_mma_kernel", "wgmma": "ffn_wgmma_kernel",
+                  "fp32": "grouped_gemm_kernel"}
 _BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
          torch.int32: torch.int32}
 
@@ -514,6 +526,72 @@ def _router_logits(T, E, gen, dev):
     return logits.contiguous()
 
 
+def _k1_kernel_names(calls, attempts: int = 3) -> list:
+    """The device kernels that one call of each of ``calls`` ran, in the
+    order the card ran them (torch.profiler; a trace that lost device
+    events is taken again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        names = [e.name for e in kern]
+        if len(names) == 2 * len(calls):
+            break
+    return names
+
+
+def _k1_rows(min_c, S, D, F, gen, dev) -> list:
+    """Within each bf16 path of K1 a row's bits do not depend on C: a
+    call's rows equal the same rows of a call with more rows (same x rows,
+    same weights) bit for bit. Across the threshold nothing promises that
+    wgmma and mma.sync round their k16 sums alike, so that |delta| is
+    printed, not checked (0 at every shape the H100 has compared)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import kernel_path
+
+    bf16 = torch.bfloat16
+    rows = []
+    for small, large in ((1, 32), (9, min_c - 1), (min_c, min_c + 1),
+                         (min_c, 1279), (129, 1279)):
+        path = kernel_path(bf16, small)
+        check(path == kernel_path(bf16, large),
+              f"moe_ffn rows: C {small} and {large} take two paths")
+        args = _ffn_case(S, large, D, F, bf16, gen, dev)
+        y_large = ops.moe_ffn(*args)
+        y_small = ops.moe_ffn(args[0][:, :small].contiguous(), *args[1:])
+        torch.cuda.synchronize()
+        check(same_bits(y_small, y_large[:, :small]),
+              f"moe_ffn rows ({path}): the first {small} rows of a C = "
+              f"{large} call differ from a C = {small} call")
+        rows.append({"kernel": "moe_ffn", "case": f"rows_c{small}_of_c{large}",
+                     "path": path, "shape": [S, large, D, F],
+                     "rows_bit_equal": True})
+    args = _ffn_case(S, min_c, D, F, bf16, gen, dev)
+    y_hi = ops.moe_ffn(*args)
+    y_lo = ops.moe_ffn(args[0][:, :min_c - 1].contiguous(), *args[1:])
+    torch.cuda.synchronize()
+    delta = (y_lo.float() - y_hi[:, :min_c - 1].float()).abs()
+    rows.append({"kernel": "moe_ffn", "case": "rows_across_threshold",
+                 "shape": [S, min_c, D, F],
+                 "paths": [kernel_path(bf16, min_c - 1),
+                           kernel_path(bf16, min_c)],
+                 "max_abs_delta": delta.max().item(),
+                 "max_rel_delta": delta.max().item()
+                 / max(y_hi.float().abs().max().item(), 1e-30),
+                 "differing_share": (delta > 0).float().mean().item(),
+                 "bit_equal": bool((delta == 0).all())})
+    return rows
+
+
 def phase_kernels():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -560,11 +638,17 @@ def phase_kernels():
     c_train_4x1 = slot_capacity(TRAIN_BATCH * TRAIN_SEQ // 4, cfg,
                                 capacity_factor=2.0, num_slots=S,
                                 replicated=False)
+    from repro_torch.kernels.moe_gemm import kernel_path, wgmma_min_c
+
+    min_c = wgmma_min_c()
     rows = []
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-    summary = {}
-    # bf16 at every row-tile boundary of the tensor-core kernel (8/16/32
-    # token rows) plus the fp32 path and a ragged F
+    summary = {"moe_ffn_wgmma_min_c": min_c}
+    # bf16 at every row-tile boundary of the tensor-core kernels (8/16/32
+    # token rows, the wgmma path's threshold C_MIN and its 128-row tiles)
+    # plus the fp32 path and a ragged F
+    edges = sorted({min_c - 1, min_c, min_c + 1, 65, 128, 129}
+                   - {2, 5, 7, 8, 9, 16, 17, 64})
     ffn_cases = [
         ("decode", S, 4, D, F, torch.bfloat16),
         # one rank's expert shard of the ``mesh`` phase's (1, 4) decode:
@@ -578,6 +662,12 @@ def phase_kernels():
         ("ragged_f96", 8, 4, D, 96, torch.float32),
         *((f"c{c}", S, c, D, F, torch.bfloat16)
           for c in (2, 5, 7, 8, 9, 16, 17, 64)),
+        *((f"c{c}", S, c, D, F, torch.bfloat16) for c in edges),
+        # C = 1,279 (Mixtral's prefill) over several slots at granite's
+        # width, and ragged D and F on both bf16 paths
+        ("c1279", 8, 1279, D, F, torch.bfloat16),
+        ("ragged_d520_f264_c7", 4, 7, 520, 264, torch.bfloat16),
+        ("ragged_d520_f264_c130", 4, 130, 520, 264, torch.bfloat16),
         *((tag, S_rep, c, D, F, torch.bfloat16) for tag, c in c_rep.items()),
         *((tag, mS, c, mD, mF, torch.bfloat16) for tag, c in m_cap.items()),
         # the ``train`` phase's forward: 512 tokens at capacity factor 2.0
@@ -594,8 +684,10 @@ def phase_kernels():
     # loops of calls for the timings; the prefill shape takes milliseconds
     # a call (fp32 for the plain version)
     iters = {"mixtral_prefill": (10, 3, 10)}
+    path_calls = []  # (tag, path, inputs) of every case, for the trace below
     for tag, s, c, d, f, dtype in ffn_cases:
         args = _ffn_case(s, c, d, f, dtype, gen, dev)
+        path_calls.append((tag, kernel_path(dtype, c), args))
         got = ops.moe_ffn(*args)
         want = moe_ffn_ref(*args)
         again = ops.moe_ffn(*args)
@@ -610,7 +702,8 @@ def phase_kernels():
         check(same_bits(permuted, got[perm]),
               f"moe_ffn {tag}: permuting the slots does not permute y bit for bit")
         row = {"kernel": "moe_ffn", "case": tag, "shape": [s, c, d, f],
-               "dtype": str(dtype), "max_abs_err": abs_err, "rel_err": rel,
+               "dtype": str(dtype), "path": kernel_path(dtype, c),
+               "max_abs_err": abs_err, "rel_err": rel,
                "bit_equal_twice": True, "slot_permutation_exact": True}
         if tag in ("decode", "decode_rank", "prefill", "train", "train_rank",
                    "train_rank_2x2", "train_rank_4x1", *c_rep, *m_cap):
@@ -636,6 +729,22 @@ def phase_kernels():
             summary[f"moe_ffn/{tag}"] = row
         rows.append(row)
         del args, got, want, again, permuted
+    # each case ran the kernel of its path: the trace's kernel names, two
+    # launches a call (gate/up, down)
+    names = _k1_kernel_names([lambda a=a: ops.moe_ffn(*a)
+                              for _, _, a in path_calls])
+    check(len(names) == 2 * len(path_calls),
+          f"moe_ffn paths: {len(names)} kernels traced for "
+          f"{len(path_calls)} calls")
+    for i, (tag, path, _) in enumerate(path_calls):
+        ran = names[2 * i: 2 * i + 2]
+        check(all(K1_PATH_KERNEL[path] in n for n in ran),
+              f"moe_ffn {tag}: the {path} path ran {ran}")
+    rows.append({"kernel": "moe_ffn", "case": "paths", "wgmma_min_c": min_c,
+                 "path_by_case": {tag: path for tag, path, _ in path_calls},
+                 "kernel_names_checked": True})
+    del path_calls
+    rows.extend(_k1_rows(min_c, 8, D, F, gen, dev))
 
     router_cases = [("decode", 8, E, k), ("prefill", 128, E, k),
                     ("train", TRAIN_BATCH * TRAIN_SEQ, E, k),
@@ -2061,6 +2170,11 @@ def phase_swa():
             tag, params, cfg, ecfg, e2s, requests, SWA_NEW, phase="swa",
             hook=lambda e: _timed_prefills(e, prefill_s))
         check(not eng.paged, "swa: the window must select the dense ring")
+        # each ~4k-token prefill (C ~ 1,270) takes K1's wgmma path, each
+        # decode step (C = 4) its mma.sync path
+        check(counts["moe_ffn_wgmma"] == cfg.num_layers * row["prefills"],
+              f"swa {tag}: {counts['moe_ffn_wgmma']} wgmma launches for "
+              f"{row['prefills']} prefills of {cfg.num_layers} layers")
         cache_bytes = sum(t.numel() * t.element_size()
                           for _, t in _leaves(eng.caches))
         # the engine's build holds the ring, the graph's pool and the idle
@@ -2460,6 +2574,10 @@ def phase_train():
     check(counts["moe_ffn"] == want and counts["topk_router_stats"] == want
           and counts["topk_router"] == 0,
           f"train: launches {counts}, expected {want} of K1 and K2, 0 of K3")
+    # C = 205: every K1 forward takes the wgmma path
+    check(counts["moe_ffn_wgmma"] == want,
+          f"train: {counts['moe_ffn_wgmma']} of {want} K1 launches took the "
+          "wgmma path")
     # step time: CUDA events at each step's end; the parts from the marks
     # the step records after queueing its forward, backward and update
     timed = range(TRAIN_TIMED_FROM, TRAIN_STEPS - 1)
@@ -3090,11 +3208,12 @@ _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 # tokens at every step, and hold their own logits within the tolerance at
 # every prefill and decode step.
 MESH_LOGITS_TOL = 0.25
-# an fp32 run (8 layers, (1, 4)) takes the ties away: no bf16 rounding of
+# an fp32 run (4 layers, (1, 4)) takes the ties away: no bf16 rounding of
 # router logits or products, summation orders part the logits by ~1e-6
 # relative, so routing, tables, rows and tokens must equal one process's
-# and the logits lie within 1e-3
-MESH_FP32_LAYERS = 8
+# and the logits lie within 1e-3. 4 layers (it was 8) for the script's
+# time: its checks hold no byte constant of the depth
+MESH_FP32_LAYERS = 4
 MESH_FP32_LOGITS_TOL = 1e-3
 # the pinned bf16 runs at (1, 4) and (2, 2): granite at full width, 8 of
 # its 32 layers (16 until the SSM runs joined the phase: the script's
@@ -5570,13 +5689,21 @@ def main(argv=None) -> int:
                               "src/repro/kernels/topk_router.py:63"),
         "topk_router": ("src/repro_torch/kernels/csrc/topk_router.cu",
                         "src/repro/kernels/topk_router.py:56"),
+        # K1's large-capacity kernels (bf16, C >= C_MIN): ``launches`` and
+        # the numbers are the ``train`` phase's (C = 205), whose forward
+        # runs them; the serving decode never does
+        "moe_ffn_wgmma": ("src/repro_torch/kernels/csrc/moe_ffn_wgmma.cuh",
+                          "src/repro/kernels/moe_gemm.py:50"),
     }
+    main_row = {"moe_ffn_wgmma": "moe_ffn/train"}
+    main_launches = {"moe_ffn_wgmma": train_launches}
     kernels = []
     for name, (source, replaces) in sources.items():
-        row = summary[f"{name}/decode"]
+        row = summary[main_row.get(name, f"{name}/decode")]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": main_launches.get(name, launches)[name],
             "replan_launches": replan_launches[name],
             "online_launches": online_launches[name],
             "replicated_launches": replicated_launches[name],
@@ -5596,6 +5723,9 @@ def main(argv=None) -> int:
             "device_us": row["device_us"], "bound_share": row["bound_share"],
             "shape": row["shape"],
         })
+        if name.startswith("moe_ffn"):
+            kernels[-1].update(path=row["path"],
+                               wgmma_min_c=summary["moe_ffn_wgmma_min_c"])
     rank_row = summary["moe_ffn/decode_rank"]
     kernels[0]["decode_rank"] = {
         k: rank_row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
@@ -5610,7 +5740,8 @@ def main(argv=None) -> int:
             kernels[i][tag] = {
                 k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by",
-                                    "device_us", "bound_share")}
+                                    "device_us", "bound_share", "path")
+                if k in row}
     s84 = summary["moe_ffn/decode_s84"]
     kernels[0]["replicated_pool"] = {
         k: s84[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
@@ -5620,14 +5751,28 @@ def main(argv=None) -> int:
         kernels[i]["train"] = {
             k: summary[f"{name}/train"][k]
             for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-                      "bound_ms", "bound_by", "device_us", "bound_share")}
+                      "bound_ms", "bound_by", "device_us", "bound_share",
+                      "path")
+            if k in summary[f"{name}/train"]}
     for i, name in ((0, "moe_ffn"), (1, "topk_router_stats")):
         for tag in ("mixtral_decode", "mixtral_prefill"):
             row = summary[f"{name}/{tag}"]
             kernels[i][tag] = {
                 k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by",
-                                    "device_us", "bound_share")}
+                                    "device_us", "bound_share", "path")
+                if k in row}
+    # the wgmma kernels at every timed shape that runs them
+    wg = kernels[3]
+    for tag in ("mixtral_prefill", "train_rank", "train_rank_2x2",
+                "train_rank_4x1"):
+        row = summary[f"moe_ffn/{tag}"]
+        if row["path"] == "wgmma":
+            wg[tag] = {k: row[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "device_us", "bound_share")}
+    check(wg["launches"] > 0 and wg["swa_launches"] > 0,
+          "the wgmma kernels never ran on the train or swa path")
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,9 +7,22 @@
 // (S, F, D), all contiguous, in fp32 or bf16; y is (S, C, D) in the same
 // type.
 //
-// What bounds it on an H100: reading the weights once. For granite
-// (S=80, D=1536, F=256, bf16) they are 3·S·D·F elements, 189 MB, and with
-// x and y the call moves 191 MB at decode (C=4) and 204 MB at prefill
+// Two bf16 designs, picked by C in launch_bf16: this file's mma.sync
+// kernel for C < moe_ffn_wgmma::kMinC (33) token rows a slot, the decode
+// and short-prefill shapes, notes below; and for C >= 33 the wgmma/TMA
+// kernel of moe_ffn_wgmma.cuh, whose 128-row tiles read each weight tile
+// once for 128 rows (Mixtral's 4k prefill, C = 1,279, is bound by
+// operations: 3.645 ms at the bf16 peak; granite's train forward, C = 205,
+// by bytes). Above 32 rows this file's kernel would reuse its 32-row tile
+// and stream the weights C / 32 times; the card measured the wgmma kernel
+// no slower from C = 33 up (tools/chip_k1_paths.py). Both give a row the
+// same bits (|delta| 0 wherever compared), so a row's bits do not change
+// across the threshold. The library exports kMinC (moe_ffn_wgmma_min_c)
+// so that a caller can name the path a call takes.
+//
+// What bounds the mma.sync kernel on an H100: reading the weights once.
+// For granite (S=80, D=1536, F=256, bf16) they are 3·S·D·F elements,
+// 189 MB, and with x and y the call moves 191 MB at decode (C=4) and 204 MB at prefill
 // (C=32): 56.9 and 61.0 us at 3.35 TB/s. The arithmetic is 2·3·S·C·D·F
 // operations, 6.0 GFLOP at C=32: 6 us on the bf16 tensor cores, but 90 us
 // on the CUDA cores, which alone would miss the byte bound. So the bf16
@@ -49,12 +62,14 @@
 //    checks), pointers 16-byte aligned. Ragged C, F and D edges are masked
 //    in the kernel (C = 1, 3, 33 and F = 96 included).
 //
-// The fp32 path is the simple tiled kernel of the first port: real fp32 on
+// The fp32 path (every C) is the simple tiled kernel of the first port: real fp32 on
 // the CUDA cores (no TF32), two launches, a row tile that follows C. It is
 // off the serving path.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "moe_ffn_wgmma.cuh"
 
 namespace {
 
@@ -403,9 +418,13 @@ cudaError_t launch_bf16_bn(const bf16* x, const bf16* wg, const bf16* wu,
   return launch_mma<1, 2, BN>(wd, nullptr, h, y, S, C, F, D, stream);
 }
 
-cudaError_t launch_bf16(const bf16* x, const bf16* wg, const bf16* wu,
-                        const bf16* wd, bf16* h, bf16* y, int S, int C, int D,
-                        int F, cudaStream_t stream) {
+// C >= moe_ffn_wgmma::kMinC takes the wgmma/TMA kernels of
+// moe_ffn_wgmma.cuh; fewer rows the mma.sync tiles above.
+int launch_bf16(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
+                bf16* h, bf16* y, int S, int C, int D, int F,
+                cudaStream_t stream) {
+  if (C >= moe_ffn_wgmma::kMinC)
+    return moe_ffn_wgmma::launch_bf16(x, wg, wu, wd, h, y, S, C, D, F, stream);
   if (C <= 8) return launch_bf16_bn<8>(x, wg, wu, wd, h, y, S, C, D, F, stream);
   if (C <= 16) return launch_bf16_bn<16>(x, wg, wu, wd, h, y, S, C, D, F, stream);
   return launch_bf16_bn<32>(x, wg, wu, wd, h, y, S, C, D, F, stream);
@@ -413,10 +432,16 @@ cudaError_t launch_bf16(const bf16* x, const bf16* wg, const bf16* wu,
 
 }  // namespace
 
+// The fewest token rows a slot (C) for which a bf16 call takes the wgmma
+// kernels; read-only, so that a caller can name the path a call takes.
+extern "C" int moe_ffn_wgmma_min_c() { return moe_ffn_wgmma::kMinC; }
+
 // dtype: 0 = float32, 1 = bfloat16. h is scratch of S·C·F elements of the
 // input type. bf16 needs D and F multiples of 8 and 16-byte aligned
-// pointers (the wrapper checks). Returns the first launch error
-// (cudaSuccess = 0).
+// pointers (the wrapper checks). Returns 0, the first launch error (a
+// cudaError_t), or for the wgmma path a negative code when a TMA tensor
+// map cannot be encoded (-1000 - CUresult; -1000: cuTensorMapEncodeTiled
+// not found).
 extern "C" int moe_ffn_launch(const void* x, const void* wg, const void* wu,
                               const void* wd, void* h, void* y, int S, int C,
                               int D, int F, int dtype, void* stream) {
@@ -427,7 +452,7 @@ extern "C" int moe_ffn_launch(const void* x, const void* wg, const void* wu,
         static_cast<const float*>(wu), static_cast<const float*>(wd),
         static_cast<float*>(h), static_cast<float*>(y), S, C, D, F, st);
   if (dtype == 1)
-    return (int)launch_bf16(
+    return launch_bf16(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
         static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
         static_cast<bf16*>(h), static_cast<bf16*>(y), S, C, D, F, st);

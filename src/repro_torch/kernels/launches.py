@@ -15,8 +15,11 @@ import torch
 
 __all__ = ["LAUNCHES", "count", "recording", "replayed", "reset"]
 
-# kernel launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"moe_ffn": 0, "topk_router_stats": 0, "topk_router": 0}
+# kernel launches since the last reset (see ops.reset_launch_counts);
+# "moe_ffn" counts every K1 call, "moe_ffn_wgmma" again those of them that
+# took the large-capacity wgmma kernels (bf16, C >= moe_gemm.wgmma_min_c())
+LAUNCHES = {"moe_ffn": 0, "moe_ffn_wgmma": 0, "topk_router_stats": 0,
+            "topk_router": 0}
 _tally: dict[str, int] | None = None  # open while a graph is captured
 
 

@@ -1,9 +1,17 @@
 """Grouped SwiGLU expert FFN on the card: the wrapper of ``csrc/moe_ffn.cu``.
 
-The CUDA kernel replaces the TPU kernel ``repro/kernels/moe_gemm.py::
-_ffn_kernel``; its design notes are in the source. This wrapper checks
-what the kernel takes, allocates the output and the hidden scratch, and
-launches on PyTorch's current stream. Callers normally go through
+The CUDA kernels replace the TPU kernel ``repro/kernels/moe_gemm.py::
+_ffn_kernel``; their design notes are in the sources. A bfloat16 call of
+C token rows a slot runs one of two designs, picked inside the library by
+one compile-time threshold, C_MIN (:func:`wgmma_min_c`, 33): below it the
+``mma.sync`` kernels of ``moe_ffn.cu``, tuned for decode; from it the
+``wgmma``/TMA kernels of ``csrc/moe_ffn_wgmma.cuh`` (128-row tiles, for
+prefill and training; Mixtral's 4k prefill is bound by operations).
+:func:`kernel_path` names the path a call takes, and such a call also adds
+one to the ``"moe_ffn_wgmma"`` launch count beside ``"moe_ffn"``. float32
+has one path. This wrapper checks what the kernels take, allocates the
+output and the hidden scratch, and launches on PyTorch's current stream;
+a launch or tensor-map failure raises. Callers normally go through
 :func:`repro_torch.kernels.ops.moe_ffn`, which picks the kernel for a CUDA
 tensor and the plain version for a CPU one.
 """
@@ -16,10 +24,11 @@ import torch
 from ..device import current_stream_handle
 from . import _build, launches
 
-__all__ = ["moe_ffn_cuda"]
+__all__ = ["kernel_path", "moe_ffn_cuda", "wgmma_min_c"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_min_c = None
 
 
 def _launcher():
@@ -32,6 +41,33 @@ def _launcher():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def wgmma_min_c() -> int:
+    """The fewest token rows a slot (C) from which a bfloat16 call runs the
+    wgmma/TMA kernels; below it, the mma.sync kernels. A compile-time
+    constant of ``csrc/moe_ffn_wgmma.cuh``, read from the built library."""
+    global _min_c
+    if _min_c is None:
+        fn = _build.load("moe_ffn").moe_ffn_wgmma_min_c
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        _min_c = int(fn())
+    return _min_c
+
+
+def kernel_path(dtype, C: int) -> str:
+    """Which kernel a call of ``dtype`` with C token rows a slot launches:
+    ``"wgmma"``, ``"mma.sync"`` (bfloat16) or ``"fp32"``."""
+    if dtype != torch.bfloat16:
+        return "fp32"
+    return "wgmma" if C >= wgmma_min_c() else "mma.sync"
+
+
+def _error(err: int) -> str:
+    if err < 0:
+        return f"TMA tensor map not encoded (code {err}: -1000 - CUresult)"
+    return f"CUDA error {err}"
 
 
 def moe_ffn_cuda(x_e, w_gate, w_up, w_down):
@@ -83,6 +119,8 @@ def moe_ffn_cuda(x_e, w_gate, w_up, w_down):
         h.data_ptr(), y.data_ptr(), S, C, D, F, _DTYPE_CODE[x_e.dtype], stream,
     )
     if err != 0:
-        raise RuntimeError(f"moe_ffn kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"moe_ffn kernel launch failed: {_error(err)}")
     launches.count("moe_ffn")
+    if kernel_path(x_e.dtype, C) == "wgmma":
+        launches.count("moe_ffn_wgmma")
     return y

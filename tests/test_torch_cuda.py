@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import moe_gemm  # noqa: E402
 from repro_torch.kernels.collective import MigrationExecutable  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_ffn_cuda  # noqa: E402
 from repro_torch.kernels.ref import moe_ffn_ref, topk_router_ref  # noqa: E402
@@ -89,6 +90,105 @@ def test_moe_ffn_kernel_is_exact_under_slot_permutation(cuda, C, dtype):
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(again))
     assert torch.equal(_bits(permuted), _bits(got[perm]))
+
+
+def test_kernel_path_names_the_path_from_the_exported_threshold(monkeypatch):
+    """bf16 calls of C >= C_MIN rows take the wgmma kernels, fewer rows the
+    mma.sync ones; fp32 has one path and never reads the threshold."""
+    monkeypatch.setattr(moe_gemm, "_min_c", 64)
+    assert moe_gemm.kernel_path(torch.bfloat16, 63) == "mma.sync"
+    assert moe_gemm.kernel_path(torch.bfloat16, 64) == "wgmma"
+    assert moe_gemm.kernel_path(torch.bfloat16, 1279) == "wgmma"
+    monkeypatch.setattr(moe_gemm, "_min_c", None)
+    assert moe_gemm.kernel_path(torch.float32, 1279) == "fp32"
+    assert moe_gemm._min_c is None
+    assert "TMA" in moe_gemm._error(-1001) and "CUDA error 2" == moe_gemm._error(2)
+
+
+@pytest.fixture
+def min_c(cuda):
+    return moe_gemm.wgmma_min_c()
+
+
+# C around the wgmma path's threshold (as offsets from C_MIN, read on the
+# card) and its 128-row tile edges
+_LARGE_C = [("min", -1), ("min", 0), ("min", 1), ("abs", 65), ("abs", 128),
+            ("abs", 129), ("abs", 1279)]
+
+
+def _large_c(spec, min_c):
+    kind, v = spec
+    return min_c + v if kind == "min" else v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", _LARGE_C, ids=lambda s: f"{s[0]}{s[1]:+d}")
+def test_moe_ffn_large_c_matches_plain_on_its_path(cuda, min_c, spec):
+    """Every C runs a port kernel: the wgmma one from C_MIN rows on (its
+    own launch count goes up), the mma.sync one below; both hold to the
+    plain version, and a zero pad row gives zero."""
+    C = _large_c(spec, min_c)
+    ts = _ffn_inputs(3, C, 128, 256, torch.bfloat16, cuda, seed=C)
+    before = ops.launch_counts()
+    got = ops.moe_ffn(*ts)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["moe_ffn"] == before["moe_ffn"] + 1
+    assert after["moe_ffn_wgmma"] == before["moe_ffn_wgmma"] + (C >= min_c)
+    torch.testing.assert_close(got, moe_ffn_ref(*ts), rtol=1e-2, atol=1e-2)
+    assert not got[:, -1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", _LARGE_C, ids=lambda s: f"{s[0]}{s[1]:+d}")
+def test_moe_ffn_large_c_is_exact_under_slot_permutation(cuda, min_c, spec):
+    C = _large_c(spec, min_c)
+    ts = _ffn_inputs(5, C, 128, 128, torch.bfloat16, cuda, seed=20 + C)
+    perm = torch.as_tensor(np.random.default_rng(C).permutation(5), device=cuda)
+    got = ops.moe_ffn(*ts)
+    again = ops.moe_ffn(*ts)
+    permuted = ops.moe_ffn(*(t[perm].contiguous() for t in ts))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(permuted), _bits(got[perm]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [("small", 1, 32), ("small", 9, -1),
+                                  ("large", 0, 1), ("large", 0, 1279),
+                                  ("large", 129, 1279)],
+                         ids=lambda p: f"{p[0]}-{p[1]}-{p[2]}")
+def test_moe_ffn_rows_do_not_depend_on_c_within_a_path(cuda, min_c, pair):
+    """A call's rows are the same rows of a call with more of them, bit for
+    bit, as long as both take one path (C_MIN-relative entries: -1 is
+    C_MIN - 1, 0 and 1 are C_MIN and C_MIN + 1)."""
+    kind, small, large = pair
+    if kind == "small":
+        large = min_c - 1 if large == -1 else large
+    else:
+        small = min_c + small if small <= 1 else small
+        large = min_c + large if large <= 1 else large
+    assert (small >= min_c) == (large >= min_c)
+    x, wg, wu, wd = _ffn_inputs(3, large, 128, 256, torch.bfloat16, cuda,
+                                seed=small)
+    y_large = ops.moe_ffn(x, wg, wu, wd)
+    y_small = ops.moe_ffn(x[:, :small].contiguous(), wg, wu, wd)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y_small), _bits(y_large[:, :small]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [7, 130])
+def test_moe_ffn_ragged_d_and_f_on_both_paths(cuda, min_c, C):
+    """D and F multiples of 8 but of no tile width: the mma.sync kernel
+    masks them, the wgmma one gets zeros from TMA past them and masks its
+    stores."""
+    ts = _ffn_inputs(4, C, 520, 264, torch.bfloat16, cuda, seed=C)
+    got = ops.moe_ffn(*ts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, moe_ffn_ref(*ts), rtol=1e-2, atol=1e-2)
+    assert moe_gemm.kernel_path(torch.bfloat16, C) == (
+        "wgmma" if C >= min_c else "mma.sync")
 
 
 @pytest.mark.cuda

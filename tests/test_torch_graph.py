@@ -335,10 +335,11 @@ def test_launches_recorded_at_capture_count_on_each_replay(monkeypatch):
             launches.count("moe_ffn")
         launches.count("topk_router_stats")
     capturing[0] = False
-    assert tally == {"moe_ffn": 3, "topk_router_stats": 1, "topk_router": 0}
+    assert tally == {"moe_ffn": 3, "moe_ffn_wgmma": 0, "topk_router_stats": 1,
+                     "topk_router": 0}
     assert launches.LAUNCHES["moe_ffn"] == 1  # a capture launches nothing
     launches.replayed(tally)
     launches.replayed(tally)
-    assert launches.LAUNCHES == {"moe_ffn": 7, "topk_router_stats": 2,
-                                 "topk_router": 0}
+    assert launches.LAUNCHES == {"moe_ffn": 7, "moe_ffn_wgmma": 0,
+                                 "topk_router_stats": 2, "topk_router": 0}
     launches.reset()
