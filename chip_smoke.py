@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It imports the port (``src/repro_torch``, or ``DIR/repro_torch``
 with ``--src``, e.g. an unpacked parent commit, so that one call can
 compare two versions on one card) and nothing of the JAX package, and
-runs sixteen phases, each printing JSON lines:
+runs seventeen phases, each printing JSON lines:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into the ignored build dir.
@@ -66,7 +66,18 @@ runs sixteen phases, each printing JSON lines:
    mode: device busy and idle time, host time, launches (``cudaLaunch*``
    and ``cudaGraphLaunch``) and the port kernels' device time per step; it
    fails if the trace holds none of the port's kernels.
-6. ``replan``  — GEM's one-shot control plane at full granite (32 layers,
+6. ``dense_ref`` — the capacity-free oracle
+   (``EngineConfig(moe_backend="dense_ref")``: the router, K2, then every
+   expert on every token, with no dispatch and no K1). First the
+   ``parity`` phase's 2-layer fp32 set-up under the oracle: the card's
+   greedy tokens must equal the CPU's. Then full granite-moe-3b-a800m
+   (32 layers, bf16, seed-0 weights, paged KV, max_batch 8) serving 8
+   requests of 16 new tokens in ``"scan"``, placed and at identity:
+   tokens equal, one capture per engine, no dropped or overflowing
+   assignment on any step, K2 launched 32 × (prefills + decode steps) and
+   K1 never. It prints the decode-step median (CUDA events), peak memory
+   and the graph pool's bytes beside the ``serve`` phase's staged median.
+7. ``replan``  — GEM's one-shot control plane at full granite (32 layers,
    bf16), built by the port's launcher (``repro_torch.launch.serve``:
    seed-0 weights, 8 requests of 32 new tokens, a 4-device emulated
    fleet at high variability): the replan fires at step 16, the planner's
@@ -82,7 +93,7 @@ runs sixteen phases, each printing JSON lines:
    the migration's CUDA-event time beside its HBM bound and the cost
    model's charge, peak memory, and the decode-step medians before and
    after the replan.
-7. ``online`` — GEM's online plane at full granite (32 layers, bf16,
+8. ``online`` — GEM's online plane at full granite (32 layers, bf16,
    seed-0 weights, paged KV, max_batch 8, ``"scan"``), driven by the
    port's ``serve_scenario``: 48 requests of fig23's chat/summarize mix
    (shifting from 0.8/0.2 to 0.2/0.8 halfway) from ``generate_arrivals``,
@@ -102,7 +113,7 @@ runs sixteen phases, each printing JSON lines:
    beside its HBM bound, the decode-step medians before, during and
    after the batches, the host ms a step of the controller, attribution
    and regret, and tokens/s.
-8. ``replicated`` — the shed scenario at full granite (32 layers, bf16,
+9. ``replicated`` — the shed scenario at full granite (32 layers, bf16,
    seed-0 weights with the router zeroed so that every token ties onto
    experts 0…7, paged KV, max_batch 8, ``"scan"``, decode capacity factor
    1.5, one replica slot on each of 4 emulated devices, online GEM, shed
@@ -122,7 +133,7 @@ runs sixteen phases, each printing JSON lines:
    the shed pass, the host ms a step of the shed accounting, the shed
    counts, the install, batch and retarget times beside their HBM
    bounds, and peak memory.
-9. ``swa`` — Mixtral-8x7B at its published width and 4,096-token sliding
+10. ``swa`` — Mixtral-8x7B at its published width and 4,096-token sliding
    window, depth cut to 16 of 32 layers (32 × 2.82 GB of bf16 expert
    weights do not fit the card), seeded random weights, the dense KV ring
    (``kv_mode="auto"``), max_batch 8, max_len 4,160, 8 requests of
@@ -134,7 +145,7 @@ runs sixteen phases, each printing JSON lines:
    bound (every weight but the embedding table, and every layer's ring),
    decode tokens/s, each prefill's seconds, peak memory and the graph
    pool's bytes.
-10. ``families`` — the eight configs without MoE layers (qwen1.5-4b,
+11. ``families`` — the eight configs without MoE layers (qwen1.5-4b,
    qwen2.5-14b, qwen3-32b, gemma-7b, mamba2-1.3b, zamba2-1.2b,
    musicgen-medium, internvl2-76b) at full width, bf16, whole depth for
    mamba2, zamba2, qwen1.5 and musicgen and 4 layers for the others (to
@@ -143,7 +154,7 @@ runs sixteen phases, each printing JSON lines:
    MoE layer); then each at 2 layers (zamba2: 7, one stage and the shared
    block), fp32, card tokens equal the CPU's. It prints the decode-step
    medians.
-11. ``train`` — full granite-moe-3b-a800m (32 layers, bf16 parameters,
+12. ``train`` — full granite-moe-3b-a800m (32 layers, bf16 parameters,
    fp32 moments, seed-0 weights, a seeded non-identity placement) through
    the port's training launcher (``repro_torch.launch.train``): 20 AdamW
    steps of 4 × 128 tokens from the synthetic stream at capacity factor
@@ -152,7 +163,9 @@ runs sixteen phases, each printing JSON lines:
    finite, that the last loss is below the first, that each step's
    expert counts sum to 512 × 8 a layer, and that K1 and K2 launched
    32 × 20 times and K3 never. It prints the step time (CUDA events at
-   each step's end, median of steps 5–18), tokens/s, the median shares of
+   each step's end, median of steps 5–18), tokens/s, the model TFLOP/s
+   (6 · ``active_param_count()`` · tokens over the step, with the card's
+   name and power limit), the median shares of
    the step spent in the forward, the backward and the update, peak
    memory, and the last step under torch.profiler: device busy time
    against its wall, device operations, and the kernels by device time. Then, at full width, 2 layers, fp32: one step's loss, expert
@@ -164,7 +177,7 @@ runs sixteen phases, each printing JSON lines:
    against 10, a kill, a restart and 10 more (losses within 1e-4
    relative). ``kernels`` also holds and times K1 at the train shape
    (80, 205, 1536)×(80, 1536, 256) and K2 at (512, 40), k 8.
-12. ``dryrun`` — first the mesh dry run (:func:`mesh_predictions`): each
+13. ``dryrun`` — first the mesh dry run (:func:`mesh_predictions`): each
    gloo run of the ``mesh`` and ``mesh_train`` phases at its own config,
    shape, dtype and policy on a metadata mesh (``launch/meta_mesh.py``,
    rank 0 of a (1, 4), (2, 2) or (4, 1) grid of ranks that do not exist),
@@ -189,19 +202,19 @@ runs sixteen phases, each printing JSON lines:
    over the step (after ``reset_peak_memory_stats``), less what the card
    held before the cell's inputs were made. It prints the train
    cell's FLOPs beside the ``train`` phase's median step time and the
-   achieved TFLOP/s, and what the card holds before and after the phase
+   achieved TFLOP/s, beside the model TFLOP/s of 6 · N_active a token, and what the card holds before and after the phase
    (after it also without cuBLAS's workspaces).
-13. ``examples`` — ``examples/torch_quickstart.py`` and
+14. ``examples`` — ``examples/torch_quickstart.py`` and
    ``examples/torch_serve_moe.py --requests 4`` in this process on the
    card: the quickstart's data-plane Δ against the identity placement
    must be 0 under the GEM placement, every request must be served, and
    K1/K2 must have launched.
-14. ``collective`` — the ``replan`` scenario at full width, 4 layers, under
+15. ``collective`` — the ``replan`` scenario at full width, 4 layers, under
    ``migration_via="collective"`` and ``"host"``: equal tokens, equal rows
    and tables after the swap, equal migration records (``"via":
    "host"``: one card has no expert sharding), K1/K2 launched on every MoE
    layer call, one capture.
-15. ``mesh`` — the data plane across ranks under JAX's layout
+16. ``mesh`` — the data plane across ranks under JAX's layout
    (``repro_torch.launch.mesh``, ``sharding``, ``kernels/sharded.py``):
    granite at full width, bf16, the ``collective`` scenario (8 requests of
    32 new tokens, GEM's one-shot replan at step 16 under
@@ -282,7 +295,7 @@ runs sixteen phases, each printing JSON lines:
    kind) must be the mesh dry run's. With 4 cards also mamba2 over NCCL
    in ``"scan"`` at (1, 4), one capture a rank: its whole depth in bf16
    and 8 layers in fp32 held to one process and to the witness.
-16. ``mesh_train`` — training under the mesh (``make_train_step(…,
+17. ``mesh_train`` — training under the mesh (``make_train_step(…,
    policy=…)``): granite at full width, 8 of 32 layers (4 ranks share the
    card), bf16 parameters and fp32 moments, seed-0 weights drawn whole and
    placed by the ``train`` phase's seed, its batches (4 × 128 tokens,
@@ -410,6 +423,15 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _cards() -> list[str]:
+    """Each card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -987,10 +1009,14 @@ def _serve(params, cfg, ecfg, device, e2s, requests):
     return eng
 
 
-def phase_parity():
+def _card_against_cpu(phase, ecfg):
+    """Granite at full width, 2 layers, fp32, seed-1 weights under a
+    seeded placement, 4 requests of 8 new tokens, served under ``ecfg``
+    on the card and on the CPU: the greedy tokens must be equal. Returns
+    the card run's launch counts and the tokens."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import init_params
-    from repro_torch.serving import EngineConfig
 
     cfg = dataclasses.replace(get_config(ARCH), num_layers=2)
     params = init_params(cfg, seed=1, device="cuda", dtype=torch.float32)
@@ -999,21 +1025,30 @@ def phase_parity():
     rng = np.random.default_rng(3)
     requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), 8)
                 for n in rng.integers(16, 41, size=4)]
-    ecfg = EngineConfig(max_batch=4, max_len=64)
     torch.set_num_threads(8)
-    tokens = {}
+    tokens, counts = [], []  # the card's run, then the CPU's
     for device, p in (("cuda", params), ("cpu", _to(params, "cpu"))):
         eng = _serve(p, cfg, ecfg, device, e2s, requests)
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         done = eng.run()
-        tokens[device] = {r.uid: r.generated for r in done}
-        check(len(done) == len(requests), f"parity {device}: not all finished")
-        emit({"phase": "parity", "device": device,
+        counts.append(ops.launch_counts())
+        tokens.append({r.uid: r.generated for r in done})
+        check(len(done) == len(requests), f"{phase} {device}: not all finished")
+        emit({"phase": phase, "device": device,
+              "moe_backend": eng.config.moe_backend,
               "seconds": round(time.perf_counter() - t0, 3)})
-    check(tokens["cuda"] == tokens["cpu"],
-          f"parity: GPU tokens {tokens['cuda']} != CPU tokens {tokens['cpu']}")
-    emit({"phase": "parity", "ok": True, "layers": cfg.num_layers,
-          "dtype": "float32", "requests": len(requests), "tokens": tokens["cuda"]})
+    check(tokens[0] == tokens[1],
+          f"{phase}: GPU tokens {tokens[0]} != CPU tokens {tokens[1]}")
+    emit({"phase": phase, "ok": True, "layers": cfg.num_layers,
+          "dtype": "float32", "requests": len(requests), "tokens": tokens[0]})
+    return counts[0], tokens[0]
+
+
+def phase_parity():
+    from repro_torch.serving import EngineConfig
+
+    _card_against_cpu("parity", EngineConfig(max_batch=4, max_len=64))
     phase_parity_shed()
     phase_parity_swa()
 
@@ -1127,8 +1162,10 @@ def _run_serve(tag, params, cfg, ecfg, e2s, requests, new_tokens,
     check(all(len(r.generated) == new_tokens for r in done),
           f"{phase} {tag}: wrong token counts")
     calls = L * (eng.prefill_count + eng.decode_count)
-    check(counts["moe_ffn"] == calls and counts["topk_router_stats"] == calls,
-          f"{phase} {tag}: launches {counts} != {calls}")
+    k1 = 0 if eng.config.moe_backend == "dense_ref" else calls  # the oracle
+    check(counts["moe_ffn"] == k1 and counts["topk_router_stats"] == calls,
+          f"{phase} {tag}: launches {counts}, expected {k1} of K1 and "
+          f"{calls} of K2")
     per_layer = eng.expert_counts.sum(axis=1)
     check(bool((per_layer == ecfg.max_batch * cfg.experts_per_token).all()),
           f"{phase} {tag}: expert counts {per_layer}")
@@ -1141,7 +1178,7 @@ def _run_serve(tag, params, cfg, ecfg, e2s, requests, new_tokens,
     median = statistics.median(step_ms)
     row = {
         "phase": phase, "placement": tag, "decode_mode": ecfg.decode_mode,
-        "layers": L, "dtype": "bfloat16",
+        "moe_backend": eng.config.moe_backend, "layers": L, "dtype": "bfloat16",
         "kv": "paged" if eng.paged else "dense",
         "requests": len(done), "new_tokens": new_tokens,
         "prefills": eng.prefill_count, "decode_steps": eng.decode_count,
@@ -1402,6 +1439,95 @@ def phase_profile(eng, mode, requests, summary, steps: int = 3):
 
 
 # -------------------------------------------------------------------- replan
+# ----------------------------------------------------------------- dense_ref
+DENSE_REF_REQUESTS = 8
+DENSE_REF_NEW = 16
+
+
+def _drop_log(steps):
+    """A ``_run_serve`` hook: each decode step's (dropped, overflow)
+    assignment counts summed over the layers, read after the step as the
+    engine reads them."""
+    def hook(eng):
+        inner = eng._moe_step
+
+        def step(moe_aux, sim_latency):
+            steps.append((int(moe_aux.dropped_tokens.sum()),
+                          int(moe_aux.overflow_tokens.sum())))
+            return inner(moe_aux, sim_latency)
+
+        eng._moe_step = step
+
+    return hook
+
+
+def phase_dense_ref(summary):
+    """The capacity-free oracle, ``EngineConfig(moe_backend="dense_ref")``:
+    card ≡ CPU at 2 layers fp32, then full granite in bf16, placed ≡
+    identity in ``"scan"`` with one capture each, no drop or overflow on
+    any step, K2 launched and K1 never. Returns the launch counts of the
+    phase's card runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = collections.Counter()
+    counts, _ = _card_against_cpu(
+        "dense_ref", EngineConfig(max_batch=4, max_len=64,
+                                  moe_backend="dense_ref"))
+    total.update(counts)
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    s2e, e2s = _placement(L, cfg.num_virtual_experts, seed=4)
+    placed = _with_placement(params, s2e)
+    rng = np.random.default_rng(6)
+    requests = [(rng.integers(0, cfg.vocab_size, size=int(n)), DENSE_REF_NEW)
+                for n in rng.integers(32, 65, size=DENSE_REF_REQUESTS)]
+    ecfg = EngineConfig(max_batch=8, max_len=128, moe_backend="dense_ref")
+    runs = {}
+    for tag, p, table in (("placed", placed, e2s), ("identity", params, None)):
+        steps = []
+        eng, tokens, counts, row = _run_serve(
+            tag, p, cfg, ecfg, table, requests, DENSE_REF_NEW,
+            phase="dense_ref", hook=_drop_log(steps))
+        check(eng.config.moe_backend == "dense_ref",
+              f"dense_ref {tag}: the engine runs {eng.config.moe_backend}")
+        check(len(steps) == eng.decode_count
+              and all(d == o == 0 for d, o in steps),
+              f"dense_ref {tag}: dropped/overflow by step {steps}")
+        check(counts["moe_ffn"] == counts["moe_ffn_wgmma"] == 0
+              and counts["topk_router"] == 0
+              and counts["topk_router_stats"] > 0,
+              f"dense_ref {tag}: launches {counts}")
+        row["steps_dropped_overflow_zero"] = len(steps)
+        emit(row)
+        total.update(counts)
+        runs[tag] = (tokens, row)
+        del eng
+        gc.collect()
+    check(runs["placed"][0] == runs["identity"][0],
+          "dense_ref: tokens under the placement differ from identity")
+    row = runs["placed"][1]
+    emit({"phase": "dense_ref", "ok": True, "placement_invariant": True,
+          "layers": L, "dtype": "bfloat16", "decode_mode": "scan",
+          "requests": DENSE_REF_REQUESTS, "new_tokens": DENSE_REF_NEW,
+          "decode_step_ms_median": row["decode_step_ms_median"],
+          "staged_decode_step_ms_median":
+              summary["serve_decode_step_ms_median"],
+          "peak_mem_gib": row["peak_mem_gib"],
+          "graph_pool_bytes": row["graph_pool_bytes"],
+          "launches": dict(total), "cards": _cards(),
+          "seconds": time.perf_counter() - t0})
+    del params, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def _run_launcher(policy, hooks=None):
     """One run of the port's launcher at full granite on the card; returns
     the engine, its launch counts and the host seconds of the run."""
@@ -2510,6 +2636,11 @@ def phase_train_resume():
           "losses_straight": [h["loss"] for h in straight]})
 
 
+def _model_tflop_per_s(cfg, tokens: int, step_ms: float) -> float:
+    """6 · ``active_param_count()`` · tokens over a train step's time."""
+    return 6 * cfg.active_param_count() * tokens / (step_ms / 1e3) / 1e12
+
+
 def phase_train():
     """Full granite-moe-3b-a800m through the port's training launcher (bf16
     parameters, fp32 moments, seed-0 weights, a seeded placement, 4 × 128
@@ -2623,6 +2754,11 @@ def phase_train():
           "step_ms_median": step_ms, "step_ms": steps,
           "step_ms_timed_from": TRAIN_TIMED_FROM,
           "tokens_per_s": tokens / (step_ms / 1e3),
+          # the model's FLOPs a trained token, 6 · N_active: what a user's
+          # tokens cost, whatever the port runs to get them
+          "active_params": cfg.active_param_count(),
+          "model_tflop_per_s": _model_tflop_per_s(cfg, tokens, step_ms),
+          "cards": _cards(),
           "share_median": {n: statistics.median(v) for n, v in parts.items()},
           "peak_mem_gib": peak / 2 ** 30, "wall_s": wall,
           "profile": profile_row})
@@ -3012,7 +3148,9 @@ def phase_dryrun(src: Path, train_step_ms: float):
     emit({"phase": "dryrun", "config": ARCH, "cells": rows,
           "train_flops": flops, "train_step_ms_median": train_step_ms,
           "train_tflop_per_s": flops / (train_step_ms / 1e3) / 1e12,
-          "launches": counts})
+          "model_tflop_per_s": _model_tflop_per_s(
+              train_cfg, TRAIN_BATCH * TRAIN_SEQ, train_step_ms),
+          "cards": _cards(), "launches": counts})
     # what the card still holds, then without cuBLAS's workspaces (one for
     # each stream cuBLAS has run on, kept until cleared)
     held = _outside_bytes()
@@ -4003,11 +4141,7 @@ def phase_mesh(kernel_summary, pred):
     row_bytes = 3 * cfg.d_model * F * 2  # one slot's three bf16 rows
     store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     # every time below stands beside the cards it was taken on
-    cards = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
+    cards = _cards()
     launches = collections.Counter()
     runs = {}
     try:
@@ -4759,11 +4893,7 @@ def phase_mesh_train(kernel_summary, pred):
     start = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cards = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
+    cards = _cards()
     cfg = _mt_config(MESH_TRAIN_LAYERS)
     L = cfg.num_layers
     store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
@@ -5606,11 +5736,7 @@ def nccl_paths():
 
     n_cards = torch.cuda.device_count()
     check(n_cards >= MESH_MODEL, f"nccl: {n_cards} card(s), {MESH_MODEL} needed")
-    cards = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
+    cards = _cards()
     cfg = get_config(ARCH)
     row_bytes = 3 * cfg.d_model * (cfg.expert_d_ff // cfg.expert_tp) * 2
     store = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
@@ -5667,6 +5793,7 @@ def main(argv=None) -> int:
     summary = phase_kernels()
     phase_parity()
     launches, serve_peak = phase_serve(summary)
+    dense_ref_launches = phase_dense_ref(summary)
     replan_launches = phase_replan(serve_peak)
     online_launches = phase_online(serve_peak)
     replicated_launches = phase_replicated(
@@ -5704,6 +5831,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": main_launches.get(name, launches)[name],
+            # the capacity-free oracle's card runs: K2 only
+            "dense_ref_launches": dense_ref_launches[name],
             "replan_launches": replan_launches[name],
             "online_launches": online_launches[name],
             "replicated_launches": replicated_launches[name],
@@ -5774,11 +5903,7 @@ def main(argv=None) -> int:
     check(wg["launches"] > 0 and wg["swa_launches"] > 0,
           "the wgmma kernels never ran on the train or swa path")
     emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip(), flush=True)
+    print("\n".join(_cards()), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

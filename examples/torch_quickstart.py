@@ -4,11 +4,14 @@ and behind its serving engine.
 
     python examples/torch_quickstart.py                # on the CUDA device
     python examples/torch_quickstart.py --device cpu   # plain versions
+    python examples/torch_quickstart.py --moe-backend dense_ref   # the oracle
 
 (with ``src`` on ``PYTHONPATH``). The four steps run the port's numpy core
 (``repro_torch.core``) and print what ``examples/quickstart.py`` prints.
 The data plane runs the hand-written kernels on the card and their plain
-PyTorch versions on the CPU.
+PyTorch versions on the CPU, under ``--moe-backend`` (the JAX quickstart's
+choices: ``einsum`` and ``pallas`` both name the staged plane,
+``dense_ref`` the capacity-free oracle).
 """
 import argparse
 
@@ -17,6 +20,8 @@ import numpy as np
 ap = argparse.ArgumentParser()
 ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                 help="default: the CUDA device (raises without one)")
+ap.add_argument("--moe-backend", default="einsum",
+                choices=("einsum", "pallas", "dense_ref"))
 args = ap.parse_args()
 
 from repro_torch.core import (  # noqa: E402
@@ -69,9 +74,9 @@ print(f"p99 TPOT: {sim_linear.tpot_percentile(0.99)*1e3:.3f} ms → "
       f"{sim_gem.tpot_percentile(0.99)*1e3:.3f} ms")
 
 # Data plane: run the smoke-Mixtral MoE layer with the searched placement
-# — outputs must match the identity placement's regardless of placement
-# (the permutation is exact, and each slot's rows go through the expert
-# FFN alone).
+# under the selected backend — outputs must match the same backend's
+# identity placement regardless of placement (the permutation is exact,
+# and each slot's rows go through the expert FFN alone).
 import dataclasses  # noqa: E402
 
 import torch  # noqa: E402
@@ -94,7 +99,7 @@ lp = {k: v[0] for k, v in params.items()}
 x = torch.randn((2, 16, cfg.d_model), generator=gen, device=device)
 with torch.no_grad():
     y_ref, _ = moe_layer(x, lp, identity_placement(cfg, 1, device=device)[0],
-                         cfg)
+                         cfg, backend=args.moe_backend)
 
 # seed a balanced smoke-scale placement from the searched plan's ordering
 # (the smoke config has fewer experts than the synthetic workload above)
@@ -110,9 +115,9 @@ lp_perm = {k: v[0] for k, v in apply_placement(
 lp_perm["router"] = lp["router"]
 e2s = torch.as_tensor(pm.expert_to_slot(), device=device)
 with torch.no_grad():
-    y, aux = moe_layer(x, lp_perm, e2s, cfg)
+    y, aux = moe_layer(x, lp_perm, e2s, cfg, backend=args.moe_backend)
 delta = float((y - y_ref).abs().max())
-print(f"data plane [{device.type}] under GEM placement: "
+print(f"data plane [{args.moe_backend}] on {device.type} under GEM placement: "
       f"max|Δ| vs identity = {delta:.2e} "
       f"(dropped={float(aux.dropped):.3f})")
 
@@ -128,7 +133,7 @@ from repro_torch.telemetry import Telemetry, write_chrome_trace  # noqa: E402
 
 serve_cfg = dataclasses.replace(
     get_smoke_config("mixtral-8x7b"),
-    sliding_window=0,  # full attn → paged KV
+    moe_backend=args.moe_backend, sliding_window=0,  # full attn → paged KV
     decode_capacity_factor=8.0,
 )
 serve_params = init_params(serve_cfg, seed=2, device=device,

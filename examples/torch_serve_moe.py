@@ -6,6 +6,7 @@ swap.
     PYTHONPATH=src python examples/torch_serve_moe.py [--policy gem|eplb|linear]
                                                       [--requests 24] [--arch ...]
                                                       [--device cpu]
+                                                      [--moe-backend dense_ref]
 
 On the CUDA device unless ``--device cpu`` is given (the plain PyTorch
 versions of the kernels). ``--online`` switches the engine to the online
@@ -47,6 +48,10 @@ def main():
                     help="default: the CUDA device (raises without one)")
     ap.add_argument("--online", action="store_true",
                     help="drift-triggered replans + budgeted migration")
+    ap.add_argument("--moe-backend", default="einsum",
+                    choices=("einsum", "pallas", "dense_ref"),
+                    help="MoE data plane: the staged plane (einsum, pallas) "
+                         "or the capacity-free oracle (dense_ref)")
     ap.add_argument("--slowdown-at", type=int, default=0,
                     help="(online) inject a 2x power cap on the fastest "
                          "device at this engine step (0 = never)")
@@ -78,6 +83,7 @@ def main():
             placement_policy=args.policy,
             other_time_per_step=2e-4,
             online=args.online,
+            moe_backend=args.moe_backend,
         ),
         profile=profile, num_devices=4, device=device,
     )
@@ -106,7 +112,8 @@ def main():
     wall = time.perf_counter() - t0
     report = eng.latency_report()
     print(f"policy={args.policy} variability={args.variability} "
-          f"device={device.type} online={args.online}")
+          f"device={device.type} moe_backend={args.moe_backend} "
+          f"online={args.online}")
     print(f"served {len(done)} requests in {eng.step_count} engine steps "
           f"({wall:.1f}s wall on this host)")
     print(f"placement re-plan applied: {eng.placement_applied}")

@@ -14,7 +14,13 @@ from . import (
     qwen3_32b,
     zamba2_1_2b,
 )
-from .base import SHAPES, ModelConfig, ShapeSpec, shape_applicable
+from .base import (
+    MOE_BACKENDS,
+    SHAPES,
+    ModelConfig,
+    ShapeSpec,
+    shape_applicable,
+)
 
 _MODULES = {
     "musicgen-medium": musicgen_medium,
@@ -44,6 +50,7 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ARCHS",
+    "MOE_BACKENDS",
     "SHAPES",
     "ModelConfig",
     "ShapeSpec",

@@ -1,10 +1,18 @@
 """Model configuration schema (the port's own copy).
 
 Field for field the same as the JAX package's ``ModelConfig`` except the
-TPU-only knobs: there is no ``moe_backend`` (the tensor's device picks the
-hand-written kernel or its plain PyTorch version, see
-:mod:`repro_torch.kernels.ops`) and no Pallas tile sizes (the Hopper
-kernels choose their own tiles from the shapes they are given).
+Pallas tile sizes, which are TPU-only (the Hopper kernels choose their own
+tiles from the shapes they are given).
+
+``moe_backend`` takes the JAX package's three names
+(:data:`MOE_BACKENDS`). ``"einsum"`` and ``"pallas"`` name the same plane
+here, the staged dispatch (route → build_dispatch → expert_compute →
+combine), whose kernels the tensor's device picks: the Hopper kernels on
+CUDA, their plain PyTorch versions on the CPU
+(:mod:`repro_torch.kernels.ops`). Neither name routes a CUDA tensor onto
+a plain version. ``"dense_ref"`` names the capacity-free oracle: every
+expert runs on every token, so nothing is dropped
+(:func:`repro_torch.models.dispatch.dense_mix`).
 :class:`ShapeSpec`, :data:`SHAPES` and :func:`shape_applicable` are the JAX
 package's dry-run shape table, copied as they are.
 """
@@ -13,9 +21,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "shape_applicable"]
+__all__ = [
+    "ModelConfig", "ShapeSpec", "SHAPES", "shape_applicable", "MOE_BACKENDS",
+]
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
+
+MOE_BACKENDS = ("einsum", "pallas", "dense_ref")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +56,9 @@ class ModelConfig:
     router_aux_coef: float = 0.01
     capacity_factor: float = 1.25
     decode_capacity_factor: float = 2.0
+    # --- MoE data plane: "einsum" and "pallas" the staged plane (the
+    # device picks its kernels), "dense_ref" the capacity-free oracle ---
+    moe_backend: str = "einsum"
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -64,6 +79,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.moe_backend not in MOE_BACKENDS:
+            raise ValueError(
+                f"moe_backend={self.moe_backend!r} not in {MOE_BACKENDS}"
+            )
 
     # -- derived quantities --------------------------------------------------
     @property
@@ -131,6 +150,18 @@ class ModelConfig:
             return (total + self.num_layers * (per_layer_ssm + D)
                     + attn + 3 * D * self.d_ff + 2 * D)
         return total + self.num_layers * (attn + ffn + 2 * D)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        D = self.d_model
+        dense = self.param_count() - self.num_layers * self.num_experts * (
+            3 * D * self.expert_d_ff
+        )
+        return dense + self.num_layers * self.experts_per_token * (
+            3 * D * self.expert_d_ff
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,7 @@ one rank of JAX's production meshes.
     python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--out results/dryrun_torch.json]
     python -m repro_torch.launch.dryrun --all --mesh 16x16   # or 2x16x16
+    python -m repro_torch.launch.dryrun --all --moe-backend dense_ref
 
 The port of ``repro/launch/dryrun.py``. The JAX dry run lowers and compiles
 each cell against a 512-device TPU mesh; this one runs the port's own step
@@ -42,6 +43,11 @@ Per cell it records:
   and ``total_count`` (:func:`~repro_torch.launch.meta_mesh.
   record_collectives`). Every number of a mesh cell is one rank's.
 
+``--moe-backend`` runs the MoE configs' cells under that data plane, as
+JAX's ``--moe-backend`` lowers them (``"dense_ref"``: the capacity-free
+oracle, whose trace counts every expert's products on every token); the
+cell then carries ``moe_backend``.
+
 ``status`` is ``ok``, ``skipped`` (with :func:`shape_applicable`'s reason)
 or ``error`` (with the traceback: a failing cell is a bug to fix, not to
 hide). Results go to ``--out``, keyed ``arch|shape|<mesh>`` as JAX's are;
@@ -50,6 +56,7 @@ the exit code is 1 when any cell errs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -59,7 +66,7 @@ import traceback
 import torch
 
 from ..configs import ARCHS, SHAPES, get_config, shape_applicable
-from ..configs.base import ModelConfig, ShapeSpec
+from ..configs.base import MOE_BACKENDS, ModelConfig, ShapeSpec
 from ..tree import leaves
 from .cost import trace_cost, tree_bytes
 from .mesh import policy_for
@@ -185,7 +192,8 @@ def measure(config: ModelConfig, shape: ShapeSpec, *,
 def run_cell(arch: str, shape: str | ShapeSpec, *,
              config: ModelConfig | None = None, remat: bool = True,
              hbm: tuple[int, str] | None = None, mesh="1xgpu",
-             policy=None, dtype=torch.bfloat16) -> dict:
+             policy=None, dtype=torch.bfloat16,
+             moe_backend: str | None = None) -> dict:
     """The dry run of one cell: ``arch``'s config (or ``config``, e.g. a
     cut one) at ``shape`` (a name of :data:`SHAPES`, or a ShapeSpec), on
     ``mesh``: ``"1xgpu"``, a production mesh's name (``"16x16"``,
@@ -195,12 +203,18 @@ def run_cell(arch: str, shape: str | ShapeSpec, *,
     (over that mesh) where given, else JAX's ``policy_for`` of the cell.
     ``hbm``: (bytes, source) to hold the peak against, instead of asking
     the CUDA device (or the data sheet without one). ``dtype``: the
-    parameters' and caches' (JAX's dry run: bf16)."""
+    parameters' and caches' (JAX's dry run: bf16). ``moe_backend``: the
+    MoE data plane of a MoE config's step (default: the config's own),
+    recorded in the cell as JAX's ``run_cell`` records it."""
     config = config or get_config(arch)
+    if moe_backend is not None and config.is_moe:
+        config = dataclasses.replace(config, moe_backend=moe_backend)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     name = mesh if isinstance(mesh, str) else "x".join(
         str(n) for n in mesh.shape.values())
     cell: dict = {"arch": arch, "shape": shape.name, "mesh": name}
+    if moe_backend is not None and config.is_moe:
+        cell["moe_backend"] = moe_backend
     ok, why = shape_applicable(config, shape)
     if not ok:
         cell.update(status="skipped", reason=why)
@@ -263,6 +277,9 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true", help="run every cell")
     ap.add_argument("--mesh", choices=MESHES, default="1xgpu",
                     help="one card, or rank 0 of a production mesh")
+    ap.add_argument("--moe-backend", default=None, choices=MOE_BACKENDS,
+                    help="MoE data-plane backend for MoE archs (default: "
+                    "each config's own setting)")
     ap.add_argument("--out", default="results/dryrun_torch.json")
     args = ap.parse_args(argv)
 
@@ -284,7 +301,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for arch, shape in cells:
         key = f"{arch}|{shape}|{args.mesh}"
-        cell = run_cell(arch, shape, mesh=args.mesh)
+        cell = run_cell(arch, shape, mesh=args.mesh,
+                        moe_backend=args.moe_backend)
         results[key] = cell
         n_err += cell["status"] == "error"
         print(cell_line(key, cell), flush=True)

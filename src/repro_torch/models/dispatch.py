@@ -27,7 +27,9 @@ of tensors, as in the JAX package:
   values in the same layout whatever slot they sit in, the output is
   bit-identical under any placement.
 
-``dense_mix`` is the capacity-free oracle. Dropped assignments never use
+:func:`dense_mix` is the capacity-free oracle (``moe_backend=
+"dense_ref"``): it replaces the last three stages, and its kernel is K2,
+through :func:`route`. Dropped assignments never use
 out-of-range indices (torch raises where JAX drops): they scatter into a
 sink slot that is sliced off, which changes no count.
 
@@ -54,7 +56,13 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.sharded import moe_ffn_sharded, topk_router_sharded
+from ..kernels.sharded import (
+    moe_ffn_sharded,
+    sum_grads_over,
+    sum_over,
+    topk_router_sharded,
+)
+from ..sharding.policy import model_axis
 
 __all__ = [
     "RouterOutput",
@@ -445,27 +453,81 @@ def combine(y_e, plan: DispatchPlan, out_shape: tuple):
     return y.reshape(B, T, D)
 
 
+def _slot_ffn(xf, wg, wu, wd):
+    """Every token through each of the given slots' FFN: xf (N, D) and
+    (S', D, F) / (S', F, D) weights → (S', N, D), slot-major. One batched
+    product a weight, each slot's rows computed alone (so its bits do not
+    depend on where the slot sits); the weights are read in place, never
+    gathered into another order."""
+    xs = xf.unsqueeze(0).expand(wg.shape[0], -1, -1)
+    h = torch.nn.functional.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu)
+    return torch.bmm(h, wd)
+
+
 def dense_mix(xg, p, router: RouterOutput, expert_to_slot,
-              config: ModelConfig):
-    """Capacity-free oracle: every expert on every token, mixed by the
-    routing decision. Weights live in slot order; gather them back to
-    virtual order through the table. Returns (Gd, Ng, D)."""
+              config: ModelConfig, policy=None, *,
+              num_slots: int | None = None):
+    """Capacity-free oracle in place of build_dispatch → expert_compute →
+    combine: every expert on every token, mixed by the routing decision.
+    Returns (Gd, Ng, D).
+
+    The FFN runs over the pool in slot order (:func:`_slot_ffn`), and each
+    token reads the rows of its chosen virtual experts ``id · tp + j``
+    through the table, so no weight is copied into virtual order. An
+    (E_v, P) replica table reads each expert's first copy (copies are
+    equal rows). Each token sums its ``tp`` slices, then its ``k`` gated
+    experts, in fp32 in that fixed order, and rounds once to the input's
+    dtype: the output's bits do not depend on the placement.
+
+    Under a model axis wider than one rank (``policy`` with a mesh;
+    ``num_slots``, the pool's global S, required) the rank runs only its
+    share of the slots, ``[d·⌈S/m⌉, …)`` of a pool the axis divides or
+    not (a pool it does not divide is stored whole and the rank takes its
+    share of the rows), its partial mix counts only the chosen rows it
+    holds, and the partials are summed over the axis in fp32 in rank
+    order (:func:`~repro_torch.kernels.sharded.sum_over`) and rounded
+    once. The tokens and gates enter through
+    :func:`~repro_torch.kernels.sharded.sum_grads_over`, so that their
+    gradients are complete on every rank; an expert stack's gradient holds
+    the rank's rows only, as K1's sharded backward leaves it."""
     Gd, Ng, D = xg.shape
-    E, tp = config.num_experts, config.expert_tp
-    k = config.experts_per_token
-    table = torch.as_tensor(expert_to_slot, device=xg.device).long()
+    k, tp = config.experts_per_token, config.expert_tp
+    N = Gd * Ng
+    dev = xg.device
+    table = torch.as_tensor(expert_to_slot, device=dev).long()
     if table.dim() == 2:
         table = table[:, 0]
-    wg, wu, wd = (p[n][table] for n in ("w_gate", "w_up", "w_down"))
-    xf = xg.reshape(Gd * Ng, D)
-    gates = router.gates.reshape(Gd * Ng, k)
-    ids = router.ids.reshape(Gd * Ng, k).long()
-    h_gate = torch.einsum("nd,edf->nef", xf, wg)
-    h_up = torch.einsum("nd,edf->nef", xf, wu)
-    h = torch.nn.functional.silu(h_gate) * h_up
-    y_all = torch.einsum("nef,efd->ned", h, wd)  # (N, E_v, D)
-    y_real = y_all.reshape(xf.shape[0], E, tp, -1).sum(dim=2)  # (N, E, D)
-    sel = torch.nn.functional.one_hot(ids, E).to(y_real.dtype) * gates[
-        ..., None
-    ].to(y_real.dtype)
-    return torch.einsum("nke,ned->nd", sel, y_real).reshape(Gd, Ng, D)
+    xf = xg.reshape(N, D)
+    gates = router.gates.reshape(N, k).float()
+    vids = (router.ids.reshape(N, k, 1).long() * tp
+            + torch.arange(tp, device=dev))
+    slots = table[vids]  # (N, k, tp) global slots
+    ws = tuple(p[n] for n in ("w_gate", "w_up", "w_down"))
+    axis = model_axis(policy)
+    if axis is not None:
+        mesh = policy.mesh
+        S = num_slots
+        per = -(-S // mesh.size(axis))
+        lo = mesh.index(axis) * per
+        live = max(min(per, S - lo), 0)
+        if ws[0].shape[0] == S:  # a whole-stored pool: this rank's share
+            ws = tuple(w[lo:lo + live] for w in ws)
+        else:  # the rank's stored shard, less any dead pad slots
+            ws = tuple(w[:live] for w in ws)
+        xf = sum_grads_over(xf, mesh, axis)
+        gates = sum_grads_over(gates, mesh, axis)
+        slots = slots - lo
+        mine = (slots >= 0) & (slots < live)
+    else:
+        live = int(ws[0].shape[0])
+        mine = None
+    y_all = _slot_ffn(xf, *ws).reshape(live * N, D)
+    y_all = torch.cat([y_all, y_all.new_zeros((1, D))])  # + a zero sink row
+    rows = slots * N + torch.arange(N, device=dev)[:, None, None]
+    if mine is not None:
+        rows = torch.where(mine, rows, torch.full_like(rows, live * N))
+    picked = y_all.index_select(0, rows.reshape(-1)).reshape(N, k, tp, D)
+    y = (picked.float().sum(dim=2) * gates[..., None]).sum(dim=1)
+    if axis is not None:
+        y = sum_over(y, policy.mesh, axis)
+    return y.to(xg.dtype).reshape(Gd, Ng, D)

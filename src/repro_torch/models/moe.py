@@ -16,6 +16,17 @@ off the stacked weights, so one code path serves both pools.
 :func:`moe_layer` composes the four stages of
 :mod:`repro_torch.models.dispatch`.
 
+**Backends.** ``ModelConfig.moe_backend`` (or the layer's ``backend``
+argument, which wins) takes the JAX package's three names
+(:data:`~repro_torch.configs.base.MOE_BACKENDS`). ``"einsum"`` and
+``"pallas"`` both run the staged plane, whose kernels the tensor's device
+picks (K1 and K2 on the card). ``"dense_ref"`` is the capacity-free
+oracle: the router (K2 on the card) and then
+:func:`~repro_torch.models.dispatch.dense_mix`, every expert on every
+token, with no dispatch, so no assignment is dropped, overflows or is
+shed; the router's statistics still flow, so GEM's Step-1 trace and the
+engine's telemetry keep running.
+
 **Under a policy with a mesh** (:mod:`repro_torch.sharding`): each rank
 stores the slots ``[d·S/m, (d+1)·S/m)`` of the pool, d its model-axis
 position (:func:`~repro_torch.sharding.local_expert_slots`; a pool the
@@ -37,7 +48,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import MOE_BACKENDS, ModelConfig
 from ..kernels.sharded import gather_cat, gather_over, take_block
 from ..sharding.policy import model_axis
 from .dispatch import (
@@ -57,8 +68,19 @@ __all__ = [
     "apply_layer_permutation",
     "identity_placement",
     "moe_layer_dense_ref",
+    "resolve_moe_backend",
     "MoEAux",
 ]
+
+
+def resolve_moe_backend(backend: str | None, config: ModelConfig,
+                        policy=None) -> str:
+    """Effective backend for this call: explicit arg > config."""
+    del policy  # kept in the signature, as the JAX package keeps it
+    backend = backend if backend is not None else config.moe_backend
+    if backend not in MOE_BACKENDS:
+        raise ValueError(f"moe_backend={backend!r} not in {MOE_BACKENDS}")
+    return backend
 
 
 def init_moe(config: ModelConfig, *, num_layers: int, dtype, device,
@@ -181,7 +203,7 @@ def apply_layer_permutation(moe_params, layer: int, perm, *,
 def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
               capacity_factor: float | None = None, shed_enable=None,
               global_batch: int | None = None, num_slots: int | None = None,
-              seq_sharded: bool = False):
+              seq_sharded: bool = False, backend: str | None = None):
     """x (B, T, D) → (y (B, T, D), :class:`MoEAux`) for one layer's params
     ``p`` and its (E_v,) ``expert_to_slot`` table or (E_v, P) replica-split
     table. ``shed_enable`` (a 0/1 scalar tensor, or None to leave the pass
@@ -214,14 +236,23 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
     taken after it (the take's adjoint gathers the cotangent's rows), so
     that the backward inside the region sees the whole cotangent on every
     rank, as the sharded kernels' adjoints expect (JAX's
-    ``seq_sharded_out``)."""
+    ``seq_sharded_out``).
+
+    ``backend`` overrides ``config.moe_backend`` for this call
+    (:func:`resolve_moe_backend`). With ``"dense_ref"`` the layer routes,
+    then mixes every expert's output (:func:`~repro_torch.models.dispatch.
+    dense_mix`) under the same grouping over data and the same sequence
+    gather; its aux has ``dropped`` 0.0, no dropped, overflow or shed
+    assignment and a zero ``shed_delta``, as JAX's oracle reports, and
+    ``capacity_factor`` and ``shed_enable`` have nothing to act on."""
+    backend = resolve_moe_backend(backend, config, policy)
     axis = model_axis(policy) if seq_sharded else None
     if axis is not None:
         x = gather_cat(x, policy.mesh, axis, 1)
         y, aux = moe_layer(x, p, expert_to_slot, config, policy,
                            capacity_factor=capacity_factor,
                            shed_enable=shed_enable, global_batch=global_batch,
-                           num_slots=num_slots)
+                           num_slots=num_slots, backend=backend)
         return take_block(y, policy.mesh, axis, 1), aux
     B, T, D = x.shape
     # `is None`, not falsy-or: an explicit 0.0 means "minimum capacity"
@@ -258,6 +289,21 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
                 f"size {policy.model_axis_size} (a rank stores S/m rows of "
                 "a pool the axis divides, all S of one it does not)")
         S = int(p["w_gate"].shape[0])
+    if backend == "dense_ref":
+        y = dense_mix(xg, p, router, expert_to_slot, config, policy,
+                      num_slots=S).reshape(x.shape)
+        if gather_out:
+            y = gather_over(y, mesh, data_spec).reshape(B, T, D)
+        zero = torch.zeros((), dtype=torch.int32, device=x.device)
+        return y, MoEAux(
+            expert_counts=router.expert_counts,
+            aux_loss=router.aux_loss,
+            dropped=torch.zeros((), dtype=torch.float32, device=x.device),
+            dropped_tokens=zero,
+            overflow_tokens=zero,
+            shed_tokens=zero,
+            shed_delta=torch.zeros((S,), dtype=torch.int32, device=x.device),
+        )
     plan = build_dispatch(
         router, expert_to_slot, config, policy, capacity_factor=cf,
         num_slots=S, shed_enable=shed_enable, groups=Gd,
@@ -280,8 +326,5 @@ def moe_layer(x, p, expert_to_slot, config: ModelConfig, policy=None, *,
 def moe_layer_dense_ref(x, p, config: ModelConfig):
     """Oracle: every expert on every token, mixed (capacity-free, weights in
     identity placement)."""
-    B, T, D = x.shape
-    xg = x.reshape(1, B * T, D)
-    router = route(xg, p["router"], config)
     table = identity_placement(config, 1, device=x.device)[0]
-    return dense_mix(xg, p, router, table, config).reshape(B, T, D)
+    return moe_layer(x, p, table, config, backend="dense_ref")[0]

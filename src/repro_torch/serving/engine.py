@@ -273,6 +273,8 @@ class EngineConfig:
     # engine's do without a live expert axis
     migration_via: str = "host"
     other_time_per_step: float = 0.0  # simulated non-MoE per-step latency
+    moe_backend: str | None = None  # override ModelConfig.moe_backend for
+    # the engine's data plane (einsum | pallas | dense_ref)
     # "auto" pages the KV cache on attention families without a sliding
     # window when the policy has no mesh; "paged" / "dense" force
     kv_mode: str = "auto"  # auto | paged | dense
@@ -305,6 +307,10 @@ class ServingEngine:
         """``policy`` (keyword-only; the host policy, one device, when
         None) places the engine on a mesh of ranks; with a mesh,
         ``device`` defaults to the rank's own."""
+        if engine_config.moe_backend is not None:
+            config = dataclasses.replace(
+                config, moe_backend=engine_config.moe_backend
+            )
         policy = policy if policy is not None else host_policy()
         self.policy = policy
         if device is None and policy.mesh is not None:

@@ -163,6 +163,14 @@ def named_terms(cfg, shape) -> dict[str, int]:
       state) and the final state the train step discards (the last
       chunk's state update, two products). Torch's autograd runs neither:
       the zero state needs no gradient and the final state gets none.
+    * ``dense_mix_one_hot`` (``moe_backend="dense_ref"``): JAX mixes the
+      oracle's expert outputs with a one-hot (N, k, E) × (N, E, D)
+      product, which XLA folds over k into one (N, E) × (E, D) product a
+      token batch and layer; the train step's backward adds one more of
+      that size (the mix's cotangent against the expert outputs). The
+      port reads each token's k·tp rows by index and sums them, which
+      counts nothing. The oracle runs no K1, so
+      ``moe_backward_recompute`` does not apply to it.
     """
     B, kind = shape.global_batch, shape.kind
     P = cfg.num_patches if cfg.frontend == "vision" else 0
@@ -172,7 +180,12 @@ def named_terms(cfg, shape) -> dict[str, int]:
     if cfg.tie_embeddings:
         terms["tied_embedding"] = 2 * B * T * V * D * (2 if kind == "train"
                                                        else 1)
-    if kind == "train" and cfg.is_moe:
+    dense_ref = cfg.is_moe and cfg.moe_backend == "dense_ref"
+    if dense_ref:
+        N = B * (1 if kind == "decode" else shape.seq_len)
+        terms["dense_mix_one_hot"] = cfg.num_layers * 2 * N * (
+            cfg.num_experts * D) * (2 if kind == "train" else 1)
+    if kind == "train" and cfg.is_moe and not dense_ref:
         S = cfg.num_virtual_experts
         C = slot_capacity(B * shape.seq_len, cfg,
                           capacity_factor=cfg.capacity_factor, num_slots=S,
@@ -206,6 +219,47 @@ def test_flops_match_jax_up_to_named_terms(case):
     theirs = _jax_flops(jax_smoke(arch), shape)
     terms = named_terms(get_smoke_config(arch), shape)
     assert theirs - ours == sum(terms.values()), (theirs, ours, terms)
+
+
+@pytest.mark.parametrize("kind", sorted(SMALL))
+def test_oracle_flops_match_jax_up_to_named_terms(kind):
+    """Granite's smoke steps under ``moe_backend="dense_ref"`` on both
+    sides: every expert's three products on every token, counted alike."""
+    shape = SMALL[kind]
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              moe_backend="dense_ref")
+    jcfg = dataclasses.replace(jax_smoke("granite-moe-3b-a800m"),
+                               moe_backend="dense_ref")
+    ours = dryrun.measure(cfg, shape)["cost"]["flops"]
+    theirs = _jax_flops(jcfg, shape)
+    terms = named_terms(cfg, shape)
+    assert "dense_mix_one_hot" in terms
+    assert "moe_backward_recompute" not in terms
+    assert theirs - ours == sum(terms.values()), (theirs, ours, terms)
+    # the oracle's expert products: three (N, D) × (D, F) a virtual expert
+    # (and twice that again in the backward), over every token
+    staged = dryrun.measure(get_smoke_config("granite-moe-3b-a800m"),
+                            shape)["cost"]["flops"]
+    assert ours > staged
+
+
+def test_run_cell_records_the_moe_backend():
+    cell = dryrun.run_cell("granite-moe-3b-a800m", SMALL["decode"],
+                           config=get_smoke_config("granite-moe-3b-a800m"),
+                           moe_backend="dense_ref")
+    assert cell["status"] == "ok" and cell["moe_backend"] == "dense_ref"
+    staged = dryrun.run_cell(
+        "granite-moe-3b-a800m", SMALL["decode"],
+        config=get_smoke_config("granite-moe-3b-a800m"))
+    assert "moe_backend" not in staged
+    assert cell["cost"]["flops"] > staged["cost"]["flops"]
+    dense = dryrun.run_cell("qwen1.5-4b", SMALL["decode"],
+                            config=get_smoke_config("qwen1.5-4b"),
+                            moe_backend="dense_ref")
+    assert dense["status"] == "ok" and "moe_backend" not in dense
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "granite-moe-3b-a800m", "--shape",
+                     "decode_32k", "--moe-backend", "triton"])
 
 
 def test_named_terms_cover_granites_prefill_gap():

@@ -5,7 +5,7 @@
 * ``torch_quickstart.py --device cpu`` prints the Step 1–4 lines of
   ``quickstart.py`` byte for byte (the profile line's host wall seconds
   masked), a data-plane Δ of 0 under the GEM placement, and serves every
-  live request. The JAX quickstart's numpy part (everything before its
+  live request; with ``--moe-backend dense_ref`` as well, on the oracle. The JAX quickstart's numpy part (everything before its
   data plane) is run from its own source, which spares its JAX compiles.
 * ``torch_serve_moe.py --device cpu --requests 4`` serves every request.
 * ``torch_train_small.py --device cpu`` is killed mid-run and relaunched:
@@ -66,17 +66,29 @@ def test_quickstart_steps_match_jax_and_the_data_plane_is_exact(
     assert len(theirs) == 5
     assert [_mask_wall(x) for x in ours[:5]] == [_mask_wall(x) for x in theirs]
     plane = ours[5]
-    assert plane.startswith("data plane [cpu] under GEM placement: ")
+    assert plane.startswith("data plane [einsum] on cpu under GEM placement: ")
     assert "max|Δ| vs identity = 0.00e+00" in plane
     assert ours[6].startswith("served 8 live requests [cpu]: ")
     assert "wrote torch_quickstart_trace.json" in ours[7]
     assert (tmp_path / "torch_quickstart_trace.json").stat().st_size > 0
 
 
+def test_quickstart_runs_the_oracle_plane(capsys, tmp_path, monkeypatch):
+    """``--moe-backend dense_ref``: the oracle under the GEM placement
+    equals its identity run bit for bit, drops nothing, and serves."""
+    monkeypatch.chdir(tmp_path)
+    ours = _run(EXAMPLES / "torch_quickstart.py",
+                ["--device", "cpu", "--moe-backend", "dense_ref"], capsys)
+    assert ours[5] == ("data plane [dense_ref] on cpu under GEM placement: "
+                       "max|Δ| vs identity = 0.00e+00 (dropped=0.000)")
+    assert ours[6].startswith("served 8 live requests [cpu]: ")
+
+
 def test_serve_moe_serves_every_request(capsys):
     out = _run(EXAMPLES / "torch_serve_moe.py",
                ["--device", "cpu", "--requests", "4"], capsys)
-    assert out[0] == "policy=gem variability=high device=cpu online=False"
+    assert out[0] == ("policy=gem variability=high device=cpu "
+                      "moe_backend=einsum online=False")
     assert out[1].startswith("served 4 requests in ")
     assert out[2] == "placement re-plan applied: True"
     assert any(x.startswith("  p99_tpot   = ") for x in out)

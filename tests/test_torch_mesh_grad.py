@@ -18,6 +18,11 @@ the rows of JAX's that it holds, within ``rtol=2e-4, atol=2e-4`` (JAX's
 tolerance for its mesh gradients). The layer on each rank's own rows
 (``global_batch``, as training runs it) gives the same gradients. A rank
 whose stored shard holds only dead pad slots gets zero weight gradients.
+
+The capacity-free oracle (``backend="dense_ref"`` on both sides) is held
+the same way: each rank mixes its share of the slots, the tokens and
+gates enter that region through ``sum_grads_over`` and the partials leave
+it through ``sum_over`` (``models/dispatch.py::dense_mix``).
 """
 from concurrent.futures import ThreadPoolExecutor
 
@@ -52,6 +57,13 @@ def _summed(mesh, x, leaves, whole_pool):
 
 
 def _rank_grads(mesh):
+    out = _backend_grads(mesh, None)
+    for name, res in _backend_grads(mesh, "dense_ref").items():
+        out[name].update({f"{form}:dense_ref": g for form, g in res.items()})
+    return out
+
+
+def _backend_grads(mesh, backend):
     policy = ShardingPolicy(mesh=mesh)
     d = policy.data_axis_size
     out = {}
@@ -68,7 +80,7 @@ def _rank_grads(mesh):
         # and every rank's loss is the whole loss)
         xw, lv = x.clone().requires_grad_(True), _leaves(p)
         y, aux = moe_layer(xw, lv, e2s, cfg, policy, capacity_factor=CF,
-                           num_slots=Ev)
+                           num_slots=Ev, backend=backend)
         (torch.sum(y * y) + aux.aux_loss).backward()
         res["whole"] = _summed(mesh, xw, lv, sl is None)
         if d > 1:  # the training form: this rank's rows, global_batch = B
@@ -77,7 +89,7 @@ def _rank_grads(mesh):
             xr, lv = x.clone().requires_grad_(True), _leaves(p)
             y, aux = moe_layer(xr[rows], lv, e2s, cfg, policy,
                                capacity_factor=CF, num_slots=Ev,
-                               global_batch=B)
+                               global_batch=B, backend=backend)
             # the rank's share of the loss: its rows' sum of squares and
             # the aux term, whose backward reaches only its own rows
             (torch.sum(y * y) + aux.aux_loss).backward()
@@ -98,7 +110,7 @@ def _rank_grads(mesh):
                 padded[k] = torch.from_numpy(full[lo:lo + per])
             lv = _leaves(padded)
             y, aux = moe_layer(x, lv, e2s, cfg, policy, capacity_factor=CF,
-                               num_slots=Ev)
+                               num_slots=Ev, backend=backend)
             (torch.sum(y * y) + aux.aux_loss).backward()
             res["padded"] = {k: mesh.all_reduce(t.grad, "data").numpy()
                              for k, t in lv.items()}
@@ -128,18 +140,21 @@ def jax_grads(payload):
             cfg = _cfg(name, jax_smoke)
             table = jnp.asarray(inp["e2s"])
 
-            def loss(x, p, cfg=cfg, table=table):
-                y, aux = jax_moe_layer(x, p, table, cfg, policy,
-                                       capacity_factor=CF, backend="pallas")
-                return jnp.sum(y * y) + aux["aux_loss"]
+            for backend in ("pallas", "dense_ref"):
+                def loss(x, p, cfg=cfg, table=table, backend=backend):
+                    y, aux = jax_moe_layer(x, p, table, cfg, policy,
+                                           capacity_factor=CF,
+                                           backend=backend)
+                    return jnp.sum(y * y) + aux["aux_loss"]
 
-            with mesh:
-                dx, dp = jax.jit(jax.grad(loss, argnums=(0, 1)))(
-                    jnp.asarray(inp["x"]),
-                    {k: jnp.asarray(v) for k, v in inp["p"].items()})
-            out[(data, model, name)] = {
-                "dx": np.asarray(dx),
-                **{k: np.asarray(v) for k, v in dp.items()}}
+                with mesh:
+                    dx, dp = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+                        jnp.asarray(inp["x"]),
+                        {k: jnp.asarray(v) for k, v in inp["p"].items()})
+                key = (data, model, name) if backend == "pallas" else (
+                    data, model, name, backend)
+                out[key] = {"dx": np.asarray(dx),
+                            **{k: np.asarray(v) for k, v in dp.items()}}
     return out
 
 
@@ -168,14 +183,12 @@ def _mine(rank, shape, name, want):
 FORMS = [((1, 4), "whole"), ((2, 2), "whole"), ((2, 2), "rows")]
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-@pytest.mark.parametrize("shape,form", FORMS,
-                         ids=[f"{s[0]}x{s[1]}-{f}" for s, f in FORMS])
-def test_moe_layer_gradients_match_jax_mesh_path(results, shape, name, form):
+def _check_grads(results, shape, name, form, backend=None):
     port, jax_out = results
-    want = jax_out[(*shape, name)]
+    want = jax_out[(*shape, name) if backend is None else
+                   (*shape, name, backend)]
     for rank, res in enumerate(port[shape]):
-        got = res[name][form]
+        got = res[name][form if backend is None else f"{form}:{backend}"]
         np.testing.assert_allclose(got["dx"], want["dx"], rtol=RTOL,
                                    atol=ATOL, err_msg=f"rank {rank} dx")
         np.testing.assert_allclose(got["router"], want["router"], rtol=RTOL,
@@ -187,15 +200,28 @@ def test_moe_layer_gradients_match_jax_mesh_path(results, shape, name, form):
         assert np.abs(got["w_gate"]).max() > 0  # gradients do flow
 
 
-def test_dead_pad_slots_take_no_gradient(results):
-    """ev6 on 4 model ranks: each rank stores 2 slots of the pool padded
-    to 8; the last rank's are both dead and get exact zeros, the others
-    get JAX's rows."""
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("shape,form", FORMS,
+                         ids=[f"{s[0]}x{s[1]}-{f}" for s, f in FORMS])
+def test_moe_layer_gradients_match_jax_mesh_path(results, shape, name, form):
+    _check_grads(results, shape, name, form)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("shape,form", FORMS,
+                         ids=[f"{s[0]}x{s[1]}-{f}" for s, f in FORMS])
+def test_oracle_gradients_match_jax_mesh_path(results, shape, name, form):
+    _check_grads(results, shape, name, form, "dense_ref")
+
+
+def _check_dead_pad(results, backend=None):
     port, jax_out = results
-    want = jax_out[(1, 4, "ev6")]
+    tag = "" if backend is None else f":{backend}"
+    want = jax_out[(1, 4, "ev6") if backend is None else
+                   (1, 4, "ev6", backend)]
     for rank, res in enumerate(port[(1, 4)]):
-        got = res["ev6"]["padded"]
-        lo, per = res["ev6"]["padded_slots"]
+        got = res["ev6"]["padded" + tag]
+        lo, per = res["ev6"]["padded_slots" + tag]
         live = max(min(per, 6 - lo), 0)
         for k in NAMES[1:]:
             assert not got[k][live:].any(), (rank, k)
@@ -203,4 +229,18 @@ def test_dead_pad_slots_take_no_gradient(results):
                                        rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(got["router"], want["router"], rtol=RTOL,
                                    atol=ATOL)
-    assert port[(1, 4)][3]["ev6"]["padded_slots"] == (6, 2)
+    assert port[(1, 4)][3]["ev6"]["padded_slots" + tag] == (6, 2)
+
+
+def test_dead_pad_slots_take_no_gradient(results):
+    """ev6 on 4 model ranks: each rank stores 2 slots of the pool padded
+    to 8; the last rank's are both dead and get exact zeros, the others
+    get JAX's rows."""
+    _check_dead_pad(results)
+
+
+def test_oracle_dead_pad_slots_take_no_gradient(results):
+    """The same padded shards under the oracle: ``dense_mix`` mixes only a
+    shard's live rows (none on the last rank), so the dead rows' gradients
+    are exact zeros and the live ones JAX's ``dense_ref`` rows."""
+    _check_dead_pad(results, "dense_ref")

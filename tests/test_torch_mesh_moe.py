@@ -17,6 +17,13 @@ order, but each shard's own sum runs in its framework's order. At (1, 4)
 the port's layer is bit-equal to its single-process layer: the same
 route and dispatch, and K1 per expert does not depend on which other
 experts share the call.
+
+The capacity-free oracle (``backend="dense_ref"``) runs on the same
+ranks against JAX's ``moe_layer(..., backend="dense_ref")`` on the same
+mesh: each rank mixes its share of the slots and the partials are summed
+over ``model`` (``models/dispatch.py::dense_mix``), so ``y`` is held to
+the layer's tolerance, not to one process's bits; counts are equal and
+nothing drops.
 """
 import dataclasses
 
@@ -128,6 +135,15 @@ def _rank_cases(mesh):
                                    num_slots=Ev)
             res["layer_rows"] = (y_l.numpy(), {f: getattr(aux_l, f).numpy()
                                                for f in aux_l.__dataclass_fields__})
+        # the oracle: the whole batch, and this rank's rows
+        y, aux = moe_layer(x, p, e2s, cfg, policy, num_slots=Ev,
+                           backend="dense_ref")
+        res["dense"] = (y.numpy(), {f: getattr(aux, f).numpy() for f in
+                                    aux.__dataclass_fields__})
+        if d > 1:
+            y_l, _ = moe_layer(x[rows_d], p, e2s, cfg, policy, global_batch=B,
+                               num_slots=Ev, backend="dense_ref")
+            res["dense_rows"] = y_l.numpy()
         out[name] = res
     return out
 
@@ -171,7 +187,15 @@ def jax_cases(payload):
                 y, aux = jax_moe_layer(
                     jnp.asarray(inp["x"]), p, jnp.asarray(inp["e2s"]), cfg,
                     policy, capacity_factor=CF, backend="pallas")
+                yd, auxd = jax_moe_layer(
+                    jnp.asarray(inp["x"]), p, jnp.asarray(inp["e2s"]), cfg,
+                    policy, backend="dense_ref")
             out[(data, model, name)] = {
+                "dense": (np.asarray(yd), {
+                    f: np.asarray(getattr(auxd, f)) for f in (
+                        "expert_counts", "aux_loss", "dropped",
+                        "dropped_tokens", "overflow_tokens", "shed_tokens",
+                        "shed_delta")}),
                 "router": [np.asarray(t) for t in router],
                 "ffn": np.asarray(ffn),
                 "layer": (np.asarray(y), {
@@ -250,6 +274,33 @@ def test_moe_layer_matches_jax_mesh_path(results, shape, name):
             np.testing.assert_array_equal(y_l, y[rows])
             for f, v in aux_l.items():
                 np.testing.assert_array_equal(v, aux[f], err_msg=f)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("shape", SHAPES, ids=["1x4", "2x2"])
+def test_oracle_layer_matches_jax_mesh_path(results, shape, name):
+    data = shape[0]
+    for rank, got, want in _each_rank(results, shape, name):
+        y, aux = got["dense"]
+        jy, jaux = want["dense"]
+        np.testing.assert_allclose(y, jy, rtol=1e-5, atol=1e-5)
+        for f in ("expert_counts", "dropped_tokens", "overflow_tokens",
+                  "shed_tokens", "shed_delta"):
+            np.testing.assert_array_equal(aux[f], jaux[f], err_msg=f)
+        assert float(aux["dropped"]) == float(jaux["dropped"]) == 0.0
+        assert int(aux["overflow_tokens"]) == 0
+        assert aux["shed_delta"].shape == (_cfg(name).num_virtual_experts,)
+        np.testing.assert_allclose(aux["aux_loss"], jaux["aux_loss"],
+                                   rtol=1e-5)
+        if data > 1:  # this rank's rows, the global batch
+            rows = slice(rank // shape[1] * (B // data),
+                         (rank // shape[1] + 1) * (B // data))
+            np.testing.assert_array_equal(got["dense_rows"], y[rows])
+    # every rank of a data row holds the same sum, bit for bit
+    port, _ = results
+    for r in range(4):
+        first = port[shape][r - r % shape[1]][name]["dense"][0]
+        assert np.array_equal(port[shape][r][name]["dense"][0], first)
 
 
 def test_groups_change_the_drops_as_in_jax(results):

@@ -113,10 +113,10 @@ def test_rank_in_group_is_stable():
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
 
 
-def test_two_d_replica_tables_are_not_ported_yet(setup):
-    """2-D replica tables are ported now: a table that broadcasts each
-    expert's one slot over its columns gives the 1-D table's plan, and the
-    JAX plan, field for field."""
+def test_two_d_replica_table_of_single_copies_gives_the_one_d_plan(setup):
+    """A 2-D replica table that broadcasts each expert's one slot over its
+    columns gives the 1-D table's plan, and the JAX plan, field for
+    field."""
     jcfg, tcfg, jp, tp, e2s, x = setup
     xg = torch.from_numpy(x).reshape(1, -1, tcfg.d_model)
     router = tdispatch.route(xg, tp["router"], tcfg)

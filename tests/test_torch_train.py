@@ -218,10 +218,13 @@ def _flat(tree, prefix=""):
 _JAX_CACHE = {}
 
 
-def _jax_reference(arch, remat):
+def _jax_reference(arch, remat, backend="pallas"):
     """(JAX config, port config, JAX fp32 params under a non-identity
-    placement for MoE, e2s tables or None, batch, JAX (loss, aux, grads))."""
-    key = (arch, remat)
+    placement for MoE, e2s tables or None, batch, JAX (loss, aux, grads)).
+    A MoE config runs ``backend`` on both sides (``"pallas"``: JAX's
+    kernels against the port's staged plane; ``"dense_ref"``: the
+    oracle on both)."""
+    key = (arch, remat, backend)
     if key in _JAX_CACHE:
         return _JAX_CACHE[key]
     # the SSD families at 4-token chunks: see test_ssd_backward_is_finite_
@@ -229,7 +232,8 @@ def _jax_reference(arch, remat):
     jcfg, tcfg = smoke_configs(
         arch, **({"ssm_chunk": SSD_CHUNK} if arch in SSD_ARCHS else {}))
     if jcfg.is_moe:
-        jcfg = dataclasses.replace(jcfg, moe_backend="pallas")
+        jcfg = dataclasses.replace(jcfg, moe_backend=backend)
+        tcfg = dataclasses.replace(tcfg, moe_backend=backend)
     params, _ = jax_init_params(jcfg, jax.random.PRNGKey(0), host_policy(),
                                 jnp.float32)
     e2s = None
@@ -257,10 +261,10 @@ def _jax_reference(arch, remat):
     return out
 
 
-def check_loss_and_grads(arch, remat):
+def check_loss_and_grads(arch, remat, backend="pallas"):
     """The port's loss, aux and every gradient leaf against JAX's."""
     jcfg, tcfg, jparams, e2s, batch, (jloss, jaux, jgrads) = _jax_reference(
-        arch, remat)
+        arch, remat, backend)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     names = sorted(_flat(tparams))
     flat = _flat(tparams)
@@ -303,6 +307,15 @@ MOE_ARCHS = sorted(a for a, c in JAX_ARCHS.items() if c.is_moe)
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_loss_and_grads_match_jax(arch, remat):
     check_loss_and_grads(arch, remat)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_loss_and_grads_match_jax_under_the_oracle(arch):
+    """``moe_backend="dense_ref"`` on both sides: every expert on every
+    token, nothing dropped, the same loss, counts and gradients."""
+    check_loss_and_grads(arch, True, "dense_ref")
+    assert int(_jax_reference(arch, True, "dense_ref")[-1][1][
+        "dropped_tokens"]) == 0
 
 
 def _gate_plan(case):

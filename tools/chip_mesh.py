@@ -7,12 +7,14 @@ from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. With one card it serves granite-moe-3b-a800m at full width with
 4 gloo ranks sharing it, at (1, 4) and (2, 2) in JAX's model-axis layout
 (each rank its shard of every leaf and its block of the KV cache), against
-one-process runs (16 layers in bf16 on one process's router logits and
-tokens, and 4 layers in fp32 as they come), then under the FSDP decode
-policy at (4, 1) (``policy_for``'s, for full granite: the weights over
-``data``, the activations replicated, the KV cache's rows over ``data``;
-8 layers, bf16, held to one process bit for bit); then trains granite at
-8 layers with 4 gloo ranks at (1, 4), and under FSDP
+one-process runs (``chip_smoke.MESH_PINNED_LAYERS`` layers in bf16 on one
+process's router logits and tokens, and ``chip_smoke.MESH_FP32_LAYERS``
+layers in fp32 as they come), then under the FSDP decode policy at
+(4, 1) (``policy_for``'s, for full granite: the weights over ``data``,
+the activations replicated, the KV cache's rows over ``data``;
+``chip_smoke.MESH_FSDP_LAYERS`` layers, bf16, held to one process bit for
+bit); then trains granite at ``chip_smoke.MESH_TRAIN_LAYERS`` layers with
+4 gloo ranks at (1, 4), and under FSDP
 (``policy_for(mesh, step_kind="train")``) at (2, 2) and (4, 1), against
 one process, with a save from FSDP (2, 2) restored at (4, 1). The SSM
 and hybrid families follow (each rank its SSD heads): mamba2-1.3b at full
@@ -27,8 +29,8 @@ and the collectives a decode step runs), and held to it. With four
 cards the gloo ranks get a card each, and the phases also serve at
 (1, 4) and under the FSDP decode policy at (4, 1) in NCCL
 ``decode_mode="scan"`` (full granite in bf16, profiling three replays of
-rank 0's captured step, the FSDP run held bit for bit; and fp32 at 4
-layers, held to one process exactly) and train full granite over NCCL
+rank 0's captured step, the FSDP run held bit for bit; and fp32 at
+``chip_smoke.MESH_FP32_LAYERS`` layers, held to one process exactly) and train full granite over NCCL
 at (1, 4) and under FSDP at (2, 2) (profiling one more step on every
 rank). The phases' checks raise on
 failure; their JSON lines are ``chip_smoke.py``'s. The kernels' table rows
