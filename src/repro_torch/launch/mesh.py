@@ -26,9 +26,12 @@ buffers, here and nowhere else: that is the transport when several ranks
 share one card (NCCL puts no two ranks on one GPU), and
 :attr:`Mesh.staged_bytes` counts the bytes copied each way.
 
-:func:`spawn` starts ``data · model`` ranks on one host (the tests on the
-CPU over ``gloo``; ``chip_smoke.py``'s ``mesh`` phase on the card) with a
-``file://`` store, one thread each, and joins them with a time limit.
+:class:`World` starts ranks on one host once, with a ``file://`` store
+and one thread each, and runs many functions on them with a time limit,
+each over a fresh mesh of any shape of its size (``chip_smoke.py``'s gloo
+runs on one card). :func:`spawn` is one such run on a world started for
+it (the tests on the CPU over ``gloo``; ``chip_smoke.py``'s NCCL runs on
+four cards).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import gc
 import itertools
 import os
 import pickle
+import queue
 import time
 import traceback
 from pathlib import Path
@@ -48,6 +52,7 @@ from ..device import resolve_device
 
 __all__ = [
     "Mesh",
+    "World",
     "make_production_mesh",
     "make_host_mesh",
     "policy_for",
@@ -366,13 +371,22 @@ def policy_for(mesh, *, step_kind: str, global_batch: int | None = None,
     )
 
 
-# ----------------------------------------------------------------- spawn
-def _rank_main(rank: int, fn, args, data: int, model: int, backend: str,
-               device, store_dir: str) -> None:
+# ----------------------------------------------------------------- World
+# how long a failed run waits for the other ranks' tracebacks, and a
+# closing world for its ranks to leave, before it kills them
+_FAILURE_GRACE_S = 5.0
+_CLOSE_TIMEOUT_S = 60.0
+
+
+def _join_world(rank: int, world: int, backend: str, device,
+                store_dir: str):
+    """This process as rank ``rank`` of a world of ``world`` ranks on this
+    host: one thread, its card (``device="cuda"``: ``cuda:(rank %
+    device_count)``), the default group over the ``file://`` store in
+    ``store_dir``. Returns its device."""
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
     os.environ.setdefault("LOCAL_RANK", str(rank))
-    world = data * model
     dev = device
     if device == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -383,78 +397,236 @@ def _rank_main(rank: int, fn, args, data: int, model: int, backend: str,
         # NCCL binds each rank's communicators to its own card
         device_id=dev if backend == "nccl" else None,
     )
+    return dev
+
+
+def _call_on_mesh(fn, args, data: int, model: int, dev, result: Path):
+    """``fn(mesh, *args)`` on a fresh ``(data, model)`` mesh of the world,
+    its result pickled into ``result``; returns the mesh once every rank
+    is done."""
+    mesh = make_host_mesh(data, model, device=dev)
+    out = fn(mesh, *args)
+    with open(result, "wb") as f:
+        pickle.dump(out, f)
+    # what fn left behind (a captured graph holding NCCL's kernels)
+    # goes before the groups do
+    del out
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.barrier()
+    return mesh
+
+
+def _world_main(rank: int, size: int, backend: str, device, store_dir: str,
+                tasks, done) -> None:
+    """A rank of a :class:`World`: joins the world once, then runs each
+    task ``(fn, data, model, args)`` from ``tasks`` on a fresh mesh and
+    answers on ``done``, until it reads None. A task that raises leaves
+    its traceback in ``store_dir`` and ends the rank (the parent then
+    stops the world)."""
+    from ..kernels import launches
+
+    dev = _join_world(rank, size, backend, device, store_dir)
+    seed = torch.initial_seed()
     try:
-        mesh = make_host_mesh(data, model, device=dev)
-        try:
-            result = fn(mesh, *args)
-        except BaseException:
-            # the cause, for the parent: the other ranks fail after it, in
-            # the collectives it left
-            (Path(store_dir) / f"error_{rank}.txt").write_text(
-                traceback.format_exc())
-            raise
-        with open(Path(store_dir) / f"result_{rank}.pkl", "wb") as f:
-            pickle.dump(result, f)
-        # what fn left behind (a captured graph holding NCCL's kernels)
-        # goes before the groups do
-        del result
-        gc.collect()
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dist.barrier()
+        while (task := tasks.get()) is not None:
+            fn, data, model, args = task
+            # each run starts as the rank's first did: its launch counts
+            # at 0, the default generators at the seed the process drew
+            launches.reset()
+            torch.manual_seed(seed)
+            try:
+                mesh = _call_on_mesh(fn, args, data, model, dev,
+                                     Path(store_dir) / f"result_{rank}.pkl")
+                for group, _ in mesh._groups.values():
+                    dist.destroy_process_group(group)
+            except BaseException:
+                # the cause, for the parent (the other ranks fail after
+                # it, in the collectives it left): fn, the mesh, the
+                # result's pickling or the groups' teardown
+                (Path(store_dir) / f"error_{rank}.txt").write_text(
+                    traceback.format_exc())
+                done.put((rank, "error"))
+                raise
+            # the card's memory back for the parent between runs
+            del mesh
+            gc.collect()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            done.put((rank, "ok"))
     finally:
         dist.destroy_process_group()
+
+
+def _clear_store(store_dir: Path) -> None:
+    for stale in (store_dir / "store", *store_dir.glob("error_*.txt"),
+                  *store_dir.glob("result_*.pkl")):
+        stale.unlink(missing_ok=True)
+
+
+def _failure(store_dir: Path) -> str | None:
+    """Every failed rank's traceback, as the ranks left them."""
+    causes = sorted(store_dir.glob("error_*.txt"))
+    if not causes:
+        return None
+    return "\n".join(f"{p.stem.replace('_', ' ')} raised:\n{p.read_text()}"
+                     for p in causes)
+
+
+def _results(store_dir: Path, n: int) -> list:
+    out = []
+    for rank in range(n):
+        path = store_dir / f"result_{rank}.pkl"
+        with open(path, "rb") as f:
+            out.append(pickle.load(f))
+        path.unlink()
+    return out
+
+
+class World:
+    """``size`` ranks of this host, started once, that run many functions:
+    each :meth:`run` builds a fresh :class:`Mesh` of the shape it asks
+    for over the same processes, without a process start and a card
+    context a run.
+
+    Each rank is a process of the spawn context with one thread
+    (``torch.set_num_threads(1)``) that joins the world through a
+    ``file://`` store in ``store_dir`` (no TCP port), on ``device``
+    (``"cuda"``: ``cuda:(rank % device_count)``, or ``"cpu"``; the caller
+    names it, as it names ``backend``, ``"nccl"`` or ``"gloo"``). Each run
+    starts as the rank's first did: the launch counts at 0 and torch's
+    default generators at the seed the process drew when it started. Use as a context manager, or
+    :meth:`start` it and :meth:`close` it in a ``finally``: closing joins
+    every rank and removes the store, whatever happened before."""
+
+    def __init__(self, size: int, *, backend: str, device, store_dir):
+        self.size, self.backend, self.device = size, backend, device
+        self.store_dir = Path(store_dir)
+        self.processes: list = []
+        self._tasks: list = []
+        self._done = None
+        self._stopped = False
+
+    def __enter__(self) -> "World":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def start(self) -> "World":
+        """Start the ranks (they join the world while the caller goes
+        on); returns the world."""
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.store_dir.mkdir(parents=True, exist_ok=True)
+        _clear_store(self.store_dir)
+        self._done = ctx.Queue()
+        try:
+            for rank in range(self.size):
+                tasks = ctx.Queue()
+                proc = ctx.Process(
+                    target=_world_main, daemon=True,
+                    args=(rank, self.size, self.backend, self.device,
+                          str(self.store_dir), tasks, self._done))
+                proc.start()
+                self._tasks.append(tasks)
+                self.processes.append(proc)
+        except BaseException:
+            self.close()
+            raise
+        return self
+
+    def run(self, fn, data: int, model: int, *, args=(),
+            timeout: float = 600.0) -> list:
+        """``fn(mesh, *args)`` on every rank, over a fresh ``(data,
+        model)`` mesh of the world (``data · model`` must be its size;
+        ``fn`` a module-level function, so that the spawn context can
+        pickle it), and each rank's result in rank order. After it, each
+        rank destroys the mesh's groups, frees what ``fn`` left behind and
+        resets the card's peak-memory statistics. A rank that raises fails
+        the run with its traceback (every failed rank's, when others fail
+        after it); a run that has not finished within ``timeout`` seconds
+        raises ``TimeoutError``. Either stops the whole world, which takes
+        no run after."""
+        if data * model != self.size:
+            raise ValueError(f"mesh ({data}, {model}) needs {data * model} "
+                             f"ranks, the world has {self.size}")
+        if self._stopped or not self.processes:
+            raise RuntimeError("the world's ranks are not running")
+        try:
+            for tasks in self._tasks:
+                tasks.put((fn, data, model, args))
+            self._wait(time.monotonic() + timeout,
+                       f"mesh ({data}, {model}) ranks did not finish within "
+                       f"{timeout} s")
+            return _results(self.store_dir, self.size)
+        except BaseException:
+            self._stop()
+            raise
+
+    def _wait(self, deadline: float, late: str) -> None:
+        """Until every rank has answered; raises ``TimeoutError(late)``
+        past ``deadline``, and every failed rank's traceback if one fails."""
+        waiting = set(range(self.size))
+        while waiting:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(late)
+            try:
+                rank, status = self._done.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r in waiting if not self.processes[r].is_alive()]
+                if dead:
+                    self._fail(f"rank(s) {dead} exited without a result")
+                continue
+            if status != "ok":
+                self._fail(f"rank {rank} raised")
+            waiting.discard(rank)
+
+    def _fail(self, what: str) -> None:
+        # the others fail after the first, in the collectives it left:
+        # a moment for their tracebacks
+        deadline = time.monotonic() + _FAILURE_GRACE_S
+        while (time.monotonic() < deadline
+               and any(p.is_alive() for p in self.processes)):
+            time.sleep(0.1)
+        raise RuntimeError(_failure(self.store_dir) or what)
+
+    def _stop(self) -> None:
+        """Kill every rank and wait for it."""
+        self._stopped = True
+        for p in self.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        for q in (*self._tasks, self._done):
+            if q is not None:
+                q.cancel_join_thread()
+                q.close()
+
+    def close(self) -> None:
+        """Let every rank leave the world (killed if it has not within
+        :data:`_CLOSE_TIMEOUT_S`), then remove the store."""
+        if not self._stopped:
+            for tasks in self._tasks:
+                tasks.put(None)
+            deadline = time.monotonic() + _CLOSE_TIMEOUT_S
+            for p in self.processes:
+                p.join(max(deadline - time.monotonic(), 0.0))
+            self._stop()
+        _clear_store(self.store_dir)
 
 
 def spawn(fn, data: int, model: int, *, backend: str, device, store_dir,
           args=(), timeout: float = 600.0) -> list:
     """Run ``fn(mesh, *args)`` on ``data · model`` ranks of this host and
-    return each rank's result, in rank order.
-
-    Each rank is a process of the spawn context with one thread
-    (``torch.set_num_threads(1)``) that joins the world through a
-    ``file://`` store in ``store_dir`` (no TCP port), builds
-    :func:`make_host_mesh` on ``device`` (``"cuda"``: ``cuda:(rank %
-    device_count)``, or ``"cpu"``; the caller names it, as it names
-    ``backend``, ``"nccl"`` or ``"gloo"``), calls ``fn`` (a module-level function,
-    so that the spawn context can pickle it) and pickles its result into
-    ``store_dir``. A rank that raises fails the call with its traceback
-    (every failed rank's, when others fail after it); a world that has not
-    finished within ``timeout`` seconds is killed and raises
-    ``TimeoutError``."""
-    import torch.multiprocessing as mp
-
-    store_dir = Path(store_dir)
-    store_dir.mkdir(parents=True, exist_ok=True)
-    for stale in (store_dir / "store", *store_dir.glob("error_*.txt"),
-                  *store_dir.glob("result_*.pkl")):
-        stale.unlink(missing_ok=True)
-    ctx = mp.start_processes(
-        _rank_main, args=(fn, args, data, model, backend, device,
-                          str(store_dir)),
-        nprocs=data * model, join=False, start_method="spawn",
-    )
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(
-                    f"mesh ({data}, {model}) ranks did not finish within "
-                    f"{timeout} s")
-    except mp.ProcessRaisedException as e:
-        causes = sorted(store_dir.glob("error_*.txt"))
-        if not causes:
-            raise
-        raise RuntimeError("\n".join(
-            f"{p.stem.replace('_', ' ')} raised:\n{p.read_text()}"
-            for p in causes)) from e
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    out = []
-    for rank in range(data * model):
-        with open(store_dir / f"result_{rank}.pkl", "rb") as f:
-            out.append(pickle.load(f))
-    return out
+    return each rank's result, in rank order: one :meth:`World.run` of a
+    :class:`World` of that size, started for it and closed after it
+    (``backend``, ``device``, ``store_dir``, the failures and the
+    ``timeout`` as there)."""
+    with World(data * model, backend=backend, device=device,
+               store_dir=store_dir) as world:
+        return world.run(fn, data, model, args=args, timeout=timeout)

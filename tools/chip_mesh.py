@@ -5,8 +5,10 @@ alone on the card(s).
 
 from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. With one card it serves granite-moe-3b-a800m at full width with
-4 gloo ranks sharing it, at (1, 4) and (2, 2) in JAX's model-axis layout
-(each rank its shard of every leaf and its block of the KV cache), against
+4 gloo ranks sharing it (one world of ranks a phase, started once:
+``repro_torch.launch.mesh.World``), at (1, 4) and (2, 2) in JAX's
+model-axis layout (each rank its shard of every leaf and its block of the
+KV cache), against
 one-process runs (``chip_smoke.MESH_PINNED_LAYERS`` layers in bf16 on one
 process's router logits and tokens, and ``chip_smoke.MESH_FP32_LAYERS``
 layers in fp32 as they come), then under the FSDP decode policy at
