@@ -94,6 +94,17 @@ the prefill's K/V is seated only by the row's owner, and a migration
 record's ``payload_bytes`` counts each slot's whole row, every data row's
 block of it.
 
+**Two clocks.** The engine keeps two records of its work. The telemetry
+hub, copied from the JAX package, stamps the simulated fleet's clock and
+feeds the parity tests and the decision replay. The real-clock timeline
+(:attr:`ServingEngine.timeline`, :mod:`~repro_torch.serving.timeline`)
+stamps the host's ``time.perf_counter`` and feeds operators and the
+benchmark: one ``step`` span a step with work, with its ``prefill``
+(``issue``), ``decode`` and ``control`` children, and on each request
+(``Request.timeline``) its first admission, its prefill and the steps it
+decoded in. The timeline is always on, makes no device call and opens no
+profiler range.
+
 **Telemetry** (:mod:`repro_torch.telemetry`): the engine always holds a
 hub (``telemetry=None`` gives a disabled one, which records counters but
 no events) whose clock is the simulated time. It counts steps, decoded and
@@ -231,6 +242,7 @@ from .sampling import sample
 from .scheduler import Request, Scheduler
 from .shed import ShedConfig, default_token_bytes
 from .slo import slo_report
+from .timeline import Timeline, clock
 
 __all__ = ["EngineConfig", "ServingEngine"]
 
@@ -451,6 +463,10 @@ class ServingEngine:
         self.kv_pool: PagedKVPool | None = None
         self.expert_counts: np.ndarray | None = None  # (L, E), last step
         self.sim_step_latencies: list[float] = []
+        # the real-clock spans (serving/timeline.py), and the (start, end)
+        # of the last install's issue of its forward
+        self.timeline = Timeline()
+        self._issued: tuple[float, float] | None = None
         self.profile = profile
         # ground truth, when a caller injects one that departs the profile
         self.true_profile: VariabilityProfile | None = None
@@ -684,6 +700,7 @@ class ServingEngine:
             self._uid, prompt, max_new_tokens,
             arrival_step=self.step_count, task=task,
         )
+        req.timeline.spans = self.timeline
         req.arrival_time = (
             self.sim_time if arrival_time is None else float(arrival_time)
         )
@@ -740,6 +757,7 @@ class ServingEngine:
         ``ValueError``, where the JAX engine's pad by ``pool − new`` does.
         Under ``kv_seq`` sharding the rank writes the positions of its
         block only."""
+        t_issue = clock()
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         logits, caches = prefill(
             self.params, tokens, self.config, self.placements,
@@ -785,6 +803,7 @@ class ServingEngine:
                                 else pool.dim() - 3, local).copy_(
                         new.select(new.dim() - 4 if part == "state"
                                    else new.dim() - 3, 0))
+        self._issued = (t_issue, clock())
         self.cur_len[slot] = req.prompt_len
         self.last_token[slot] = int(torch.argmax(logits[0]))
         self.installed[slot] = True
@@ -792,6 +811,7 @@ class ServingEngine:
     def _install_paged_slot(self, slot: int, req: Request) -> None:
         """Prefill one request and write its K/V into its owned blocks (the
         paged pool is whole on every rank)."""
+        t_issue = clock()
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
         logits, caches = prefill(
             self.params, tokens, self.config, self.placements,
@@ -799,7 +819,9 @@ class ServingEngine:
         )
         caches = self._whole_prompt_cache(caches, req.prompt_len)
         self.prefill_count += 1
+        self._issued = (t_issue, clock())
         table = self.kv_pool.block_table(req.uid)
+        # a copy from pageable host memory: it waits for the forward
         blocks = torch.as_tensor(table, dtype=torch.long, device=self.device)
         bs = self.kv_pool.block_size
         for name in ("k", "v"):
@@ -816,9 +838,10 @@ class ServingEngine:
         self.last_token[slot] = int(torch.argmax(logits[0]))
         self.installed[slot] = True
 
-    def _prefill_phase(self) -> float:
+    def _prefill_phase(self, step_row: int) -> float:
         """Advance prefill for admitted-but-uninstalled slots; returns the
-        simulated prefill time charged to this step."""
+        simulated prefill time charged to this step. Each install is a
+        real-clock ``prefill`` span under the step's span, at ``step_row``."""
         chunk = self.ecfg.prefill_chunk
         charge = 0.0
         advanced = 0
@@ -833,10 +856,18 @@ class ServingEngine:
             advanced += advance
             charge += advance * self.ecfg.prefill_time_per_token
             if req.prefilled:
+                row = self.timeline.add(
+                    "prefill", clock(), parent=step_row, uid=req.uid,
+                    slot=slot, tokens=req.prompt_len)
+                self._issued = None
                 if self.paged:
                     self._install_paged_slot(slot, req)
                 else:
                     self._write_slot(slot, req)
+                self.timeline.close(row, clock())
+                self.timeline.add("issue", *self._issued, parent=row)
+                if req.timeline.prefill < 0:  # keep the first
+                    req.timeline.prefill = row
                 installed_now.append(req)
         self.sim_time += charge
         if advanced > 0:
@@ -1415,7 +1446,9 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> dict[str, Any]:
         """One engine iteration: ingest arrivals → admit → prefill →
-        decode → sample → bookkeeping (continuous batching)."""
+        decode → sample → bookkeeping (continuous batching). A step with
+        work is one real-clock ``step`` span (serving/timeline.py)."""
+        t_step = clock()
         self._ingest_arrivals()
         tel = self.telemetry
         t0 = self.sim_time
@@ -1426,7 +1459,9 @@ class ServingEngine:
         if not self.scheduler.active:
             return {"active": 0}
 
-        prefill_charge = self._prefill_phase()
+        step_row = self.timeline.add("step", t_step, step=self.step_count)
+        rows_before = int(self.installed.sum())
+        prefill_charge = self._prefill_phase(step_row)
         if self.paged:
             self._ensure_decode_capacity()
         if not self.installed.any():
@@ -1440,6 +1475,7 @@ class ServingEngine:
                 step=self.step_count, active=self.scheduler.num_active,
             )
             self.step_count += 1
+            self.timeline.close(step_row, clock())
             return {
                 "active": self.scheduler.num_active,
                 "finished": len(self.finished),
@@ -1463,10 +1499,13 @@ class ServingEngine:
         if self.decode_graph is None and shed is not None:
             shed = torch.as_tensor(shed, device=dev)
         cur_len, tokens, block_tables = inputs
+        t_decode = clock()
         logits, self.caches, moe_aux = self._decode(
             self.params, self.caches, cur_len, tokens, self.config,
             self.placements, block_tables=block_tables, shed_enables=shed,
         )
+        self.timeline.add("decode", t_decode, clock(), parent=step_row,
+                          rows_before=rows_before)
         self.decode_count += 1
         generator = None
         if self.ecfg.temperature > 0.0:
@@ -1477,7 +1516,10 @@ class ServingEngine:
         ).cpu().numpy()
         sim_latency = prefill_charge + self.ecfg.other_time_per_step
         if moe_aux is not None:
+            t_control = clock()
             sim_latency = self._moe_step(moe_aux, sim_latency)
+            self.timeline.add("control", t_control, clock(),
+                              parent=step_row)
         tel.emit_span(
             "decode", self.sim_time, sim_latency - prefill_charge,
             step=self.step_count, active=int(self.installed.sum()),
@@ -1493,6 +1535,7 @@ class ServingEngine:
                 continue  # still prefilling (chunked): no token this step
             tok = int(next_tokens[slot])
             req.generated.append(tok)
+            req.timeline.steps.append(step_row)
             decoded += 1
             self.last_token[slot] = tok
             self.cur_len[slot] += 1
@@ -1518,6 +1561,7 @@ class ServingEngine:
             "step", t0, self.sim_time - t0,
             step=self.step_count - 1, active=self.scheduler.num_active,
         )
+        self.timeline.close(step_row, clock())
         return {
             "active": self.scheduler.num_active,
             "finished": len(self.finished),

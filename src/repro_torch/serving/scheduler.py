@@ -4,7 +4,9 @@ The port's own copy of ``repro/serving/scheduler.py`` (numpy only). The
 engine binds its telemetry hub to :attr:`Scheduler.telemetry`, which
 counts admissions, budget skips and KV blocks, and records queue age and
 TTFT slack as the JAX scheduler does; the online plane re-wires the slow
-device factor when it repairs the profile. On the CPU,
+device factor when it repairs the profile. Admission also stamps a
+request's first admission on its real-clock ``Request.timeline``
+(:mod:`~repro_torch.serving.timeline`). On the CPU,
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_online.py`` holds
 these instruments against the JAX engine's registry; on the card,
 ``chip_smoke.py``'s ``online`` phase admits a 48-request stream through
@@ -36,9 +38,12 @@ preserved; its generated tokens are recomputed on re-admission).
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import deque
 
 import numpy as np
+
+from .timeline import RequestTimeline, clock
 
 __all__ = ["Request", "Scheduler"]
 
@@ -68,6 +73,9 @@ class Request:
     prefill_progress: int = 0  # prompt tokens prefilled so far (chunked)
     preemptions: int = 0  # times evicted by KV-pool pressure
     task: str = ""  # arrival-process task name (mix accounting)
+    # the real-clock stamps and spans (serving/timeline.py)
+    timeline: RequestTimeline = dataclasses.field(
+        default_factory=RequestTimeline, compare=False, repr=False)
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, dtype=np.int32)
@@ -161,6 +169,8 @@ class Scheduler:
             req.slot = slot
             self.active[slot] = req
             admissions.append((slot, req))
+            if math.isnan(req.timeline.admitted):  # the first admission
+                req.timeline.admitted = clock()
             if self.telemetry is not None:
                 self._record_admission(req)
         if admissions and self.telemetry is not None:
